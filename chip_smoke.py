@@ -3,15 +3,21 @@
 
     python3 chip_smoke.py
 
-Builds the four CUDA kernels of the serving path from ``src/repro_torch/csrc``,
-holds each against its plain PyTorch version at the shapes llama3-8b's
-serving path gives it (and times kernel, plain version, one library call and
-the bytes/FLOP bound), then serves llama3-8b at full width (batch 4, prompt
-512, gen 32, random weights from a seeded ``torch.Generator``) through
-``repro_torch.launch.serve.serve_batch`` and checks that every kernel ran and
-that the ``ref`` backend agrees.  Exits non-zero, printing no result, when no
+Phase 1 builds the CUDA sources of ``src/repro_torch/csrc`` (one ``nvcc``
+each, all at once).  Phase 2 holds each of the five kernels against its
+plain PyTorch version at the shapes llama3-8b's paths give it, and times
+kernel, plain version, one library call (where one computes the same
+function) and the bytes/FLOP bound.  Phase 3 serves llama3-8b at full width
+(batch 4, prompt 512, gen 32, random weights from a seeded
+``torch.Generator``) through ``repro_torch.launch.serve.serve_batch`` with a
+bf16 and with an int8 KV cache.  Phase 4 runs the paged continuous-batching
+engine (int8 pool, 8 slots, a 16-request trace that forces an eviction).
+Each path runs with the launch counts set to 0 just before it, must launch
+every kernel it uses, and must hold teacher-forced logits within a stated
+bound of the ``ref`` backend.  Exits non-zero, printing no result, when no
 CUDA device is visible or the port's sources are missing; any failing phase
-raises.  The last line is ``{"ok": true, "device": {...}}``.
+raises.  The last line is ``{"ok": true, "device": {...}}``; before it come
+the card's name and power limit and the ``{"kernels": [...]}`` line.
 """
 from __future__ import annotations
 
@@ -27,13 +33,20 @@ HBM_BYTES_S = 3.35e12    # H100 SXM HBM3
 BF16_FLOP_S = 989e12     # dense bf16 tensor cores
 FP32_FLOP_S = 67e12      # FP32 outside the tensor cores
 BATCH, PROMPT, GEN = 4, 512, 32
-SOURCE = "src/repro_torch/csrc/{}.cu"
-REPLACES = {
-    "lords_matmul": "src/repro/kernels/lords_matmul.py:140",
-    "lords_decode": "src/repro/kernels/lords_decode.py:84",
-    "attn_prefill": "src/repro/kernels/attn_prefill.py:101",
-    "attn_decode": "src/repro/kernels/attn_decode.py:122",
+# the engine of phase 4: its geometry, pool and trace
+ENGINE = dict(slots=8, page_size=64, chunk=512, max_pages=20, burst=8,
+              total_pages=49)
+N_REQUESTS = 16
+KERNELS = {  # name -> (source, the TPU kernel it replaces)
+    "lords_matmul": ("lords_matmul", "src/repro/kernels/lords_matmul.py:140"),
+    "lords_decode": ("lords_decode", "src/repro/kernels/lords_decode.py:84"),
+    "attn_prefill": ("attn_prefill", "src/repro/kernels/attn_prefill.py:101"),
+    "attn_decode": ("attn_decode", "src/repro/kernels/attn_decode.py:122"),
+    "attn_decode_paged": ("attn_decode", "src/repro/kernels/attn_decode.py:292"),
 }
+NO_LIBRARY = ("no single PyTorch call reads an int8 or a paged cache; SDPA over "
+              "a bf16 contiguous cache of the same live length is printed as a "
+              "yardstick")
 
 
 def log(msg: str) -> None:
@@ -76,44 +89,59 @@ def bound(nbytes: float, ops: dict) -> tuple[float, str]:
 
 
 class KernelCheck:
-    """Accumulates one kernel's per-shape results into its summary row."""
+    """One kernel's checks.  Each check is one shape (or mode) against the
+    plain version; the row's numbers are the weighted sum of the primary
+    checks (the shapes of the newest path that runs the kernel, named in
+    ``primary_checks``), the others are listed with theirs under
+    ``checks``.  ``model_layers`` is the depth the launch counts were taken
+    at."""
 
     def __init__(self, name: str):
         self.name = name
-        self.err = 0.0
-        self.ms = self.plain_ms = self.bound_ms = 0.0
-        self.library_ms = 0.0
-        self.bytes_bound = self.ops_bound = 0.0
-        self.shapes = []
+        self.checks = []
 
     def add(self, label, err, tol, ms, plain_ms, library_ms, bound_ms, bound_by,
-            weight=1):
+            weight=1, primary=True):
         ok = err <= tol
+        lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
         log(f"[kernel] {self.name} {label}: max_abs_err {err:.3e} (tol "
             f"{tol:.3e}) {'PASS' if ok else 'FAIL'} | kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
+            f"plain {plain_ms:.4f} ms, library {lib}, bound "
             f"{bound_ms:.4f} ms ({bound_by}) x{weight}")
         if not ok:
             raise AssertionError(f"{self.name} {label}: error {err} > {tol}")
-        self.err = max(self.err, err)
-        self.ms += weight * ms
-        self.plain_ms += weight * plain_ms
-        self.library_ms += weight * library_ms
-        self.bound_ms += weight * bound_ms
-        if bound_by == "bytes":
-            self.bytes_bound += weight * bound_ms
-        else:
-            self.ops_bound += weight * bound_ms
-        self.shapes.append(label)
+        self.checks.append({"label": label, "primary": primary, "weight": weight,
+                            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                            "bound_ms": bound_ms, "bound_by": bound_by,
+                            "library_ms": library_ms})
 
-    def row(self, launches: int) -> dict:
-        return {"name": self.name, "route": "cuda", "source": SOURCE.format(self.name),
-                "replaces": REPLACES[self.name], "launches": launches,
-                "max_abs_err": self.err, "ms": self.ms, "plain_ms": self.plain_ms,
-                "bound_ms": self.bound_ms,
-                "bound_by": "bytes" if self.bytes_bound >= self.ops_bound else "operations",
-                "library_ms": self.library_ms, "per": "one layer of the main path",
-                "shapes": self.shapes}
+    @property
+    def err(self) -> float:
+        return max(c["max_abs_err"] for c in self.checks)
+
+    def row(self, launches: dict, layers: int) -> dict:
+        prim = [c for c in self.checks if c["primary"]]
+
+        def total(key):
+            return sum(c["weight"] * c[key] for c in prim)
+
+        by = {k: sum(c["weight"] * c["bound_ms"] for c in prim if c["bound_by"] == k)
+              for k in ("bytes", "operations")}
+        lib = (None if any(c["library_ms"] is None for c in prim)
+               else total("library_ms"))
+        source, replaces = KERNELS[self.name]
+        row = {"name": self.name, "route": "cuda", "source": f"src/repro_torch/csrc/{source}.cu",
+               "replaces": replaces, "launches": sum(launches.values()),
+               "launches_by_path": launches, "max_abs_err": self.err,
+               "ms": total("ms"), "plain_ms": total("plain_ms"),
+               "bound_ms": total("bound_ms"),
+               "bound_by": "bytes" if by["bytes"] >= by["operations"] else "operations",
+               "library_ms": lib, "per": "one layer of the primary checks' path",
+               "primary_checks": [c["label"] for c in prim], "model_layers": layers,
+               "checks": self.checks}
+        if lib is None:
+            row["library_note"] = NO_LIBRARY
+        return row
 
 
 def check_kernels(cfg, torch, F):
@@ -121,9 +149,7 @@ def check_kernels(cfg, torch, F):
     shapes; returns the per-kernel summaries (times are per layer)."""
     from repro_torch.core import init_quantized_linear
     from repro_torch.core.lords import dequantize_weight
-    from repro_torch.kernels import dispatch, ref
-    from repro_torch.kernels.attn_decode import attn_decode
-    from repro_torch.kernels.attn_prefill import BQ, attn_prefill
+    from repro_torch.kernels import ref
     from repro_torch.kernels.lords_decode import lords_decode
     from repro_torch.kernels.lords_matmul import lords_matmul
 
@@ -143,7 +169,7 @@ def check_kernels(cfg, torch, F):
                         ("wo", d, nh * hd), ("gate", dff, d), ("up", dff, d),
                         ("down", d, dff)):
         shapes.setdefault((n, k), []).append(label)
-    results = {n: KernelCheck(n) for n in REPLACES}
+    results = {n: KernelCheck(n) for n in KERNELS}
     for (n, k), names in shapes.items():
         label, weight = "/".join(names), len(names)
         p = init_quantized_linear(n, k, spec, generator=gen, device=dev)
@@ -172,15 +198,42 @@ def check_kernels(cfg, torch, F):
                 b_ms, b_by, weight)
         del p, w_hat
 
-    # attention at the main path's shapes: window 544 padded to 576 for the
-    # prefill tiles, prompt 512 live, dead tail -1
+    check_attention(cfg, torch, F, results, gen, flush)
+    del scratch
+    return results
+
+
+def _randn(torch, gen, *shape, dtype=None):
+    t = torch.randn(shape, generator=gen, device="cuda")
+    return t if dtype is None else t.to(dtype)
+
+
+def check_attention(cfg, torch, F, results, gen, flush):
+    """Phase 2, attention: prefill and decode at serve_batch's shapes (bf16
+    and int8 cache), chunk-mode prefill and paged decode (bf16 and int8
+    pool) at the engine's geometry."""
+    import numpy as np
+
+    from repro_torch.kernels import dispatch, ref
+    from repro_torch.kernels.attn_decode import attn_decode
+    from repro_torch.kernels.attn_decode_paged import attn_decode_paged
+    from repro_torch.kernels.attn_prefill import BQ, attn_prefill
+    from repro_torch.models.common import kv_quantize
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    hd, nh, nkv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    g = nh // nkv
+    scale = 1.0 / hd**0.5
+    cap = PROMPT + GEN
+
+    # serve_batch's prefill: window 544 padded to 576, prompt 512 live
     s_pad = -(-cap // BQ) * BQ
     col = torch.arange(s_pad, device=dev, dtype=torch.int32)
     positions = torch.where(col < PROMPT, col, -1)[None].expand(BATCH, s_pad).contiguous()
-    q = torch.randn(BATCH, s_pad, nh, hd, generator=gen, device=dev).to(torch.bfloat16)
-    k = torch.randn(BATCH, s_pad, nkv, hd, generator=gen, device=dev).to(torch.bfloat16)
-    v = torch.randn(BATCH, s_pad, nkv, hd, generator=gen, device=dev).to(torch.bfloat16)
-    scale = 1.0 / hd**0.5
+    q = _randn(torch, gen, BATCH, s_pad, nh, hd, dtype=bf16)
+    k = _randn(torch, gen, BATCH, s_pad, nkv, hd, dtype=bf16)
+    v = _randn(torch, gen, BATCH, s_pad, nkv, hd, dtype=bf16)
     out = attn_prefill(q, k, v, positions, positions, logit_scale=scale)
     out_ref = ref.attn_prefill_pos(q, k, v, positions, positions, scale)
     # f32 on both sides; exp and summation order differ: 1e-4 absolute on
@@ -189,113 +242,257 @@ def check_kernels(cfg, torch, F):
     live = ((positions[:, None, :] <= positions[:, :, None])
             & (positions[:, None, :] >= 0)).sum().item()
     nbytes = q.numel() * 2 + 2 * k.numel() * 2 + out.numel() * 4 + 2 * positions.numel() * 4
-    b_ms, b_by = bound(nbytes, {"bf16": (4 * hd * nh * live, BF16_FLOP_S)})
+    b_ms, b_by = bound(nbytes, {"bf16": (4 * hd * g * live * nkv, BF16_FLOP_S)})
     qt = q[:, :PROMPT].transpose(1, 2).contiguous()
     kt = k[:, :PROMPT].transpose(1, 2).contiguous()
     vt = v[:, :PROMPT].transpose(1, 2).contiguous()
     results["attn_prefill"].add(
-        f"b={BATCH} s=S={s_pad} nh={nh} nkv={nkv} hd={hd} live_pairs={live}",
-        err, 1e-4,
+        f"serve_batch prefill b={BATCH} s=S={s_pad} nh={nh} nkv={nkv} hd={hd} "
+        f"live_pairs={live}", err, 1e-4,
         timed(lambda: attn_prefill(q, k, v, positions, positions, logit_scale=scale), 10, flush),
         timed(lambda: ref.attn_prefill_pos(q, k, v, positions, positions, scale), 3, flush),
         timed(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                      enable_gqa=True), 10, flush),
-        b_ms, b_by)
+        b_ms, b_by, primary=False)
+    del q, k, v, qt, kt, vt, out, out_ref
 
-    g = nh // nkv
-    kc = torch.randn(BATCH, cap, nkv, hd, generator=gen, device=dev).to(torch.bfloat16)
-    vc = torch.randn(BATCH, cap, nkv, hd, generator=gen, device=dev).to(torch.bfloat16)
-    qd = torch.randn(BATCH, nkv, g, hd, generator=gen, device=dev).to(torch.bfloat16)
-    pos = torch.full((BATCH,), cap - 2, dtype=torch.int32, device=dev)  # last step
+    # the engine's chunk step: 8 slots x 512 queries against the prefix
+    # window of max_pages*64 keys (live below each slot's chunk start) ++
+    # the chunk; kpos is not monotonic
+    slots, cs = ENGINE["slots"], ENGINE["chunk"]
+    window = ENGINE["max_pages"] * ENGINE["page_size"]
+    rng = np.random.default_rng(2)
+    pos0 = np.array([0, cs] * (slots // 2))
+    n_live = np.where(pos0 == 0, cs, rng.integers(64, cs + 1, slots))
+    qpos = np.full((slots, cs), -1, np.int32)
+    kpos = np.full((slots, window + cs), -1, np.int32)
+    for i, (p0, n) in enumerate(zip(pos0, n_live)):
+        qpos[i, :n] = p0 + np.arange(n)
+        kpos[i, :p0] = np.arange(p0)
+        kpos[i, window:window + n] = p0 + np.arange(n)
+    qpos_t = torch.from_numpy(qpos).to(dev)
+    kpos_t = torch.from_numpy(kpos).to(dev)
+    q = _randn(torch, gen, slots, cs, nh, hd, dtype=bf16)
+    k = _randn(torch, gen, slots, window + cs, nkv, hd, dtype=bf16)
+    v = _randn(torch, gen, slots, window + cs, nkv, hd, dtype=bf16)
+
+    def chunk():
+        return dispatch.qattention("chunk_prefill", q, k, v, qpos_t, kpos_t,
+                                   logit_scale=scale, backend="fused")
+
+    out = chunk()
+    out_ref = ref.attn_chunk_prefill_ref(q, k, v, qpos_t, kpos_t, scale)
+    qlive = qpos_t >= 0
+    err = (out[qlive] - out_ref[qlive]).abs().max().item()  # dead rows differ by contract
+    pairs = ((kpos_t[:, None, :] <= qpos_t[:, :, None]) & (kpos_t[:, None, :] >= 0)
+             & qlive[:, :, None]).sum().item()
+    live_keys = int((kpos >= 0).sum())
+    nbytes = (q.numel() * 2 + 2 * live_keys * nkv * hd * 2 + out.numel() * 4
+              + (qpos.size + kpos.size) * 4)
+    b_ms, b_by = bound(nbytes, {"bf16": (4 * hd * g * pairs * nkv, BF16_FLOP_S)})
+    mask = ((kpos_t[:, None, :] <= qpos_t[:, :, None]) & (kpos_t[:, None, :] >= 0))[:, None]
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    results["attn_prefill"].add(
+        f"engine chunk slots={slots} chunk={cs} keys={window}+{cs} live_keys={live_keys} "
+        f"live_pairs={pairs}", err, 1e-4,
+        timed(chunk, 10, flush),
+        timed(lambda: ref.attn_chunk_prefill_ref(q, k, v, qpos_t, kpos_t, scale), 3, flush),
+        timed(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                     enable_gqa=True), 10, flush),
+        b_ms, b_by)
+    del q, k, v, qt, kt, vt, out, out_ref, mask
+
+    # serve_batch's decode at its last step: 543 of 544 slots live, bf16 and
+    # int8 cache (codes and per-(slot, head) scales from kv_quantize)
+    kc = _randn(torch, gen, BATCH, cap, nkv, hd, dtype=bf16)
+    vc = _randn(torch, gen, BATCH, cap, nkv, hd, dtype=bf16)
+    qd = _randn(torch, gen, BATCH, nkv, g, hd, dtype=bf16)
+    pos = torch.full((BATCH,), cap - 2, dtype=torch.int32, device=dev)
     kmask = dispatch.decode_kmask(pos, cap)
-    out = attn_decode(qd, kc, vc, kmask, logit_scale=scale)
-    out_ref = ref.attn_decode_kmask(qd, kc, vc, kmask, scale)
-    err = (out - out_ref).abs().max().item()
-    n_live = int(pos[0].item()) + 1
-    nbytes = qd.numel() * 2 + 2 * BATCH * n_live * nkv * hd * 2 + kmask.numel() * 4 \
-        + out.numel() * 4
-    b_ms, b_by = bound(nbytes, {"bf16": (4 * hd * nh * n_live * BATCH, BF16_FLOP_S)})
+    n_live = cap - 1
     qs = qd.reshape(BATCH, nh, 1, hd)
     ks_, vs_ = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
-    mask4 = kmask[:, None, None, :].to(torch.bfloat16)
-    results["attn_decode"].add(
-        f"b={BATCH} S={cap} nkv={nkv} g={g} hd={hd} live={n_live}", err, 1e-4,
-        timed(lambda: attn_decode(qd, kc, vc, kmask, logit_scale=scale), 50, flush),
-        timed(lambda: ref.attn_decode_kmask(qd, kc, vc, kmask, scale), 5, flush),
-        timed(lambda: F.scaled_dot_product_attention(qs, ks_, vs_, attn_mask=mask4,
-                                                     enable_gqa=True), 50, flush),
-        b_ms, b_by)
-    del scratch
-    return results
+    mask4 = kmask[:, None, None, :].to(bf16)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qs, ks_, vs_, attn_mask=mask4, enable_gqa=True)
+
+    sdpa_ms = timed(sdpa, 50, flush)
+    (kq, kscale), (vq, vscale) = kv_quantize(kc), kv_quantize(vc)
+    # f32 on both sides; the kernel multiplies the scale after the dot
+    # (int8) and sums in another order: 1e-4 absolute on O(1) outputs
+    for kv, operands, elt, primary in (("bf16", (kc, vc), 2, False),
+                                       ("int8", (kq, vq, kscale, vscale), 1, True)):
+        args = (qd, operands[0], operands[1], kmask, *operands[2:])
+        out = attn_decode(*args, logit_scale=scale)
+        err = (out - ref.attn_decode_kmask(qd, operands[0], operands[1], kmask, scale,
+                                           *operands[2:])).abs().max().item()
+        nbytes = (qd.numel() * 2 + 2 * BATCH * n_live * nkv * (hd * elt + (4 if elt == 1 else 0))
+                  + kmask.numel() * 4 + out.numel() * 4)
+        b_ms, b_by = bound(nbytes, {"bf16": (4 * hd * nh * n_live * BATCH, BF16_FLOP_S)})
+        results["attn_decode"].add(
+            f"{kv} cache b={BATCH} S={cap} nkv={nkv} g={g} hd={hd} live={n_live}", err, 1e-4,
+            timed(lambda: attn_decode(*args, logit_scale=scale), 50, flush),
+            timed(lambda: ref.attn_decode_kmask(qd, operands[0], operands[1], kmask, scale,
+                                                *operands[2:]), 5, flush),
+            sdpa_ms if kv == "bf16" else None, b_ms, b_by, primary=primary)
+    log(f"[yardstick] SDPA over the bf16 contiguous cache, live {n_live}: {sdpa_ms:.4f} ms")
+
+    # the engine's decode: 8 slots, pages of 64, 20-entry page tables into a
+    # pool of ENGINE["total_pages"]; scattered tables, unmapped entries 0
+    ps, npages, total = ENGINE["page_size"], ENGINE["max_pages"], ENGINE["total_pages"]
+    pos_np = rng.integers(64, npages * ps - 129, slots).astype(np.int32)
+    pt_np = np.zeros((slots, npages), np.int32)
+    for i, p in enumerate(pos_np):
+        used = p // ps + 1
+        pt_np[i, :used] = rng.choice(np.arange(1, total), size=used, replace=False)
+    pt = torch.from_numpy(pt_np).to(dev)
+    ppos = torch.from_numpy(pos_np).to(dev)
+    qp = _randn(torch, gen, slots, nkv, g, hd, dtype=bf16)
+    kpool = _randn(torch, gen, total, ps, nkv, hd, dtype=bf16)
+    vpool = _randn(torch, gen, total, ps, nkv, hd, dtype=bf16)
+    (kpq, kps), (vpq, vps) = kv_quantize(kpool), kv_quantize(vpool)
+    live_slots = int((pos_np + 1).sum())
+    capp = npages * ps
+    kcont = ref.gather_pool(kpool, pt).transpose(1, 2).contiguous()
+    vcont = ref.gather_pool(vpool, pt).transpose(1, 2).contiguous()
+    pmask = dispatch.decode_kmask(ppos, capp)[:, None, None, :].to(bf16)
+    sdpa_ms = timed(lambda: F.scaled_dot_product_attention(
+        qp.reshape(slots, nh, 1, hd), kcont, vcont, attn_mask=pmask, enable_gqa=True), 50, flush)
+    for kv, operands, elt, primary in (("bf16", (kpool, vpool), 2, False),
+                                       ("int8", (kpq, vpq, kps, vps), 1, True)):
+        args = (qp, operands[0], operands[1], pt, ppos, *operands[2:])
+
+        def plain():
+            return ref.attn_decode_paged_ref(pt, qp.reshape(slots, nh, hd), operands[0],
+                                             operands[1], ppos, *operands[2:],
+                                             logit_scale=scale)
+
+        out = attn_decode_paged(*args, logit_scale=scale)
+        err = (out.reshape(slots, nh, hd) - plain()).abs().max().item()
+        nbytes = (qp.numel() * 2 + 2 * live_slots * nkv * (hd * elt + (4 if elt == 1 else 0))
+                  + pt.numel() * 4 + ppos.numel() * 4 + out.numel() * 4)
+        b_ms, b_by = bound(nbytes, {"bf16": (4 * hd * nh * live_slots, BF16_FLOP_S)})
+        results["attn_decode_paged"].add(
+            f"{kv} pool slots={slots} ps={ps} np={npages} pages={total} "
+            f"live_slots={live_slots}", err, 1e-4,
+            timed(lambda: attn_decode_paged(*args, logit_scale=scale), 50, flush),
+            timed(plain, 5, flush), None, b_ms, b_by, primary=primary)
+    log(f"[yardstick] SDPA over the same live windows gathered into a bf16 contiguous "
+        f"cache (b={slots}, S={capp}): {sdpa_ms:.4f} ms")
+
+    # paged against contiguous at one live length: serve_batch's decode
+    # (b 4, 543 of 544 slots live) with its cache scattered over pages
+    used = -(-cap // ps)
+    spt = torch.from_numpy(rng.permutation(np.arange(1, total))[:BATCH * used]
+                           .reshape(BATCH, used).astype(np.int32)).to(dev)
+    for kv, operands in (("bf16", (kc, vc)), ("int8", (kq, vq, kscale, vscale))):
+        pools = []
+        for t in operands:  # the contiguous cache's rows, page by page
+            pool = torch.zeros((total, ps) + tuple(t.shape[2:]), dtype=t.dtype, device=dev)
+            padded = torch.zeros((BATCH, used * ps) + tuple(t.shape[2:]), dtype=t.dtype,
+                                 device=dev)
+            padded[:, :cap] = t
+            pool[spt.long()] = padded.reshape((BATCH, used, ps) + tuple(t.shape[2:]))
+            pools.append(pool)
+        paged_args = (qd, pools[0], pools[1], spt, pos, *pools[2:])
+        cont_args = (qd, operands[0], operands[1], kmask, *operands[2:])
+        diff = (attn_decode_paged(*paged_args, logit_scale=scale)
+                - attn_decode(*cont_args, logit_scale=scale)).abs().max().item()
+        paged_ms = timed(lambda: attn_decode_paged(*paged_args, logit_scale=scale), 50, flush)
+        cont_ms = timed(lambda: attn_decode(*cont_args, logit_scale=scale), 50, flush)
+        log(f"[yardstick] {kv} decode at one live length ({n_live} of {cap}, b={BATCH}): "
+            f"paged {paged_ms:.4f} ms vs contiguous {cont_ms:.4f} ms, max |Δ| {diff:.2e}")
 
 
-def serve_checks(cfg, torch):
-    """Phase 3: serve llama3-8b end to end on the card; returns the kernels'
-    launch counts in the main run."""
-    import numpy as np
+# teacher-forced logits, fused against ref: both backends are fed the same
+# tokens.  Tolerance: the ref path rounds attention probabilities and scaled
+# queries to bf16 where the kernels keep f32, and the bf16 residual stream
+# rounds each layer's differences again (2^-9 relative); as a random walk
+# over 32 layers that is ~sqrt(32)·2^-8 ≈ 4% of a logit's scale, so:
+# cosine >= 0.995, max |Δ| <= 10% of max |logit|.
+COS_MIN, REL_MAX = 0.995, 0.1
 
-    from repro_torch.kernels import dispatch
+
+class LogitBound:
+    def __init__(self):
+        self.cos, self.rel = 1.0, 0.0
+
+    def add(self, torch, fused, ref_, where):
+        a, r = fused.double(), ref_.double()
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"non-finite fused logits at {where}")
+        cos = torch.nn.functional.cosine_similarity(a, r, dim=-1).min().item()
+        self.cos = min(self.cos, cos)
+        self.rel = max(self.rel, ((a - r).abs().max() / r.abs().max()).item())
+
+    def check(self, what):
+        log(f"[{what}] teacher-forced logits fused vs ref: min cosine {self.cos:.6f} "
+            f"(>= {COS_MIN}), max |Δ|/max|logit| {self.rel:.2e} (<= {REL_MAX})")
+        if self.cos < COS_MIN or self.rel > REL_MAX:
+            raise AssertionError(f"{what}: fused and ref logits disagree beyond the bound")
+
+
+def _wrappers():
     from repro_torch.kernels.attn_decode import attn_decode
+    from repro_torch.kernels.attn_decode_paged import attn_decode_paged
     from repro_torch.kernels.attn_prefill import attn_prefill
     from repro_torch.kernels.lords_decode import lords_decode
     from repro_torch.kernels.lords_matmul import lords_matmul
-    from repro_torch.launch.serve import serve_batch
-    from repro_torch.models import cache_init, forward_decode, forward_prefill, model_init
 
-    wrappers = {"lords_matmul": lords_matmul, "lords_decode": lords_decode,
-                "attn_prefill": attn_prefill, "attn_decode": attn_decode}
-    dev = torch.device("cuda")
-    t0 = time.perf_counter()
-    one = model_init(cfg.with_(num_layers=1), 0, device=dev)
-    torch.cuda.synchronize()
-    t_layer = time.perf_counter() - t0
-    del one
-    # full depth unless its init would take more than 300 s
-    layers = min(cfg.num_layers, max(1, int(300 / t_layer)))
-    if layers != cfg.num_layers:
-        log(f"[serve] depth cut: {layers} of {cfg.num_layers} layers")
-    cfg = cfg.with_(num_layers=layers)
-    t0 = time.perf_counter()
-    params = model_init(cfg, 0, device=dev)
-    torch.cuda.synchronize()
-    log(f"[serve] model_init {cfg.name} full width, {layers} layers: "
-        f"{time.perf_counter() - t0:.1f} s (one-layer probe {t_layer:.2f} s); "
-        f"weights {sum(t.numel() * t.element_size() for t in _leaves(params)) / 2**30:.2f} GiB")
+    return {"lords_matmul": lords_matmul, "lords_decode": lords_decode,
+            "attn_prefill": attn_prefill, "attn_decode": attn_decode,
+            "attn_decode_paged": attn_decode_paged}
 
-    kw = dict(batch=BATCH, prompt_len=PROMPT, gen=GEN, params=params, device=dev)
-    serve_batch(cfg, **{**kw, "gen": 2})  # warm-up: first launches, cuBLAS
+
+def counted(run):
+    """Run ``run()`` with every launch count set to 0 just before; returns
+    (its result, the counts just after)."""
+    wrappers = _wrappers()
     for fn in wrappers.values():
         fn.launches = 0
-    out = serve_batch(cfg, **kw)
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+    out = run()
+    return out, {name: fn.launches for name, fn in wrappers.items()}
+
+
+def serve_checks(cfg, params, torch, kv):
+    """Phase 3: serve llama3-8b through serve_batch with a ``kv`` cache;
+    returns the kernels' launch counts in the main run."""
+    import numpy as np
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import cache_init, forward_decode, forward_prefill
+
+    dev = torch.device("cuda")
+    cfg = cfg.with_(kv_cache_dtype=kv)
+    kw = dict(batch=BATCH, prompt_len=PROMPT, gen=GEN, params=params, device=dev)
+    serve_batch(cfg, **{**kw, "gen": 2})  # warm-up: first launches, cuBLAS
+    out, launches = counted(lambda: serve_batch(cfg, **kw))
     toks = out["tokens"]
-    log(f"[serve] fused: prefill {out['prefill_ms']:.1f} ms "
+    log(f"[serve {kv}] fused: prefill {out['prefill_ms']:.1f} ms "
         f"({out['prefill_tok_s']:.1f} tok/s), decode {out['decode_tok_s']:.1f} "
         f"tok/s ({out['decode_ms']:.1f} ms for {GEN - 1} steps), launches {launches}")
     if toks.shape != (BATCH, GEN) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
         raise AssertionError(f"bad tokens {toks.shape} [{toks.min()}, {toks.max()}]")
-    missing = [n for n, c in launches.items() if c == 0]
+    used = ("lords_matmul", "lords_decode", "attn_prefill", "attn_decode")
+    missing = [n for n in used if launches[n] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
 
-    ref_out = serve_batch(cfg, **kw, backend="ref")
-    same = float((ref_out["tokens"] == toks).mean())
-    log(f"[serve] ref: prefill {ref_out['prefill_ms']:.1f} ms, decode "
-        f"{ref_out['decode_tok_s']:.1f} tok/s; greedy tokens equal to fused: "
-        f"{same * 100:.1f}% ({'identical' if same == 1.0 else 'diverged'})")
+    if kv == "bf16":
+        ref_out = serve_batch(cfg, **kw, backend="ref")
+        same = float((ref_out["tokens"] == toks).mean())
+        log(f"[serve {kv}] ref: prefill {ref_out['prefill_ms']:.1f} ms, decode "
+            f"{ref_out['decode_tok_s']:.1f} tok/s; greedy tokens equal to fused: "
+            f"{same * 100:.1f}% ({'identical' if same == 1.0 else 'diverged'})")
 
-    # teacher-forced logits: both backends fed the fused run's tokens.
-    # Tolerance: the ref path rounds attention probabilities and scaled
-    # queries to bf16 where the kernels keep f32, and the bf16 residual
-    # stream rounds each layer's differences again (2^-9 relative); as a
-    # random walk over 32 layers that is ~sqrt(32)·2^-8 ≈ 4% of a logit's
-    # scale, so: cosine >= 0.995, max |Δ| <= 10% of max |logit|.
     prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (BATCH, PROMPT + GEN))
     tokens = torch.from_numpy(prompts).to(dev)
     col = torch.arange(PROMPT + GEN, dtype=torch.int32, device=dev)[None]
     positions = torch.where(col < PROMPT, col, -1).expand(BATCH, PROMPT + GEN)
     caches = {b: cache_init(cfg, BATCH, PROMPT + GEN, device=dev) for b in ("fused", "ref")}
-    worst_cos, worst_rel = 1.0, 0.0
+    worst = LogitBound()
     with torch.inference_mode():
         for step in range(GEN):
             logits = {}
@@ -309,18 +506,129 @@ def serve_checks(cfg, torch):
                         pos = torch.full((BATCH,), PROMPT + step - 1, dtype=torch.int32,
                                          device=dev)
                         lg, _ = forward_decode(params, cfg, {"tokens": tok}, caches[b], pos)
-                logits[b] = lg[:, -1, : cfg.vocab_size].double()
-            a, r = logits["fused"], logits["ref"]
-            if not torch.isfinite(a).all():
-                raise AssertionError(f"non-finite fused logits at step {step}")
-            cos = torch.nn.functional.cosine_similarity(a, r, dim=-1).min().item()
-            rel = ((a - r).abs().max() / r.abs().max()).item()
-            worst_cos, worst_rel = min(worst_cos, cos), max(worst_rel, rel)
-    log(f"[serve] teacher-forced logits fused vs ref over {GEN} steps: min cosine "
-        f"{worst_cos:.6f} (>= 0.995), max |Δ|/max|logit| {worst_rel:.2e} (<= 0.1)")
-    if worst_cos < 0.995 or worst_rel > 0.1:
-        raise AssertionError("fused and ref logits disagree beyond the bound")
+                logits[b] = lg[:, -1, : cfg.vocab_size]
+            worst.add(torch, logits["fused"], logits["ref"], f"step {step}")
+    worst.check(f"serve {kv}")
     return launches
+
+
+def engine_trace(cfg, n: int):
+    """The phase-4 trace: ``n`` requests from default_rng(0), prompts
+    uniform in [64, 1024], max_new uniform in [16, 128], all arriving at 0
+    (so with greedy decoding the schedule depends only on the lengths)."""
+    import numpy as np
+
+    from repro_torch.launch.engine import Request
+
+    rng = np.random.default_rng(0)
+    plens = rng.integers(64, 1025, n)
+    gens = rng.integers(16, 129, n)
+    return [Request(rid=i, tokens=rng.integers(0, cfg.vocab_size, (int(p),)).astype(np.int32),
+                    max_new=int(m)) for i, (p, m) in enumerate(zip(plens, gens))]
+
+
+def engine_checks(cfg, params, torch):
+    """Phase 4: the paged continuous-batching engine with an int8 pool at
+    full width; returns the kernels' launch counts in the engine run."""
+    from repro_torch.launch.engine import Engine
+
+    cfg = cfg.with_(kv_cache_dtype="int8")
+    reqs = engine_trace(cfg, N_REQUESTS)
+    eng = Engine(cfg, params=params, device="cuda", **ENGINE)
+    t0 = time.perf_counter()
+    eng.warmup()
+    torch.cuda.synchronize()
+    log(f"[engine] warm-up {time.perf_counter() - t0:.1f} s; geometry {ENGINE}, "
+        f"{len(reqs)} requests, prompts {min(len(r.tokens) for r in reqs)}.."
+        f"{max(len(r.tokens) for r in reqs)}, max_new {min(r.max_new for r in reqs)}.."
+        f"{max(r.max_new for r in reqs)}, all arriving at 0")
+    st, launches = counted(lambda: eng.run(reqs))
+    per_step = st["decode_ms"] / max(st["decode_steps"], 1)
+    log(f"[engine] goodput {st['goodput_tok_s']:.1f} tok/s ({st['generated_tokens']} tokens "
+        f"in {st['wall_s']:.2f} s), latency p50 {st['latency_p50_s']:.2f} s p99 "
+        f"{st['latency_p99_s']:.2f} s, prefill_ms {st['prefill_ms']:.1f} over "
+        f"{st['chunk_steps']} chunk_steps ({st['prefill_ms'] / max(st['chunk_steps'], 1):.1f} "
+        f"ms each), decode_ms {st['decode_ms']:.1f} over {st['decode_steps']} decode_steps "
+        f"({per_step:.2f} ms each), evictions {st['evictions']}, launches {launches}")
+    want = {r.rid: r.max_new for r in reqs}
+    got = {r["rid"]: r["tokens"] for r in st["records"]}
+    bad = [rid for rid, m in want.items()
+           if len(got.get(rid, ())) != m or not all(0 <= t < cfg.vocab_size for t in got[rid])]
+    if bad or not st["all_completed"]:
+        raise AssertionError(f"requests incomplete or out of range: {bad}")
+    if not st["page_audit"]["ok"]:
+        raise AssertionError(f"page audit failed: {st['page_audit']}")
+    if st["evictions"] < 1:
+        raise AssertionError("the pool was sized to force an eviction; none happened")
+    used = ("lords_matmul", "lords_decode", "attn_prefill", "attn_decode_paged")
+    missing = [n for n in used if launches[n] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched in the engine run: {missing}")
+    for kv in ("bf16", "int8"):
+        paged_teacher_forced(cfg.with_(kv_cache_dtype=kv), params, torch)
+    return launches
+
+
+def paged_teacher_forced(cfg, params, torch):
+    """A 2-chunk forward_prefill_chunk and 8 forward_decode_paged steps for
+    4 slots with scattered page tables, fused against ref (same bound)."""
+    import numpy as np
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import (
+        forward_decode_paged,
+        forward_prefill_chunk,
+        paged_cache_init,
+    )
+
+    dev = torch.device("cuda")
+    slots, cs, ps, npages = 4, ENGINE["chunk"], ENGINE["page_size"], ENGINE["max_pages"]
+    rng = np.random.default_rng(4)
+    plens = np.array([2 * cs, cs + 100, cs, 300])
+    total = int(sum(-(-(p + 8) // ps) for p in plens)) + 1
+    perm = rng.permutation(np.arange(1, total))
+    pt = np.zeros((slots, npages), np.int32)
+    at = 0
+    for i, p in enumerate(plens):
+        used = -(-(p + 8) // ps)
+        pt[i, :used] = perm[at:at + used]
+        at += used
+    prompts = rng.integers(0, cfg.vocab_size, (slots, 2 * cs))
+    dec = rng.integers(0, cfg.vocab_size, (8, slots))
+    pools = {b: paged_cache_init(cfg, total, ps, device=dev) for b in ("fused", "ref")}
+    worst = LogitBound()
+    with torch.inference_mode():
+        for c in range(2):
+            qpos = np.full((slots, cs), -1, np.int32)
+            cpt = pt.copy()
+            for i, p in enumerate(plens):
+                n = int(min(max(p - c * cs, 0), cs))
+                qpos[i, :n] = c * cs + np.arange(n)
+                if n == 0:
+                    cpt[i] = 0  # finished prompt: a dead row on the dummy page
+            args = [torch.from_numpy(a).to(dev) for a in (
+                prompts[:, c * cs:(c + 1) * cs], cpt, qpos,
+                np.full((slots,), c * cs, np.int32))]
+            logits = {}
+            for b in ("fused", "ref"):
+                with dispatch.backend_scope(b):
+                    lg, _ = forward_prefill_chunk(params, cfg, {"tokens": args[0]}, pools[b],
+                                                  *args[1:])
+                logits[b] = lg[:, -1, : cfg.vocab_size]
+            live = torch.from_numpy(qpos.max(1) >= 0).to(dev)
+            worst.add(torch, logits["fused"][live], logits["ref"][live], f"chunk {c}")
+        ptd = torch.from_numpy(pt).to(dev)
+        for step in range(8):
+            pos = torch.from_numpy((plens + step).astype(np.int32)).to(dev)
+            tok = torch.from_numpy(dec[step]).to(dev)
+            logits = {}
+            for b in ("fused", "ref"):
+                with dispatch.backend_scope(b):
+                    lg, _ = forward_decode_paged(params, cfg, {"tokens": tok}, pools[b],
+                                                 ptd, pos)
+                logits[b] = lg[:, -1, : cfg.vocab_size]
+            worst.add(torch, logits["fused"], logits["ref"], f"decode step {step}")
+    worst.check(f"engine {cfg.kv_cache_dtype} pool, 2 chunks + 8 decode steps, {slots} slots")
 
 
 def _leaves(tree):
@@ -332,6 +640,30 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+def load_model(cfg, torch):
+    """llama3-8b at full width with random weights from seed 0, at full
+    depth unless its init would take over 300 s."""
+    from repro_torch.models import model_init
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    one = model_init(cfg.with_(num_layers=1), 0, device=dev)
+    torch.cuda.synchronize()
+    t_layer = time.perf_counter() - t0
+    del one
+    depth = min(cfg.num_layers, max(1, int(300 / t_layer)))
+    if depth != cfg.num_layers:
+        log(f"[model] depth cut: {depth} of {cfg.num_layers} layers")
+    cfg = cfg.with_(num_layers=depth)
+    t0 = time.perf_counter()
+    params = model_init(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    log(f"[model] model_init {cfg.name} full width, {depth} layers: "
+        f"{time.perf_counter() - t0:.1f} s (one-layer probe {t_layer:.2f} s); "
+        f"weights {sum(t.numel() * t.element_size() for t in _leaves(params)) / 2**30:.2f} GiB")
+    return cfg, params
 
 
 def main() -> int:
@@ -352,23 +684,39 @@ def main() -> int:
     from repro_torch.kernels import _build
 
     # phase 1: device and build
+    t_start = time.perf_counter()
     smi = nvidia_smi()
     log(f"[device] {smi} | torch {torch.__version__} cuda {torch.version.cuda} "
         f"capability {torch.cuda.get_device_capability(0)}")
     t0 = time.perf_counter()
     _build.build_all()
-    log(f"[build] {len(_build.SOURCES)} kernels built in {time.perf_counter() - t0:.1f} s "
+    log(f"[build] {len(_build.SOURCES)} sources built in {time.perf_counter() - t0:.1f} s "
         f"into {_build.BUILD_DIR.relative_to(ROOT)}")
 
+    # phase 2: every kernel against its plain version
     cfg = get_config("llama3-8b")
+    t0 = time.perf_counter()
     with torch.inference_mode():
         results = check_kernels(cfg, torch, F)
     log("[kernels] " + ", ".join(f"{n} PASS (max err {r.err:.2e})"
-                                 for n, r in results.items()))
+                                 for n, r in results.items())
+        + f" in {time.perf_counter() - t0:.1f} s")
 
-    launches = serve_checks(cfg, torch)
+    # phases 3 and 4: the main paths, each driven with the counts at 0
+    cfg, params = load_model(cfg, torch)
+    paths = {}
+    for kv in ("bf16", "int8"):
+        t0 = time.perf_counter()
+        paths[f"serve_batch {kv}"] = serve_checks(cfg, params, torch, kv)
+        log(f"[serve {kv}] phase time {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    paths["engine int8"] = engine_checks(cfg, params, torch)
+    log(f"[engine] phase time {time.perf_counter() - t0:.1f} s")
+    log(f"[total] {time.perf_counter() - t_start:.1f} s")
 
-    print(json.dumps({"kernels": [results[n].row(launches[n]) for n in REPLACES]}))
+    print(json.dumps({"kernels": [
+        results[n].row({p: counts[n] for p, counts in paths.items()}, cfg.num_layers)
+        for n in KERNELS]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

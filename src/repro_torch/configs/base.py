@@ -6,7 +6,9 @@ import math
 
 from repro_torch.core.lords import QuantSpec
 
-__all__ = ["ModelConfig", "register", "get_config"]
+__all__ = ["ModelConfig", "KV_CACHE_DTYPES", "register", "get_config"]
+
+KV_CACHE_DTYPES = ("bf16", "int8")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,8 +27,15 @@ class ModelConfig:
     tie_embeddings: bool = False
     quant: QuantSpec = QuantSpec(method="lords", codebook="nf4",
                                  block_size=128, mode="peft")
-    kv_cache_dtype: str = "bf16"   # the int8 cache is not ported yet
+    # decode KV-cache storage: 'bf16' or 'int8' (per-(token, head)
+    # symmetric int8 codes + f32 scales)
+    kv_cache_dtype: str = "bf16"
     vocab_pad_multiple: int = 2048
+
+    def __post_init__(self):
+        if self.kv_cache_dtype not in KV_CACHE_DTYPES:
+            raise ValueError(f"kv_cache_dtype {self.kv_cache_dtype!r} not in "
+                             f"{KV_CACHE_DTYPES}")
 
     @property
     def resolved_head_dim(self) -> int:

@@ -5,7 +5,8 @@ goes through and ``qattention(kind, ...)`` the one every attention call goes
 through, as in the JAX package.  Two backends:
 
   * ``fused`` — the hand-written CUDA kernels (``lords_matmul``,
-    ``lords_decode``, ``attn_prefill``, ``attn_decode``) behind the
+    ``lords_decode``, ``attn_prefill``, ``attn_decode``,
+    ``attn_decode_paged``) behind the
     pad-to-tile logic below.  On a CUDA tensor each wrapper launches its
     kernel or raises; on a CPU tensor it runs its plain version, so the CPU
     tests reach the padding and routing of this path too.
@@ -32,6 +33,7 @@ import torch.nn.functional as F
 from repro_torch.core.lords import QuantSpec
 from repro_torch.core.quantize import pack_spec
 from repro_torch.kernels import attn_decode as attn_decode_mod
+from repro_torch.kernels import attn_decode_paged as attn_decode_paged_mod
 from repro_torch.kernels import attn_prefill as attn_prefill_mod
 from repro_torch.kernels import lords_decode as lords_decode_mod
 from repro_torch.kernels import lords_matmul as lords_matmul_mod
@@ -49,7 +51,7 @@ __all__ = [
 
 BACKENDS = ("fused", "ref")
 DECODE_M_MAX = lords_decode_mod.DECODE_M_MAX
-_ATTN_KINDS = ("prefill", "decode")
+_ATTN_KINDS = ("prefill", "chunk_prefill", "decode", "paged_decode")
 
 _TLS = threading.local()
 
@@ -165,48 +167,95 @@ def decode_kmask(pos: torch.Tensor, cap: int) -> torch.Tensor:
     return torch.where(live, 0.0, ref.ATTN_NEG_INF).to(torch.float32)
 
 
-def _attn_prefill_fused(q, k, v, positions, logit_scale):
-    s = q.shape[1]
+def _attn_prefill_fused(q, k, v, qpos, kpos, logit_scale):
+    """The flash kernel with q and keys padded to their own tiles, padded
+    positions -1 (dead): serves both ``prefill`` (kpos is qpos) and
+    ``chunk_prefill`` (prefix window ++ chunk keys)."""
+    s, skv = q.shape[1], k.shape[1]
     bq, bkv = attn_prefill_mod.BQ, attn_prefill_mod.BKV
-    sq, skv = _round_up(s, bq), _round_up(s, bkv)
+    sq, sk = _round_up(s, bq), _round_up(skv, bkv)
     y = attn_prefill_mod.attn_prefill(
-        _pad_axis(q, 1, sq).contiguous(), _pad_axis(k, 1, skv).contiguous(),
-        _pad_axis(v, 1, skv).contiguous(),
-        _pad_axis(positions, 1, sq, value=-1).contiguous(),
-        _pad_axis(positions, 1, skv, value=-1).contiguous(),
+        _pad_axis(q, 1, sq).contiguous(), _pad_axis(k, 1, sk).contiguous(),
+        _pad_axis(v, 1, sk).contiguous(),
+        _pad_axis(qpos, 1, sq, value=-1).contiguous(),
+        _pad_axis(kpos, 1, sk, value=-1).contiguous(),
         logit_scale=logit_scale)
     return y[:, :s]
 
 
-def _attn_decode_fused(q, k, v, pos, logit_scale):
+def _group_q(q, nkv):
     b, nh, hd = q.shape
-    nkv = k.shape[2]
-    qg = q.reshape(b, nkv, nh // nkv, hd).contiguous()
-    y = attn_decode_mod.attn_decode(qg, k, v, decode_kmask(pos, k.shape[1]),
-                                    logit_scale=logit_scale)
-    return y.reshape(b, nh, v.shape[-1])
+    return q.reshape(b, nkv, nh // nkv, hd).contiguous()
+
+
+def _attn_decode_fused(q, k, v, pos, k_scale, v_scale, logit_scale):
+    y = attn_decode_mod.attn_decode(
+        _group_q(q, k.shape[2]), k, v, decode_kmask(pos, k.shape[1]),
+        k_scale, v_scale, logit_scale=logit_scale)
+    return y.reshape(q.shape[0], q.shape[1], v.shape[-1])
+
+
+def _attn_paged_fused(q, k_pool, v_pool, pt, pos, k_scale, v_scale,
+                      logit_scale):
+    y = attn_decode_paged_mod.attn_decode_paged(
+        _group_q(q, k_pool.shape[2]), k_pool, v_pool, pt, pos, k_scale,
+        v_scale, logit_scale=logit_scale)
+    return y.reshape(q.shape[0], q.shape[1], v_pool.shape[-1])
+
+
+def _optional(args, n):
+    """The optional trailing operands (int8 scales) of a call, None-filled."""
+    return tuple(args[i] if i < len(args) else None for i in range(n))
 
 
 def qattention(kind: str, *args, logit_scale: float,
                backend: str | None = None) -> torch.Tensor:
-    """Attention entry point; results are f32, callers cast.
+    """Attention entry point (the JAX package's argument order); results
+    are f32, callers cast.
 
-    kind="prefill": qattention("prefill", q, k, v, positions, ...) with
-                    q (b, s, nh, hd), k/v (b, s, nkv, hd), positions (b, s)
-                    int32 (-1 = dead) → (b, s, nh, hd).
-    kind="decode":  qattention("decode", q, k, v, pos, ...) with q
-                    (b, nh, hd), the cache k/v (b, S, nkv, hd) and pos (b,)
-                    (slots <= pos live) → (b, nh, hd).
+    kind="prefill":       qattention("prefill", q, k, v, positions, ...)
+                          q (b, s, nh, hd), k/v (b, s, nkv, hd), positions
+                          (b, s) int32 (-1 = dead) → (b, s, nh, hd).
+    kind="chunk_prefill": qattention("chunk_prefill", q, k, v, qpos, kpos,
+                          ...) with q (b, s, nh, hd) at qpos (b, s) and keys
+                          (b, S, nkv, hd) at kpos (b, S), S free → (b, s,
+                          nh, hd).  Dead query rows are zero on ``fused``
+                          and the all-masked softmax on ``ref``.
+    kind="decode":        qattention("decode", q, k, v, pos, k_scale=None,
+                          v_scale=None, ...) with q (b, nh, hd), the cache
+                          k/v (b, S, nkv, hd) [int8 + scales (b, S, nkv)]
+                          and pos (b,) (slots <= pos live) → (b, nh, hd).
+    kind="paged_decode":  qattention("paged_decode", q, k_pool, v_pool, pt,
+                          pos, k_scale=None, v_scale=None, ...) with pools
+                          (P, ps, nkv, hd) [+ scale pools (P, ps, nkv)] and
+                          the page table pt (b, np) → (b, nh, hd).
     """
     if kind not in _ATTN_KINDS:
         raise ValueError(f"unknown attention kind {kind!r}; "
                          f"expected one of {_ATTN_KINDS}")
-    q, k, v, pos = args
-    backend = resolve_backend(backend, q)
+    backend = resolve_backend(backend, args[0])
+    fused = backend == "fused"
+    scale = float(logit_scale)
     if kind == "prefill":
-        if backend == "fused":
-            return _attn_prefill_fused(q, k, v, pos, float(logit_scale))
-        return ref.attn_prefill_ref(q, k, v, pos, float(logit_scale))
-    if backend == "fused":
-        return _attn_decode_fused(q, k, v, pos, float(logit_scale))
-    return ref.attn_decode_ref(q, k, v, pos, float(logit_scale))
+        q, k, v, positions = args
+        if fused:
+            return _attn_prefill_fused(q, k, v, positions, positions, scale)
+        return ref.attn_prefill_ref(q, k, v, positions, scale)
+    if kind == "chunk_prefill":
+        q, k, v, qpos, kpos = args
+        if fused:
+            return _attn_prefill_fused(q, k, v, qpos, kpos, scale)
+        return ref.attn_chunk_prefill_ref(q, k, v, qpos, kpos, scale)
+    if kind == "decode":
+        q, k, v, pos = args[:4]
+        k_scale, v_scale = _optional(args[4:], 2)
+        if fused:
+            return _attn_decode_fused(q, k, v, pos, k_scale, v_scale, scale)
+        return ref.attn_decode_ref(q, k, v, pos, scale, k_scale, v_scale)
+    q, k_pool, v_pool, pt, pos = args[:5]
+    k_scale, v_scale = _optional(args[5:], 2)
+    if fused:
+        return _attn_paged_fused(q, k_pool, v_pool, pt, pos, k_scale, v_scale,
+                                 scale)
+    return ref.attn_decode_paged_ref(pt, q, k_pool, v_pool, pos, k_scale,
+                                     v_scale, scale)

@@ -20,6 +20,9 @@ __all__ = [
     "attn_decode_ref",
     "attn_prefill_pos",
     "attn_decode_kmask",
+    "attn_chunk_prefill_ref",
+    "attn_decode_paged_ref",
+    "gather_pool",
     "ATTN_NEG_INF",
 ]
 
@@ -75,30 +78,80 @@ def attn_prefill_ref(q, k, v, positions, logit_scale: float):
                             zero_dead=False)
 
 
-def attn_decode_kmask(q, k, v, kmask, logit_scale: float):
+def _dequant_kv(k, v, k_scale, v_scale):
+    """f32 K/V, with int8 codes dequantized by their (…, nkv) scales."""
+    kf, vf = k.to(torch.float32), v.to(torch.float32)
+    if k_scale is not None:
+        kf = kf * k_scale[..., None].to(torch.float32)
+    if v_scale is not None:
+        vf = vf * v_scale[..., None].to(torch.float32)
+    return kf, vf
+
+
+def attn_decode_kmask(q, k, v, kmask, logit_scale: float, k_scale=None,
+                      v_scale=None):
     """GQA decode with an additive liveness mask, in f32.
 
     q (b, nkv, g, hd) vs cache k/v (b, S, nkv, hd); ``kmask`` (b, S) f32
-    is 0 for live slots and -1e30 for dead ones.  Returns (b, nkv, g, hd_v)
-    f32.
+    is 0 for live slots and -1e30 for dead ones.  With ``k_scale`` /
+    ``v_scale`` (b, S, nkv) the cache holds int8 codes, dequantized up
+    front.  Returns (b, nkv, g, hd_v) f32.
     """
+    kf, vf = _dequant_kv(k, v, k_scale, v_scale)
     qs = q.to(torch.float32) * logit_scale
-    scores = torch.einsum("bngh,bsnh->bngs", qs, k.to(torch.float32))
+    scores = torch.einsum("bngh,bsnh->bngs", qs, kf)
     probs = torch.softmax(scores + kmask[:, None, None, :], dim=-1)
-    return torch.einsum("bngs,bsnh->bngh", probs, v.to(torch.float32))
+    return torch.einsum("bngs,bsnh->bngh", probs, vf)
 
 
-def attn_decode_ref(q, k, v, pos, logit_scale: float | None = None):
-    """The JAX oracle's contract: q (b, nh, hd) vs cache (b, S, nkv, hd);
-    slots ``<= pos`` (b,) are live.  Returns (b, nh, hd_v) f32."""
+def attn_decode_ref(q, k, v, pos, logit_scale: float | None = None,
+                    k_scale=None, v_scale=None):
+    """The JAX oracle's contract: q (b, nh, hd) vs cache (b, S, nkv, hd)
+    [+ int8 scales (b, S, nkv), dequantized up front]; slots ``<= pos``
+    (b,) are live.  Returns (b, nh, hd_v) f32.  (``logit_scale`` comes
+    before the scales here, where the JAX oracle puts it last.)"""
     b, nh, hd = q.shape
     nkv = k.shape[2]
     if logit_scale is None:
         logit_scale = 1.0 / float(hd) ** 0.5
+    kf, vf = _dequant_kv(k, v, k_scale, v_scale)
     live = torch.arange(k.shape[1], device=q.device)[None, :] <= pos[:, None]
     qs = q.to(torch.float32).reshape(b, nkv, nh // nkv, hd) * logit_scale
-    scores = torch.einsum("bngh,bsnh->bngs", qs, k.to(torch.float32))
+    scores = torch.einsum("bngh,bsnh->bngs", qs, kf)
     scores = torch.where(live[:, None, None], scores, ATTN_NEG_INF)
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bngs,bsnh->bngh", probs, v.to(torch.float32))
-    return out.reshape(b, nh, v.shape[-1])
+    out = torch.einsum("bngs,bsnh->bngh", probs, vf)
+    return out.reshape(b, nh, vf.shape[-1])
+
+
+def attn_chunk_prefill_ref(q, k, v, qpos, kpos, logit_scale: float):
+    """The JAX chunked-prefill oracle: q (b, s, nh, hd) at ``qpos`` (b, s)
+    against keys (b, S, nkv, hd) at ``kpos`` (b, S), the lengths free to
+    differ (prefix window + chunk).  Query i attends key j when
+    ``0 <= kpos[j] <= qpos[i]``; dead query rows (qpos -1) are left at the
+    softmax of an all-masked row.  Returns (b, s, nh, hd_v) f32."""
+    return attn_prefill_pos(q, k, v, qpos, kpos, logit_scale, zero_dead=False)
+
+
+def gather_pool(pool, pt):
+    """(P, ps, ...) page pool → each sequence's contiguous logical window
+    (b, np·ps, ...) through the page table ``pt`` (b, np): slot j of row b
+    is pool row ``pt[b, j // ps] * ps + j % ps``."""
+    b, npages = pt.shape
+    ps = pool.shape[1]
+    flat = pool.reshape((pool.shape[0] * ps,) + tuple(pool.shape[2:]))
+    idx = (pt.long()[:, :, None] * ps
+           + torch.arange(ps, device=pt.device)[None, None, :]).reshape(b, -1)
+    return flat[idx]
+
+
+def attn_decode_paged_ref(pt, q, k_pool, v_pool, pos, k_scale=None,
+                          v_scale=None, logit_scale: float | None = None):
+    """Paged GQA decode: gather each sequence's pages into the contiguous
+    (b, np·ps, nkv, hd) cache the paged kernel never builds, then
+    :func:`attn_decode_ref`.  Returns (b, nh, hd_v) f32."""
+    def gather(t):
+        return None if t is None else gather_pool(t, pt)
+
+    return attn_decode_ref(q, gather(k_pool), gather(v_pool), pos,
+                           logit_scale, gather(k_scale), gather(v_scale))

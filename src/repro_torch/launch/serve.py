@@ -1,7 +1,8 @@
 """Batch serving: prefill, then greedy decode, with a LoRDS model.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
-        [--smoke] [--device cpu] [--batch 4 --prompt-len 64 --gen 32]
+        [--smoke] [--device cpu] [--batch 4 --prompt-len 64 --gen 32] \
+        [--kv-cache int8]
 
 A batch of prompts fills a window of ``capacity = prompt_len + gen``
 columns; the whole window is prefilled once with positions -1 on the dead
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, smoke_variant
+from repro_torch.configs.base import KV_CACHE_DTYPES
 from repro_torch.kernels import dispatch
 from repro_torch.launch.steps import generate, sample_token
 from repro_torch.models import cache_init, forward_prefill, model_init
@@ -33,15 +35,20 @@ def _sync(device: torch.device) -> None:
 
 def serve_batch(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
                 params=None, prompts=None, backend: str | None = None,
-                temperature: float = 0.0, device=None) -> dict:
+                temperature: float = 0.0, device=None,
+                kv_cache: str | None = None) -> dict:
     """Prefill ``batch`` prompts and decode ``gen`` tokens each.
 
     ``params`` None draws a random model from ``seed``; ``prompts`` None
     draws the window's tokens from ``numpy.random.default_rng(seed)`` as the
     JAX package's ``serve_batch`` does.  ``backend`` pins the dispatch
-    backend (``fused`` | ``ref``; None = the device's default).  Returns the
-    tokens (b, gen) and host-clock timings of prefill and decode.
+    backend (``fused`` | ``ref``; None = the device's default).
+    ``kv_cache`` overrides ``cfg.kv_cache_dtype`` (``bf16`` | ``int8``).
+    Returns the tokens (b, gen) and host-clock timings of prefill and
+    decode.
     """
+    if kv_cache is not None:
+        cfg = cfg.with_(kv_cache_dtype=kv_cache)
     device = resolve_device(device)
     capacity = prompt_len + gen
     if params is None:
@@ -87,6 +94,7 @@ def serve_batch(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
         "decode_tok_s": (batch * (gen - 1) / max(t_decode, 1e-9)
                          if gen > 1 else 0.0),
         "backend": dispatch.resolve_backend(backend, tokens),
+        "kv_cache": cfg.kv_cache_dtype,
         "device": str(device),
     }
 
@@ -106,6 +114,8 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--kv-cache", default=None, choices=KV_CACHE_DTYPES,
+                    help="KV-cache storage (default: cfg.kv_cache_dtype)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
@@ -113,9 +123,11 @@ def main(argv=None):
         cfg = smoke_variant(cfg)
     out = serve_batch(cfg, batch=args.batch, prompt_len=args.prompt_len,
                       gen=args.gen, backend=args.backend,
-                      temperature=args.temperature, device=args.device)
+                      temperature=args.temperature, device=args.device,
+                      kv_cache=args.kv_cache)
     print(f"[serve] {cfg.name} layers={cfg.num_layers} device={out['device']} "
-          f"backend={out['backend']} prefill {out['prefill_ms']:.1f} ms "
+          f"backend={out['backend']} kv={out['kv_cache']} prefill "
+          f"{out['prefill_ms']:.1f} ms "
           f"({out['prefill_tok_s']:.1f} tok/s), decode "
           f"{out['decode_tok_s']:.1f} tok/s")
     print("[serve] sample tokens:", out["tokens"][0][:16])

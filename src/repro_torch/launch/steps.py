@@ -1,17 +1,27 @@
-"""Sampling and the decode loop of batch serving.
+"""Sampling, the decode loop of batch serving and the engine's two steps.
 
 ``generate`` is the JAX package's on-device generation loop (a
 ``lax.scan`` over decode steps) as a Python loop over
-:func:`repro_torch.models.forward_decode`.
+:func:`repro_torch.models.forward_decode`.  ``prefill_chunk_step`` and
+``paged_generate`` are the bodies of the JAX package's fixed-shape engine
+step plans (``build_prefill_chunk_plan``, ``build_paged_generate_plan``) as
+plain functions: no jit, plans or shardings.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import dispatch
-from repro_torch.models import forward_decode
+from repro_torch.models import (
+    forward_decode,
+    forward_decode_paged,
+    forward_prefill_chunk,
+)
 
-__all__ = ["sample_token", "generate"]
+__all__ = ["sample_token", "sample_token_guarded", "NONFINITE_TOKEN",
+           "generate", "prefill_chunk_step", "paged_generate"]
+
+NONFINITE_TOKEN = -1
 
 
 def sample_token(logits, temperature: float,
@@ -22,6 +32,16 @@ def sample_token(logits, temperature: float,
         return torch.argmax(logits, dim=-1).to(torch.int32)
     probs = torch.softmax(logits.to(torch.float32) / temperature, dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
+
+
+def sample_token_guarded(logits, temperature: float,
+                         generator: torch.Generator | None = None):
+    """:func:`sample_token`, except that rows whose logits hold a NaN or
+    Inf emit :data:`NONFINITE_TOKEN` (-1).  On finite logits it is
+    ``sample_token`` exactly."""
+    tok = sample_token(logits, temperature, generator)
+    ok = torch.isfinite(logits.to(torch.float32)).all(dim=-1)
+    return torch.where(ok, tok, torch.full_like(tok, NONFINITE_TOKEN))
 
 
 def generate(params, cfg, tok0, cache, pos0, *, gen: int,
@@ -40,3 +60,37 @@ def generate(params, cfg, tok0, cache, pos0, *, gen: int,
             toks.append(tok)
             pos = pos + 1
     return torch.stack(toks, dim=1), cache
+
+
+def prefill_chunk_step(params, cfg, tokens, pools, pt, qpos, pos0, *,
+                       temperature: float = 0.0, generator=None):
+    """One fixed-shape chunk of paged prefill over the whole slot batch.
+
+    tokens (slots, chunk), pt (slots, max_pages), qpos (slots, chunk),
+    pos0 (slots,) → (tok1 (slots,) int32, pools).  Dead rows (qpos all -1,
+    pt row 0) write only the dummy page; ``tok1`` of a row whose prompt
+    ends in this chunk is its first generated token (guarded)."""
+    logits, pools = forward_prefill_chunk(params, cfg, {"tokens": tokens},
+                                          pools, pt, qpos, pos0)
+    tok1 = sample_token_guarded(logits[:, -1, : cfg.vocab_size], temperature,
+                                generator)
+    return tok1, pools
+
+
+def paged_generate(params, cfg, tok0, pools, pt, pos0, *, n: int,
+                   temperature: float = 0.0, generator=None):
+    """``n`` paged decode steps from ``tok0`` (slots,) at ``pos0``
+    (slots,) with a fixed page table ``pt`` (the engine allocates every page
+    the burst can write beforehand).  Returns (tokens (slots, n) int32,
+    pools).  A row that emits :data:`NONFINITE_TOKEN` goes on with token 0
+    so its embedding lookup stays in range; the engine reads no further."""
+    toks = []
+    tok, pos = tok0, pos0
+    for _ in range(n):
+        logits, pools = forward_decode_paged(params, cfg, {"tokens": tok},
+                                             pools, pt, pos)
+        nxt = sample_token_guarded(logits[:, -1, : cfg.vocab_size],
+                                   temperature, generator)
+        toks.append(nxt)
+        tok, pos = torch.clamp(nxt, min=0), pos + 1
+    return torch.stack(toks, dim=1), pools

@@ -2,6 +2,9 @@
 from repro_torch.models.model import (  # noqa: F401
     cache_init,
     forward_decode,
+    forward_decode_paged,
     forward_prefill,
+    forward_prefill_chunk,
     model_init,
+    paged_cache_init,
 )

@@ -1,5 +1,6 @@
 """Shared model plumbing: device choice, quantized / dense linear init,
-RMSNorm, RoPE and the f32-output product of the LM head.
+RMSNorm, RoPE, the f32-output product of the LM head and the int8 KV
+storage format (``kv_quantize`` / ``kv_dequantize``).
 
 Params are plain nested dicts of tensors (the JAX package's param trees
 without the logical-axis tags).
@@ -21,6 +22,8 @@ __all__ = [
     "rmsnorm",
     "rope_freqs",
     "apply_rope",
+    "kv_quantize",
+    "kv_dequantize",
 ]
 
 
@@ -69,6 +72,29 @@ def dense_init(shape, *, generator=None, device=None, dtype=torch.bfloat16,
     w = torch.randn(shape, generator=generator, device=device,
                     dtype=torch.float32) * scale
     return w.to(dtype)
+
+
+_KV_EPS = 1e-8  # all-zero vectors (cache padding) quantize to scale eps
+
+
+def kv_quantize(x: torch.Tensor, dim: int = -1):
+    """Symmetric int8 over ``dim``: returns (codes int8, scales f32).
+
+    One f32 scale per quantized vector (per token and head for a
+    (b, s, nkv, hd) cache with dim=-1).  ``torch.round`` rounds half to
+    even, as ``jnp.round`` does, so the codes equal the JAX package's.
+    """
+    xf = x.to(torch.float32)
+    amax = xf.abs().amax(dim=dim, keepdim=True)
+    scale = torch.clamp(amax, min=_KV_EPS) / 127.0
+    codes = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return codes, scale.squeeze(dim)
+
+
+def kv_dequantize(codes: torch.Tensor, scale: torch.Tensor, dim: int = -1,
+                  dtype=torch.bfloat16) -> torch.Tensor:
+    """Inverse of :func:`kv_quantize` (codes ⊙ broadcast scales)."""
+    return (codes.to(torch.float32) * scale.unsqueeze(dim)).to(dtype)
 
 
 def rmsnorm_init(d, device=None):

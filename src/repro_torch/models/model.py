@@ -9,8 +9,13 @@ and scans over them; here a Python loop walks the list.
     logits (b, 1, Vp) f32, cache)
   * ``forward_decode(params, cfg, batch, cache, pos)`` -> (logits (b, 1, Vp)
     f32, cache)
+  * ``forward_prefill_chunk(params, cfg, batch, pools, pt, qpos, pos0)`` ->
+    (logits of each row's ``argmax(qpos)`` column (b, 1, Vp) f32, pools)
+  * ``forward_decode_paged(params, cfg, batch, pools, pt, pos)`` -> (logits
+    (b, 1, Vp) f32, pools)
 
-Caches are updated in place (see :mod:`repro_torch.models.attention`).
+Caches and page pools are updated in place (see
+:mod:`repro_torch.models.attention`).
 """
 from __future__ import annotations
 
@@ -26,7 +31,8 @@ from repro_torch.models.common import (
     rmsnorm_init,
 )
 
-__all__ = ["model_init", "cache_init", "forward_prefill", "forward_decode"]
+__all__ = ["model_init", "cache_init", "paged_cache_init", "forward_prefill",
+           "forward_decode", "forward_prefill_chunk", "forward_decode_paged"]
 
 
 def _check_dense(cfg):
@@ -64,15 +70,34 @@ def model_init(cfg, seed: int = 0, *, device=None,
 
 
 def cache_init(cfg, batch, capacity, *, device=None) -> list:
-    """Per-layer bf16 KV caches of ``capacity`` slots."""
+    """Per-layer KV caches of ``capacity`` slots, in ``cfg.kv_cache_dtype``."""
     _check_dense(cfg)
     device = resolve_device(device)
     return [attn.gqa_cache_init(cfg, batch, capacity, device=device)
             for _ in range(cfg.num_layers)]
 
 
+def paged_cache_init(cfg, total_pages, page_size, *, device=None) -> list:
+    """Per-layer page pools of ``total_pages`` pages of ``page_size``
+    tokens, in ``cfg.kv_cache_dtype``; page 0 is the dummy."""
+    _check_dense(cfg)
+    device = resolve_device(device)
+    return [attn.gqa_paged_cache_init(cfg, total_pages, page_size,
+                                      device=device)
+            for _ in range(cfg.num_layers)]
+
+
 def _head_matrix(params):
     return params["head"] if "head" in params else params["embed"]
+
+
+def _last_live_logits(params, cfg, x, positions):
+    """(b, 1, Vp) f32 logits of each row's ``argmax(positions)`` column of
+    the hidden states x (b, s, d)."""
+    last = torch.argmax(positions, dim=1)                  # (b,) last live
+    x = x[torch.arange(x.shape[0], device=x.device), last][:, None]
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return f32_matmul(x, _head_matrix(params))
 
 
 def _mlp_residual(blk, x, cfg):
@@ -100,10 +125,7 @@ def forward_prefill(params, cfg, batch, cache, positions=None):
         y, _ = attn.gqa_prefill(blk["mixer"], h, cfg, cfg.quant, positions,
                                 layer_cache)
         x = _mlp_residual(blk, x + y, cfg)
-    last = torch.argmax(positions, dim=1)                  # (b,) last live
-    x = x[torch.arange(b, device=x.device), last][:, None]  # (b, 1, d)
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return f32_matmul(x, _head_matrix(params)), cache
+    return _last_live_logits(params, cfg, x, positions), cache
 
 
 def forward_decode(params, cfg, batch, cache, pos):
@@ -116,3 +138,31 @@ def forward_decode(params, cfg, batch, cache, pos):
         x = _mlp_residual(blk, x + y, cfg)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return f32_matmul(x, _head_matrix(params)), cache
+
+
+def forward_decode_paged(params, cfg, batch, pools, pt, pos):
+    """One decode step against the page pools.  batch: {"tokens": (b,)};
+    pt (b, np) page table; pos (b,) int32 current positions."""
+    x = params["embed"][batch["tokens"][:, None]]          # (b, 1, d)
+    for blk, pool in zip(params["layers"], pools):
+        h = rmsnorm(blk["ln1"], x, cfg.norm_eps)
+        y, _ = attn.gqa_decode_paged(blk["mixer"], h, cfg, cfg.quant, pool,
+                                     pt, pos)
+        x = _mlp_residual(blk, x + y, cfg)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return f32_matmul(x, _head_matrix(params)), pools
+
+
+def forward_prefill_chunk(params, cfg, batch, pools, pt, qpos, pos0):
+    """One chunk of paged prefill.  batch: {"tokens": (b, cs)}; qpos
+    (b, cs) in-chunk positions (-1 = dead row); pos0 (b,) page-aligned
+    chunk start.  Returns (logits (b, 1, Vp) f32 of each row's
+    ``argmax(qpos)`` column, pools): meaningful for rows whose prompt ends
+    in this chunk."""
+    x = params["embed"][batch["tokens"]]                   # (b, cs, d)
+    for blk, pool in zip(params["layers"], pools):
+        h = rmsnorm(blk["ln1"], x, cfg.norm_eps)
+        y, _ = attn.gqa_prefill_chunk(blk["mixer"], h, cfg, cfg.quant, qpos,
+                                      pos0, pool, pt)
+        x = _mlp_residual(blk, x + y, cfg)
+    return _last_live_logits(params, cfg, x, qpos), pools

@@ -17,9 +17,11 @@ import torch
 from repro_torch.core import QuantSpec, init_quantized_linear
 from repro_torch.kernels import dispatch, ref
 from repro_torch.kernels.attn_decode import attn_decode
+from repro_torch.kernels.attn_decode_paged import attn_decode_paged
 from repro_torch.kernels.attn_prefill import attn_prefill
 from repro_torch.kernels.lords_decode import lords_decode
 from repro_torch.kernels.lords_matmul import lords_matmul
+from repro_torch.models.common import kv_quantize
 
 
 @pytest.fixture
@@ -97,3 +99,91 @@ def test_attention_kernels_match_plain(dev, hd):
         torch.testing.assert_close(attn_decode(qd, kc, vc, kmask, logit_scale=scale),
                                    ref.attn_decode_kmask(qd, kc, vc, kmask, scale),
                                    rtol=0, atol=1e-4)
+
+
+def _bf16(rng, dev, *shape):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+        dev, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [16, 128])
+def test_int8_attn_decode_matches_plain(dev, hd):
+    """The int8 branch: codes and per-(slot, head) scales from kv_quantize,
+    folded into the kernel's dots.  f32 on both sides: 1e-4 absolute."""
+    rng = np.random.default_rng(hd + 1)
+    b, nkv, g = 2, 2, 4
+    qd = _bf16(rng, dev, b, nkv, g, hd)
+    for cap in (128, 77):
+        kc, ks = kv_quantize(_bf16(rng, dev, b, cap, nkv, hd))
+        vc, vs = kv_quantize(_bf16(rng, dev, b, cap, nkv, hd))
+        kmask = dispatch.decode_kmask(torch.tensor([cap - 1, 20], device=dev), cap)
+        before = attn_decode.launches
+        y = attn_decode(qd, kc, vc, kmask, ks, vs, logit_scale=hd**-0.5)
+        assert attn_decode.launches == before + 1
+        torch.testing.assert_close(
+            y, ref.attn_decode_kmask(qd, kc, vc, kmask, hd**-0.5, ks, vs),
+            rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("ps", [8, 16, 64])
+def test_paged_decode_matches_plain(dev, kv, ps):
+    """Scattered page tables with 0 (dummy) entries, pos on and off page
+    boundaries.  f32 on both sides: 1e-4 absolute."""
+    rng = np.random.default_rng(ps)
+    b, nkv, g, hd, npages, total = 3, 2, 4, 64, 5, 12
+    q = _bf16(rng, dev, b, nkv, g, hd)
+    k, v = _bf16(rng, dev, total, ps, nkv, hd), _bf16(rng, dev, total, ps, nkv, hd)
+    scales = ()
+    if kv == "int8":
+        (k, ks), (v, vs) = kv_quantize(k), kv_quantize(v)
+        scales = (ks, vs)
+    pt = torch.from_numpy(np.stack([rng.permutation(np.arange(1, total))[:npages]
+                                    for _ in range(b)]).astype(np.int32)).to(dev)
+    pt[1, 3:] = 0  # unmapped tail: never read past pos
+    pos = torch.tensor([npages * ps - 1, 3 * ps - 1, ps], dtype=torch.int32, device=dev)
+    before = attn_decode_paged.launches
+    y = attn_decode_paged(q, k, v, pt, pos, *scales, logit_scale=hd**-0.5)
+    assert attn_decode_paged.launches == before + 1
+    y_ref = ref.attn_decode_paged_ref(pt, q.reshape(b, nkv * g, hd), k, v, pos,
+                                      *scales, logit_scale=hd**-0.5)
+    torch.testing.assert_close(y, y_ref.reshape(b, nkv, g, hd), rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_paged_decode_rejects_odd_page_size(dev):
+    rng = np.random.default_rng(0)
+    q = _bf16(rng, dev, 1, 1, 4, 16)
+    k = _bf16(rng, dev, 3, 12, 1, 16)
+    pt = torch.ones((1, 2), dtype=torch.int32, device=dev)
+    pos = torch.zeros((1,), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        attn_decode_paged(q, k, k, pt, pos, logit_scale=0.25)
+
+
+@pytest.mark.cuda
+def test_chunk_prefill_kernel_matches_plain(dev):
+    """attn_prefill in chunk mode through qattention: a prefix window whose
+    positions stop at pos0 (then -1), followed by the chunk: kpos is not
+    monotonic, and the exact tile skip must hold.  Live rows, 1e-4."""
+    rng = np.random.default_rng(3)
+    b, cs, window, nh, nkv, hd = 3, 64, 192, 8, 2, 128
+    q = _bf16(rng, dev, b, cs, nh, hd)
+    k, v = _bf16(rng, dev, b, window + cs, nkv, hd), _bf16(rng, dev, b, window + cs, nkv, hd)
+    pos0 = np.array([128, 0, 64])
+    qpos = np.full((b, cs), -1, np.int32)
+    kpos = np.full((b, window + cs), -1, np.int32)
+    for i, (p0, n) in enumerate(zip(pos0, (64, 64, 21))):
+        qpos[i, :n] = p0 + np.arange(n)
+        kpos[i, :p0] = np.arange(p0)
+        kpos[i, window:window + n] = p0 + np.arange(n)
+    qpos_t, kpos_t = torch.from_numpy(qpos).to(dev), torch.from_numpy(kpos).to(dev)
+    before = attn_prefill.launches
+    y = dispatch.qattention("chunk_prefill", q, k, v, qpos_t, kpos_t, logit_scale=hd**-0.5)
+    assert attn_prefill.launches == before + 1
+    y_ref = ref.attn_chunk_prefill_ref(q, k, v, qpos_t, kpos_t, hd**-0.5)
+    live = qpos_t >= 0
+    torch.testing.assert_close(y[live], y_ref[live], rtol=0, atol=1e-4)
+    assert not y[~live].any()

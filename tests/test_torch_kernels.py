@@ -23,9 +23,11 @@ from repro.kernels.lords_matmul import lords_matmul_pallas
 from repro_torch.core import QuantSpec
 from repro_torch.kernels import _build, dispatch, ref
 from repro_torch.kernels.attn_decode import attn_decode
+from repro_torch.kernels.attn_decode_paged import attn_decode_paged
 from repro_torch.kernels.attn_prefill import attn_prefill
 from repro_torch.kernels.lords_decode import lords_decode
 from repro_torch.kernels.lords_matmul import lords_matmul
+from repro_torch.models.common import kv_quantize
 
 
 def _bf16(a):
@@ -145,6 +147,56 @@ def test_attn_decode_plain_matches_jax_kernel(g, cap):
     np.testing.assert_allclose(y_ref, y_oracle, rtol=0, atol=2e-5)
 
 
+def _int8_cache(b, cap, nkv, hd, seed):
+    """An int8 cache (codes, scales) from kv_quantize of normal K/V, as
+    torch tensors and as JAX arrays holding the same values."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(2):
+        codes, scale = kv_quantize(torch.from_numpy(
+            rng.standard_normal((b, cap, nkv, hd)).astype(np.float32)))
+        out.append((codes, scale, jnp.asarray(codes.numpy()),
+                    jnp.asarray(scale.numpy())))
+    return out
+
+
+@pytest.mark.parametrize("g,cap", [(4, 40), (1, 64), (2, 17)])
+def test_int8_attn_decode_matches_jax(g, cap):
+    """The int8 branch: the plain version, the fused wrapper on CPU tensors
+    (through qattention's padding) and the ref backend against JAX
+    ``attn_decode_ref`` with scales (1e-5 absolute: the same f32
+    arithmetic, another summation order), and the plain version against the
+    JAX int8 Pallas kernel in interpret mode, which folds the scales into
+    its dots (2e-5, as for bf16)."""
+    b, nkv, hd = 2, 2, 16
+    rng = np.random.default_rng(g + 10)
+    tq, jq = _bf16(rng.standard_normal((b, nkv * g, hd)))
+    (tk, tks, jk, jks), (tv, tvs, jv, jvs) = _int8_cache(b, cap, nkv, hd, g)
+    pos = np.array([cap - 1, cap // 3], np.int32)
+    tpos, scale = torch.from_numpy(pos), 1.0 / hd**0.5
+    want = np.asarray(jax_ref.attn_decode_ref(jq, jk, jv, jnp.asarray(pos), jks, jvs,
+                                              logit_scale=scale))
+    got = ref.attn_decode_ref(tq, tk, tv, tpos, scale, tks, tvs).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    for backend in dispatch.BACKENDS:
+        got = dispatch.qattention("decode", tq, tk, tv, tpos, tks, tvs,
+                                  logit_scale=scale, backend=backend).numpy()
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    kmask = dispatch.decode_kmask(tpos, cap)
+    y = attn_decode(tq.reshape(b, nkv, g, hd), tk, tv, kmask, tks, tvs,
+                    logit_scale=scale).numpy()
+    capp = -(-cap // 8) * 8
+
+    def pad(a):
+        return jnp.pad(a, ((0, 0), (0, capp - cap)) + ((0, 0),) * (a.ndim - 2))
+
+    y_kernel = np.asarray(attn_decode_gqa_pallas(
+        jnp.pad(jq.reshape(b, nkv, g, hd), ((0, 0), (0, 0), (0, 8 - g), (0, 0))),
+        pad(jk), pad(jv), jax_dispatch._decode_kmask(jnp.asarray(pos), capp),
+        pad(jks), pad(jvs), logit_scale=scale, bs=8, interpret=True))[:, :, :g]
+    np.testing.assert_allclose(y, y_kernel, rtol=0, atol=2e-5)
+
+
 @pytest.mark.parametrize("m", [3, 8, 40])
 @pytest.mark.parametrize("n,k,r", [(72, 96, 6), (200, 160, 24)])
 def test_qmatmul_padded_matches_jax_ref(m, n, k, r):
@@ -211,8 +263,9 @@ def test_backend_precedence():
 def test_wrappers_check_operands_and_count_only_launches():
     t, _ = _lords_operands(16, 128, 256, 6)
     x, q, b, a = t
-    counts = [fn.launches for fn in (lords_matmul, lords_decode, attn_prefill,
-                                     attn_decode)]
+    wrappers = (lords_matmul, lords_decode, attn_prefill, attn_decode,
+                attn_decode_paged)
+    counts = [fn.launches for fn in wrappers]
     with pytest.raises(ValueError, match="divisible"):
         lords_matmul(x, q, b, a)  # M=16 is not a 128 multiple
     with pytest.raises(TypeError, match="bfloat16"):
@@ -229,10 +282,22 @@ def test_wrappers_check_operands_and_count_only_launches():
     with pytest.raises(TypeError, match="int32"):
         attn_prefill(tq, tk, tv, pos.long(), pos, logit_scale=0.25)
     attn_prefill(tq, tk, tv, pos, pos, logit_scale=0.25)
-    attn_decode(tq[:, :1].reshape(1, 1, 2, 16), tk, tv,
-                torch.zeros(1, 64), logit_scale=0.25)
-    assert counts == [fn.launches for fn in (lords_matmul, lords_decode,
-                                             attn_prefill, attn_decode)]
+    qd = tq[:, :1].reshape(1, 1, 2, 16)
+    attn_decode(qd, tk, tv, torch.zeros(1, 64), logit_scale=0.25)
+    (ck, cks, _, _), (cv, cvs, _, _) = _int8_cache(1, 64, 1, 16, 0)
+    with pytest.raises(ValueError, match="both k_scale and v_scale"):
+        attn_decode(qd, ck, cv, torch.zeros(1, 64), cks, logit_scale=0.25)
+    with pytest.raises(TypeError, match="int8"):
+        attn_decode(qd, tk, tv, torch.zeros(1, 64), cks, cvs, logit_scale=0.25)
+    attn_decode(qd, ck, cv, torch.zeros(1, 64), cks, cvs, logit_scale=0.25)
+    pools = (ck.reshape(8, 8, 1, 16), cv.reshape(8, 8, 1, 16))
+    pt, pos = torch.tensor([[3, 0]], dtype=torch.int32), torch.tensor([9], dtype=torch.int32)
+    with pytest.raises(TypeError, match="int32"):
+        attn_decode_paged(qd, *pools, pt.long(), pos, cks.reshape(8, 8, 1),
+                          cvs.reshape(8, 8, 1), logit_scale=0.25)
+    attn_decode_paged(qd, *pools, pt, pos, cks.reshape(8, 8, 1),
+                      cvs.reshape(8, 8, 1), logit_scale=0.25)
+    assert counts == [fn.launches for fn in wrappers]
 
 
 def test_build_recipe(monkeypatch, tmp_path):

@@ -16,6 +16,7 @@ from jax.sharding import AxisType
 
 from repro.configs import get_config as jax_get_config
 from repro.configs import smoke_variant as jax_smoke_variant
+from repro.kernels import dispatch as jax_dispatch
 from repro.launch.serve import serve_batch as jax_serve_batch
 from repro.models import cache_init as jax_cache_init
 from repro.models import forward_decode as jax_forward_decode
@@ -25,6 +26,7 @@ from repro.models import split_tree
 from repro_torch.configs import get_config, smoke_variant
 from repro_torch.convert import from_jax_params
 from repro_torch.kernels import dispatch
+from repro_torch.launch.engine import Engine
 from repro_torch.launch.serve import main as serve_main
 from repro_torch.launch.serve import serve_batch
 from repro_torch.models import cache_init, forward_decode, forward_prefill
@@ -132,6 +134,61 @@ def test_serve_batch_greedy_tokens_match_jax(models):
     np.testing.assert_array_equal(tout["tokens"], jout["tokens"])
 
 
+def test_serve_batch_int8_kv_greedy_tokens_match_jax(models):
+    """With the int8 KV cache (codes and per-(token, head) scales written by
+    prefill and decode, dequantized to bf16 before the decode einsums on
+    the ref backend) the greedy tokens equal the JAX package's.  Token
+    equality is meaningful only where no argmax sits on a near tie, so the
+    test first replays the run teacher-forced on JAX's tokens in both
+    packages.  For every step, row and competing token k, JAX's gap
+    l[argmax] - l[k] must be at least twice the change of that gap between
+    the packages, so that the argmax would hold if the difference doubled
+    (seed 3: the worst change is 0.13 of its gap; seed 5 has a 6e-5 top-2
+    margin and does flip)."""
+    jcfg, jparams, cfg, params = models
+    mesh = jax.make_mesh((1, 1), ("data", "model"),
+                         axis_types=(AxisType.Auto,) * 2)
+    jout = jax_serve_batch(jcfg, batch=BATCH, prompt_len=PROMPT, gen=GEN,
+                           seed=3, params=jparams, kernel_backend="ref",
+                           mesh=mesh, kv_cache="int8")
+    tout = serve_batch(cfg, batch=BATCH, prompt_len=PROMPT, gen=GEN, seed=3,
+                       params=params, device="cpu", kv_cache="int8")
+    assert tout["kv_cache"] == "int8"
+
+    jcfg8, cfg8 = jcfg.with_(kv_cache_dtype="int8"), cfg.with_(kv_cache_dtype="int8")
+    prompts, positions = _window(cfg, seed=3)  # serve_batch's window for seed 3
+    jcache, _ = split_tree(jax_cache_init(jcfg8, BATCH, PROMPT + GEN))
+    cache = cache_init(cfg8, BATCH, PROMPT + GEN, device="cpu")
+    worst = 0.0  # the largest (gap change between the packages) / (JAX's gap)
+    with jax_dispatch.backend_scope("ref"):
+        for step in range(GEN):
+            if step == 0:
+                jl, jcache = jax_forward_prefill(jparams, jcfg8, {"tokens": prompts},
+                                                 jcache, positions)
+                tl, cache = forward_prefill(
+                    params, cfg8, {"tokens": torch.from_numpy(prompts).long()}, cache,
+                    torch.from_numpy(positions))
+            else:
+                tok = jout["tokens"][:, step - 1].astype(np.int32)
+                pos = np.full((BATCH,), PROMPT + step - 1, np.int32)
+                jl, jcache = jax_forward_decode(jparams, jcfg8, {"tokens": tok}, jcache,
+                                                pos)
+                tl, cache = forward_decode(
+                    params, cfg8, {"tokens": torch.from_numpy(tok).long()}, cache,
+                    torch.from_numpy(pos))
+            jl = np.asarray(jl, np.float32)[:, -1, : cfg.vocab_size]
+            tl = tl.numpy()[:, -1, : cfg.vocab_size]
+            rows, top = np.arange(BATCH), jl.argmax(-1)
+            gap = jl[rows, top][:, None] - jl
+            change = np.abs((tl - jl)[rows, top][:, None] - (tl - jl))
+            gap[rows, top] = np.inf
+            worst = max(worst, float((change / gap).max()))
+    assert worst <= 0.5, (
+        f"near tie: a top-token gap changes by {worst:.3g} of itself between the "
+        "packages; pick a seed whose greedy tokens are decided")
+    np.testing.assert_array_equal(tout["tokens"], jout["tokens"])
+
+
 def test_serve_batch_dead_columns_and_sampling(models):
     """Given prompts, the dead window columns hold zeros instead of random
     tokens: masked, they cannot change the greedy tokens.  Temperature
@@ -167,11 +224,13 @@ def test_fused_backend_on_cpu_tracks_ref(models):
     assert _cos(outs[0], outs[1]) >= 0.999
 
 
-def test_serve_cli_on_cpu(capsys):
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_serve_cli_on_cpu(capsys, kv):
     serve_main(["--arch", "llama3-8b", "--smoke", "--device", "cpu",
-                "--batch", "2", "--prompt-len", "8", "--gen", "3"])
+                "--batch", "2", "--prompt-len", "8", "--gen", "3",
+                "--kv-cache", kv])
     out = capsys.readouterr().out
-    assert "device=cpu backend=ref" in out and "sample tokens" in out
+    assert f"device=cpu backend=ref kv={kv}" in out and "sample tokens" in out
 
 
 def test_entry_points_raise_without_card():
@@ -186,6 +245,10 @@ def test_entry_points_raise_without_card():
         from repro_torch.models import model_init
 
         model_init(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Engine(cfg, slots=1, total_pages=4, page_size=8, max_pages=2, chunk=8)
+    assert Engine(cfg, slots=1, total_pages=4, page_size=8, max_pages=2,
+                  chunk=8, device="cpu").device.type == "cpu"
 
 
 def test_port_imports_neither_jax_nor_repro():
