@@ -4,24 +4,30 @@
     python3 chip_smoke.py
 
 Phase 1 builds the CUDA sources of ``src/repro_torch/csrc`` (one ``nvcc``
-each, all at once).  Phase 2 holds each of the five kernels against its
-plain PyTorch version at the shapes llama3-8b's paths give it, and times
-kernel, plain version, one library call (where one computes the same
-function) and the bytes/FLOP bound.  Phase 3 serves llama3-8b at full width
-(batch 4, prompt 512, gen 32, random weights from a seeded
-``torch.Generator``) through ``repro_torch.launch.serve.serve_batch`` with a
-bf16 and with an int8 KV cache.  Phase 4 runs the paged continuous-batching
-engine (int8 pool, 8 slots, a 16-request trace that forces an eviction).
-Each path runs with the launch counts set to 0 just before it, must launch
-every kernel it uses, and must hold teacher-forced logits within a stated
-bound of the ``ref`` backend.  Exits non-zero, printing no result, when no
-CUDA device is visible or the port's sources are missing; any failing phase
-raises.  The last line is ``{"ok": true, "device": {...}}``; before it come
-the card's name and power limit and the ``{"kernels": [...]}`` line.
+each, all at once).  Phase 2 holds each of the eight kernels against its
+plain PyTorch version at the shapes llama3-8b's paths give it (the training
+kernels at a 4096-token step), and times kernel, plain version, one library
+call (where one computes the same function) and the bytes/FLOP bound.
+Phase 3 serves llama3-8b at full width (batch 4, prompt 512, gen 32,
+random weights from a seeded ``torch.Generator``) through
+``repro_torch.launch.serve.serve_batch`` with a bf16 and with an int8 KV
+cache.  Phase 4 runs the paged continuous-batching engine (int8 pool, 8
+slots, a 16-request trace that forces an eviction).  Phase 5 trains the
+same model in PEFT mode through ``repro_torch.launch.train.run_training``
+(a warm-up step and 3 steps of 4096 tokens); phase 6 trains llama3-8b at
+full width and 4 layers in QAT mode.  Each path runs with the launch counts
+set to 0 just before it, must launch every kernel it uses, and must hold
+its outputs (teacher-forced logits, or one step's gradients) within a
+stated bound of the ``ref`` backend.  Exits non-zero, printing no result,
+when no CUDA device is visible or the port's sources are missing; any
+failing phase raises.  The last line is ``{"ok": true, "device": {...}}``;
+before it come the card's name and power limit and the
+``{"kernels": [...]}`` line.
 """
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -37,12 +43,26 @@ BATCH, PROMPT, GEN = 4, 512, 32
 ENGINE = dict(slots=8, page_size=64, chunk=512, max_pages=20, burst=8,
               total_pages=49)
 N_REQUESTS = 16
+# phases 5 and 6: train_4k's sequence, its global batch 256 cut to 1; the
+# peft run takes a larger step than the training CLIs' default 1e-4 so that the
+# step-0 batch's loss moves visibly in 3 steps
+TRAIN_SEQ, TRAIN_BATCH = 4096, 1
+PEFT_LR, QAT_LR = 1e-3, 1e-4
+QAT_LAYERS = 4   # 16 B per weight of master W, its gradient and two moments
+CHECK_LAYERS = 4  # depth of the fused-vs-ref gradient checks
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "lords_matmul": ("lords_matmul", "src/repro/kernels/lords_matmul.py:140"),
     "lords_decode": ("lords_decode", "src/repro/kernels/lords_decode.py:84"),
     "attn_prefill": ("attn_prefill", "src/repro/kernels/attn_prefill.py:101"),
     "attn_decode": ("attn_decode", "src/repro/kernels/attn_decode.py:122"),
     "attn_decode_paged": ("attn_decode", "src/repro/kernels/attn_decode.py:292"),
+    "lords_matmul_t": ("lords_matmul_t", "src/repro/kernels/lords_matmul_t.py:75"),
+    "lords_grad": ("lords_grad", "src/repro/kernels/lords_grad.py:121"),
+    "lut_quantize": ("lut_quantize", "src/repro/kernels/lut_quantize.py:70"),
+}
+LIBRARY_NOTES = {
+    "lut_quantize": "no PyTorch call computes it; torch.bucketize over a precomputed ratio "
+                    "W/S is printed as a yardstick ([yardstick] line)",
 }
 NO_LIBRARY = ("no single PyTorch call reads an int8 or a paged cache; SDPA over "
               "a bf16 contiguous cache of the same live length is printed as a "
@@ -140,7 +160,7 @@ class KernelCheck:
                "primary_checks": [c["label"] for c in prim], "model_layers": layers,
                "checks": self.checks}
         if lib is None:
-            row["library_note"] = NO_LIBRARY
+            row["library_note"] = LIBRARY_NOTES.get(self.name, NO_LIBRARY)
         return row
 
 
@@ -199,8 +219,114 @@ def check_kernels(cfg, torch, F):
         del p, w_hat
 
     check_attention(cfg, torch, F, results, gen, flush)
+    check_train_kernels(cfg, torch, results, gen, flush)
     del scratch
     return results
+
+
+def _layer_shapes(cfg):
+    """A layer's seven linears grouped by (N, K) -> their names."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    nh, nkv, dff = cfg.num_heads, cfg.num_kv_heads, cfg.d_ff
+    shapes = {}
+    for label, n, k in (("wq", nh * hd, d), ("wk", nkv * hd, d), ("wv", nkv * hd, d),
+                        ("wo", d, nh * hd), ("gate", dff, d), ("up", dff, d),
+                        ("down", d, dff)):
+        shapes.setdefault((n, k), []).append(label)
+    return shapes
+
+
+def check_train_kernels(cfg, torch, results, gen, flush):
+    """Phase 2, training: the three backward / quantize kernels at the seven
+    linear shapes of a 4096-token step, against their plain versions."""
+    from repro_torch.core import init_quantized_linear
+    from repro_torch.core import lut as lut_mod
+    from repro_torch.core.lords import dequantize_weight
+    from repro_torch.core.scaling import clamp_scale
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.lords_grad import lords_grad
+    from repro_torch.kernels.lords_matmul_t import lords_matmul_t
+    from repro_torch.kernels.lut_quantize import flipped_codes, lut_quantize
+
+    dev = torch.device("cuda")
+    spec = cfg.quant
+    m = TRAIN_SEQ * TRAIN_BATCH
+    bucket_ms = 0.0
+    for (n, k), names in _layer_shapes(cfg).items():
+        label, weight = "/".join(names), len(names)
+        p = init_quantized_linear(n, k, spec, generator=gen, device=dev)
+        q, b, a = p["q"], p["b"], p["a"]
+        r = b.shape[1]
+        w_hat = dequantize_weight(p, spec)  # bf16, for the library yardsticks
+        g = torch.randn(m, n, generator=gen, device=dev).to(torch.bfloat16)
+        x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+        shape = f"{label} M={m} N={n} K={k} r={r}"
+        s_ops = 2 * r * n * k
+
+        # A: dx = g·Ŵ.  Ŵ is rounded to bf16 for the tensor cores where the
+        # plain version keeps f32: 2^-9 relative per weight, random in sign
+        # over N, so 5e-3 of max |dx| bounds it
+        dx = lords_matmul_t(g, q, b, a, spec.codebook)
+        dx_ref = ref.lords_matmul_t_ref(g, q, b, a, spec.codebook)
+        torch.cuda.synchronize()
+        err = (dx - dx_ref).abs().max().item()
+        nbytes = m * n * 2 + q.numel() + (n * r + r * k) * 4 + m * k * 4
+        b_ms, b_by = bound(nbytes, {"bf16": (2 * m * n * k, BF16_FLOP_S),
+                                    "f32": (s_ops, FP32_FLOP_S)})
+        results["lords_matmul_t"].add(
+            shape, err, 5e-3 * dx_ref.abs().max().item(),
+            timed(lambda: lords_matmul_t(g, q, b, a, spec.codebook), 5, flush),
+            timed(lambda: ref.lords_matmul_t_ref(g, q, b, a, spec.codebook), 3, flush),
+            timed(lambda: torch.matmul(g, w_hat), 5, flush), b_ms, b_by, weight)
+        del dx, dx_ref
+
+        # B: dB, dA (and the qat dW).  ∂L/∂Ŵ takes exact bf16 products
+        # summed in f32 in another order: 1e-4 of each gradient's scale
+        w = (w_hat.float() + 1e-3 * torch.randn(n, k, generator=gen, device=dev)).contiguous()
+        for variant, wq in (("peft", None), ("qat", w)):
+            out = lords_grad(x, g, q, b, a, spec.codebook, w=wq)
+            got = [out[0].sum(0), out[1].sum(0), *out[2:]]
+            want = ref.lords_grads_ref(g, x, q, b, a, spec.codebook, w=wq, want_dx=False)
+            torch.cuda.synchronize()
+            err = max((u - v).abs().max().item() / v.abs().max().item()
+                      for u, v in zip(got, want))
+            del out, got, want
+            nbytes = (m * (n + k) * 2 + q.numel() + 2 * (n * r + r * k) * 4
+                      + (8 * n * k if wq is not None else 0))
+            b_ms, b_by = bound(nbytes, {"bf16": (2 * m * n * k, BF16_FLOP_S),
+                                        "f32": (3 * s_ops, FP32_FLOP_S)})
+            results["lords_grad"].add(
+                f"{variant} {shape} (err relative to each gradient's max)", err, 1e-4,
+                timed(lambda: lords_grad(x, g, q, b, a, spec.codebook, w=wq), 5, flush),
+                timed(lambda: ref.lords_grads_ref(g, x, q, b, a, spec.codebook, w=wq,
+                                                  want_dx=False), 3, flush),
+                timed(lambda: torch.matmul(g.t(), x), 5, flush), b_ms, b_by, weight,
+                primary=variant == "peft")
+
+        # C: codes.  S = B·A summed in another order than b @ a may flip a
+        # code whose ratio lies within a few ulps of a level midpoint: each
+        # flip must lie within 4 ulps; the error is in code units
+        codes = lut_quantize(w, b, a, spec.codebook)
+        codes_ref = ref.lut_quantize_ref(w, b, a, spec.codebook)
+        flips, ulps = flipped_codes(w, b, a, codes, codes_ref, spec.codebook)
+        log(f"[kernel] lut_quantize {shape}: {flips} flipped codes of {n * k}, "
+            f"farthest {ulps:.1f} ulps from a midpoint (<= 4)")
+        if ulps > 4:
+            raise AssertionError(f"lut_quantize {shape}: a code flipped {ulps} ulps "
+                                 "from a midpoint")
+        nbytes = n * k * 4 + (n * r + r * k) * 4 + codes.numel()
+        b_ms, b_by = bound(nbytes, {"f32": (s_ops, FP32_FLOP_S)})
+        results["lut_quantize"].add(
+            f"{shape} flips={flips}", float(flips > 0), 1.0,
+            timed(lambda: lut_quantize(w, b, a, spec.codebook), 10, flush),
+            timed(lambda: ref.lut_quantize_ref(w, b, a, spec.codebook), 3, flush),
+            None, b_ms, b_by, weight)
+        ratio = (w / clamp_scale(b @ a)).contiguous()
+        mids = lut_mod.midpoints(spec.codebook, device=dev)
+        bucket_ms += weight * timed(lambda: torch.bucketize(ratio, mids), 10, flush)
+        del p, q, b, a, w_hat, g, x, w, codes, codes_ref, ratio
+    log(f"[yardstick] torch.bucketize over a precomputed W/S ratio, the seven linears of "
+        f"a layer: {bucket_ms:.4f} ms (lut_quantize also builds S and packs the codes)")
 
 
 def _randn(torch, gen, *shape, dtype=None):
@@ -438,11 +564,15 @@ def _wrappers():
     from repro_torch.kernels.attn_decode_paged import attn_decode_paged
     from repro_torch.kernels.attn_prefill import attn_prefill
     from repro_torch.kernels.lords_decode import lords_decode
+    from repro_torch.kernels.lords_grad import lords_grad
     from repro_torch.kernels.lords_matmul import lords_matmul
+    from repro_torch.kernels.lords_matmul_t import lords_matmul_t
+    from repro_torch.kernels.lut_quantize import lut_quantize
 
     return {"lords_matmul": lords_matmul, "lords_decode": lords_decode,
             "attn_prefill": attn_prefill, "attn_decode": attn_decode,
-            "attn_decode_paged": attn_decode_paged}
+            "attn_decode_paged": attn_decode_paged, "lords_matmul_t": lords_matmul_t,
+            "lords_grad": lords_grad, "lut_quantize": lut_quantize}
 
 
 def counted(run):
@@ -631,6 +761,188 @@ def paged_teacher_forced(cfg, params, torch):
     worst.check(f"engine {cfg.kv_cache_dtype} pool, 2 chunks + 8 decode steps, {slots} slots")
 
 
+def _train_run(cfg, params, torch, what, steps, lr):
+    """run_training for ``steps`` steps of TRAIN_SEQ x TRAIN_BATCH tokens
+    with the counts at 0 just before; returns (its result, the counts)."""
+    from repro_torch.configs import ShapeCfg
+    from repro_torch.launch.train import run_training
+
+    shape = ShapeCfg("train_4k, batch cut", TRAIN_SEQ, TRAIN_BATCH, "train")
+    log(f"[{what}] {cfg.name} mode={cfg.quant.mode} full width, {cfg.num_layers} layers, "
+        f"seq {TRAIN_SEQ}, global batch {TRAIN_BATCH} (train_4k's 256 cut for the time "
+        f"limit), lr {lr}, remat {cfg.remat}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out, launches = counted(lambda: run_training(cfg, shape, steps=steps, lr=lr,
+                                                 device="cuda", params=params,
+                                                 log_every=1))
+    losses = out["losses"]
+    if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{what}: losses {losses} (skipped {out['skipped_steps']})")
+    return out, launches
+
+
+def _report_steps(what, out, first_timed):
+    timed_ms = out["step_ms"][first_timed:]
+    per = statistics.median(timed_ms)
+    log(f"[{what}] step ms {', '.join(f'{t:.1f}' for t in out['step_ms'])} "
+        f"(median of the timed steps {per:.1f} ms, {TRAIN_SEQ * TRAIN_BATCH / per * 1e3:.1f} "
+        f"tokens/s); losses {', '.join(f'{v:.4f}' for v in out['losses'])}")
+
+
+def _require(what, launches, used):
+    missing = [n for n in used if launches[n] == 0]
+    if missing:
+        raise AssertionError(f"{what}: kernels never launched: {missing}")
+
+
+# one step's gradients, fused against ref, at CHECK_LAYERS layers: the ref
+# attention body rounds scaled queries and probabilities to bf16 where the
+# kernels keep f32, and dx rounds Ŵ to bf16 where ref keeps f32; through a
+# few layers that moves the loss by well under 1% of itself, and each
+# leaf's gradient keeps its direction: cosine >= 0.999.
+GRAD_COS_MIN, LOSS_REL_MAX = 0.999, 0.01
+
+
+def _check_model(cfg, params, keys):
+    """The first CHECK_LAYERS layers of ``params``: (cfg, param tree, the
+    trainable paths whose last key is in ``keys`` and their leaves, set to
+    require grad, and a batch)."""
+    from repro_torch.core import peft
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.train import batch_tensors
+
+    cfg = cfg.with_(num_layers=CHECK_LAYERS)
+    params = {**params, "layers": params["layers"][:CHECK_LAYERS]}
+    trainable, frozen = peft.partition(params, cfg.quant)
+    for t in trainable.values():
+        t.requires_grad_(False)
+    paths = [p for p in trainable if p[-1] in keys]
+    leaves = [trainable[p].requires_grad_() for p in paths]
+    batch = batch_tensors(SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=1)
+                          .batch_at(0), "cuda")
+    return cfg, peft.combine(trainable, frozen), paths, leaves, batch
+
+
+def grad_check(cfg, params, torch, what, keys):
+    """Loss and the gradients of the trainable leaves whose last key is in
+    ``keys``, fused against ref, on the first CHECK_LAYERS layers; returns
+    the ref run's launch counts (all must be 0)."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import forward_train
+
+    cfg, tree, paths, leaves, batch = _check_model(cfg, params, keys)
+    res = {}
+    for backend in ("fused", "ref"):
+        def step():
+            with dispatch.backend_scope(backend):
+                loss, _ = forward_train(tree, cfg, batch)
+                return loss.item(), torch.autograd.grad(loss, leaves)
+        (loss, grads), launches = counted(step)
+        res[backend] = loss, grads, launches
+    (lf, gf, _), (lr_, gr, ref_launches) = res["fused"], res["ref"]
+    worst = {}
+    for path, a, b in zip(paths, gf, gr):
+        cos = torch.nn.functional.cosine_similarity(a.double().flatten(), b.double().flatten(),
+                                                    dim=0).item()
+        if cos < worst.get(path[-1], (2.0,))[0]:
+            worst[path[-1]] = (cos, path)
+    rel = abs(lf - lr_) / abs(lr_)
+    log(f"[{what}] fused vs ref, one step at {CHECK_LAYERS} layers: loss {lf:.5f} vs "
+        f"{lr_:.5f} (|Δ|/loss {rel:.2e} <= {LOSS_REL_MAX}); min gradient cosine by leaf "
+        + ", ".join(f"d{k} {c:.6f} at {'/'.join(map(str, p))}" for k, (c, p) in worst.items())
+        + f" (>= {GRAD_COS_MIN}); ref launches {sum(ref_launches.values())}")
+    if rel > LOSS_REL_MAX or min(c for c, _ in worst.values()) < GRAD_COS_MIN:
+        raise AssertionError(f"{what}: fused and ref gradients disagree beyond the bound")
+    if any(ref_launches.values()):
+        raise AssertionError(f"{what}: the ref run launched kernels {ref_launches}")
+    for t in leaves:
+        t.requires_grad_(False)
+    return ref_launches
+
+
+def profile_step(cfg, params, torch, what, keys):
+    """torch.profiler over one fused forward + backward at CHECK_LAYERS
+    layers: device time by kernel and the device's busy share of the
+    wall time (the profiler's own overhead included in the wall)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import forward_train
+
+    cfg, tree, _, leaves, batch = _check_model(cfg, params, keys)
+
+    def step():
+        loss, _ = forward_train(tree, cfg, batch)
+        torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+
+    step()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+    wall = (time.perf_counter() - t0) * 1e3
+    # the device-side rows only: a CPU op's row repeats its kernels' time
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                  reverse=True)
+    busy = sum(r[0] for r in rows)
+    log(f"[{what}] profile, one fused forward+backward at {CHECK_LAYERS} layers: wall "
+        f"{wall:.1f} ms, device busy {busy:.1f} ms ({100 * busy / wall:.1f}%); by kernel: "
+        + "; ".join(f"{name[:70]} {ms:.1f} ms x{n}" for ms, n, name in rows[:14]))
+    for t in leaves:
+        t.requires_grad_(False)
+
+
+def train_peft(cfg, params, torch):
+    """Phase 5: PEFT training of the loaded model through run_training; the
+    step-0 batch's loss must fall.  Returns the counts of the trained run
+    and of the ref gradient check."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.train import batch_tensors
+    from repro_torch.models import forward_train
+
+    what = "train peft"
+    out, launches = _train_run(cfg, params, torch, what, steps=4, lr=PEFT_LR)
+    _report_steps(what, out, first_timed=1)
+    log(f"[{what}] peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+        f"launches {launches}")
+    _require(what, launches, ("lords_matmul", "lords_matmul_t", "lords_grad", "attn_prefill"))
+    batch0 = batch_tensors(SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+                           .batch_at(0), "cuda")
+    with torch.no_grad():
+        again = forward_train(params, cfg, batch0)[0].item()
+    log(f"[{what}] step-0 batch loss {out['losses'][0]:.4f} before, {again:.4f} after "
+        f"the {len(out['losses'])} steps")
+    if not again < out["losses"][0]:
+        raise AssertionError(f"{what}: the step-0 batch loss did not fall")
+    ref_launches = grad_check(cfg, params, torch, what, ("b", "a"))
+    profile_step(cfg, params, torch, what, ("b", "a"))
+    return launches, ref_launches
+
+
+def train_qat(cfg, torch):
+    """Phase 6: QAT training at full width, QAT_LAYERS layers."""
+    from repro_torch.models import model_init
+
+    what = "train qat"
+    cfg = cfg.with_(num_layers=QAT_LAYERS, quant=cfg.quant.with_(mode="qat"))
+    t0 = time.perf_counter()
+    params = model_init(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[{what}] model_init {time.perf_counter() - t0:.1f} s (depth cut to {QAT_LAYERS}: "
+        f"f32 W, its gradient and two moments are 16 B per weight)")
+    out, launches = _train_run(cfg, params, torch, what, steps=3, lr=QAT_LR)
+    _report_steps(what, out, first_timed=1)
+    log(f"[{what}] peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+        f"launches {launches}")
+    _require(what, launches, ("lut_quantize", "lords_matmul", "lords_matmul_t", "lords_grad"))
+    grad_check(cfg, params, torch, what, ("w", "b", "a"))
+    profile_step(cfg, params, torch, what, ("w", "b", "a"))
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -712,6 +1024,17 @@ def main() -> int:
     t0 = time.perf_counter()
     paths["engine int8"] = engine_checks(cfg, params, torch)
     log(f"[engine] phase time {time.perf_counter() - t0:.1f} s")
+
+    # phases 5 and 6: training; phase 5 trains the loaded model's B and A in
+    # place, after the serving phases have used them
+    t0 = time.perf_counter()
+    paths["train peft"], paths["train peft ref check"] = train_peft(cfg, params, torch)
+    log(f"[train peft] phase time {time.perf_counter() - t0:.1f} s")
+    del params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    paths["train qat"] = train_qat(cfg, torch)
+    log(f"[train qat] phase time {time.perf_counter() - t0:.1f} s")
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [

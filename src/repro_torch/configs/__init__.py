@@ -5,4 +5,9 @@ dimensions; ``smoke_variant(cfg)`` shrinks it for CPU tests.
 """
 from repro_torch.configs import archs  # noqa: F401  (registers every config)
 from repro_torch.configs.archs import smoke_variant  # noqa: F401
-from repro_torch.configs.base import ModelConfig, get_config  # noqa: F401
+from repro_torch.configs.base import (  # noqa: F401
+    SHAPES,
+    ModelConfig,
+    ShapeCfg,
+    get_config,
+)

@@ -6,7 +6,8 @@ import math
 
 from repro_torch.core.lords import QuantSpec
 
-__all__ = ["ModelConfig", "KV_CACHE_DTYPES", "register", "get_config"]
+__all__ = ["ModelConfig", "ShapeCfg", "SHAPES", "KV_CACHE_DTYPES", "register",
+           "get_config"]
 
 KV_CACHE_DTYPES = ("bf16", "int8")
 
@@ -30,7 +31,10 @@ class ModelConfig:
     # decode KV-cache storage: 'bf16' or 'int8' (per-(token, head)
     # symmetric int8 codes + f32 scales)
     kv_cache_dtype: str = "bf16"
+    # training: checkpoint each layer and loss chunk (recompute in backward)
+    remat: bool = True
     vocab_pad_multiple: int = 2048
+    micro_tokens: int = 8192       # live tokens per microbatch (training)
 
     def __post_init__(self):
         if self.kv_cache_dtype not in KV_CACHE_DTYPES:
@@ -48,6 +52,19 @@ class ModelConfig:
 
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCfg:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeCfg("train_4k", 4096, 256, "train"),
+}
 
 
 _REGISTRY: dict = {}

@@ -2,11 +2,15 @@
 
 A quantized linear is a plain dict of tensors plus a :class:`QuantSpec`:
 
-    {"q": uint8 packed codes (n, m·bits/8), "b": (n, r) f32, "a": (r, m) f32}
+    frozen / peft: {"q": uint8 packed codes (n, m·bits/8), "b": (n, r) f32,
+                    "a": (r, m) f32}
+    qat:           {"w": (n, m) f32 master weight, "b", "a"}
 
 In the ``frozen`` (inference) and ``peft`` (trainable B, A) modes the forward
-is Ŵ = lut[Q] ⊙ clamp(B·A); both store the same tensors.  The ``qat`` mode
-and the block-wise / adapter baselines are not in this package yet.
+is Ŵ = lut[Q] ⊙ clamp(B·A).  In ``qat`` mode it is the fake quantization
+Ŵ = ROUND(W ⊘ S) ⊙ S with straight-through gradients
+(:mod:`repro_torch.core.qat`): the codes are recomputed from W at every
+forward.  The block-wise / adapter baselines are not in this package yet.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ from typing import Any
 import torch
 
 from repro_torch.core import scaling
+from repro_torch.core.qat import fake_quant_ste
 from repro_torch.core.quantize import (
     dequantize_codes,
     pack_codes,
@@ -26,7 +31,7 @@ from repro_torch.core.quantize import (
 
 __all__ = ["QuantSpec", "init_quantized_linear", "dequantize_weight"]
 
-_MODES = ("frozen", "peft")
+_MODES = ("frozen", "peft", "qat")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,7 +43,7 @@ class QuantSpec:
     block_size: int = 128  # equivalent block size (sets LoRDS parity rank)
     rank: int | None = None  # explicit LoRDS rank override
     extra_rank: int = 0  # +r_q for the parameter-aligned LoRDS†
-    mode: str = "frozen"  # frozen | peft
+    mode: str = "frozen"  # frozen | peft | qat
     compute_dtype: Any = torch.bfloat16
     scale_dtype: Any = torch.float32
     ba_compute_dtype: Any = torch.float32  # S = B·A product precision
@@ -76,11 +81,13 @@ def init_quantized_linear(n: int, m: int, spec: QuantSpec, *,
     w = w.to(torch.float32)
     b, a = scaling.lords_init_from_weight(
         w, spec.block_size, rank=spec.rank, extra_rank=spec.extra_rank)
-    codes = quantize_codes(w, scaling.scale_matrix(b, a), spec.codebook)
     # SVD factors can come back column-major; the kernels take row-major
-    return {"q": pack_codes(codes, spec.codebook),
-            "b": b.to(spec.scale_dtype).contiguous(),
-            "a": a.to(spec.scale_dtype).contiguous()}
+    params = {"b": b.to(spec.scale_dtype).contiguous(),
+              "a": a.to(spec.scale_dtype).contiguous()}
+    if spec.mode == "qat":
+        return {"w": w.contiguous(), **params}
+    codes = quantize_codes(w, scaling.scale_matrix(b, a), spec.codebook)
+    return {"q": pack_codes(codes, spec.codebook), **params}
 
 
 def dequantize_weight(params: dict, spec: QuantSpec) -> torch.Tensor:
@@ -88,5 +95,8 @@ def dequantize_weight(params: dict, spec: QuantSpec) -> torch.Tensor:
     _check_supported(spec)
     s = scaling.scale_matrix(params["b"].to(spec.ba_compute_dtype),
                              params["a"].to(spec.ba_compute_dtype))
+    if spec.mode == "qat":
+        return fake_quant_ste(spec.codebook, params["w"], s).to(
+            spec.compute_dtype)
     codes = unpack_codes(params["q"], spec.codebook)
     return dequantize_codes(codes, s, spec.codebook, dtype=spec.compute_dtype)

@@ -6,16 +6,29 @@ through, as in the JAX package.  Two backends:
 
   * ``fused`` — the hand-written CUDA kernels (``lords_matmul``,
     ``lords_decode``, ``attn_prefill``, ``attn_decode``,
-    ``attn_decode_paged``) behind the
-    pad-to-tile logic below.  On a CUDA tensor each wrapper launches its
-    kernel or raises; on a CPU tensor it runs its plain version, so the CPU
-    tests reach the padding and routing of this path too.
+    ``attn_decode_paged``, and for training ``lords_matmul_t``,
+    ``lords_grad`` and ``lut_quantize``) behind the pad-to-tile logic
+    below.  On a CUDA tensor each wrapper launches its kernel or raises; on
+    a CPU tensor it runs its plain version, so the CPU tests reach the
+    padding and routing of this path too.
   * ``ref`` — the plain PyTorch versions of :mod:`repro_torch.kernels.ref`,
     unpadded (the JAX package's ``ref`` backend).
 
 Selection: explicit ``backend=`` argument > :func:`backend_scope` >
 platform default, which is ``fused`` for CUDA tensors and ``ref`` for CPU
 tensors.  Nothing falls back from one backend to the other.
+
+Gradients: when autograd needs them, a quantized linear runs as a
+``torch.autograd.Function`` (``_LordsQMatmul`` for frozen / peft,
+``_LordsQatQMatmul`` for qat) whose backward is ``lords_matmul_t`` (dx) and
+``lords_grad`` (dB, dA and the qat dW) on ``fused``, and
+:func:`repro_torch.kernels.ref.lords_grads_ref` on ``ref`` — the JAX
+package's custom VJPs.  The qat forward quantizes W with ``lut_quantize``
+and saves the packed codes for its backward.  ``qattention("prefill")``
+differentiates through the flash kernel's forward and recomputes the plain
+version in its backward (as the JAX package does).  Each Function keeps the
+backend its forward resolved: PyTorch runs a CUDA backward on its own
+thread, where :func:`backend_scope` is not set.
 
 Padding: the kernels take tile-divisible shapes.  K is zero-padded (exact:
 padded x columns are zero), padded N rows and M rows are sliced off, and
@@ -36,7 +49,10 @@ from repro_torch.kernels import attn_decode as attn_decode_mod
 from repro_torch.kernels import attn_decode_paged as attn_decode_paged_mod
 from repro_torch.kernels import attn_prefill as attn_prefill_mod
 from repro_torch.kernels import lords_decode as lords_decode_mod
+from repro_torch.kernels import lords_grad as lords_grad_mod
 from repro_torch.kernels import lords_matmul as lords_matmul_mod
+from repro_torch.kernels import lords_matmul_t as lords_matmul_t_mod
+from repro_torch.kernels import lut_quantize as lut_quantize_mod
 from repro_torch.kernels import ref
 
 __all__ = [
@@ -52,6 +68,7 @@ __all__ = [
 BACKENDS = ("fused", "ref")
 DECODE_M_MAX = lords_decode_mod.DECODE_M_MAX
 _ATTN_KINDS = ("prefill", "chunk_prefill", "decode", "paged_decode")
+_LORDS_MODES = ("frozen", "peft", "qat")
 
 _TLS = threading.local()
 
@@ -135,23 +152,134 @@ def _lords_forward(x2d, q_packed, b, a, codebook, backend):
     return y[:m, :n]
 
 
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _cast(t, dtype):
+    return None if t is None else t.to(dtype)
+
+
+def _lords_grads(g, x2d, q_packed, b, a, w, codebook, backend, *,
+                 want_dx=True, want_params=True):
+    """The LoRDS backward: ``(dx, dB, dA)`` in f32, plus ``dW`` when the qat
+    master ``w`` is given; a term not wanted comes back None.  On ``fused``
+    dx is ``lords_matmul_t`` and the rest ``lords_grad`` (its per-tile
+    partials summed here): no (N, K) dequantized temporary exists."""
+    tail = (None,) if w is not None else ()
+    if backend == "ref":
+        if want_params:
+            out = ref.lords_grads_ref(g, x2d, q_packed, b, a, codebook, w=w,
+                                      want_dx=want_dx)
+            return out if want_dx else (None, *out)
+        dx = (ref.lords_matmul_t_ref(g, q_packed, b, a, codebook)
+              if want_dx else None)
+        return (dx, None, None, *tail)
+    m, k = x2d.shape
+    n, r = b.shape
+    ps = pack_spec(codebook)
+    # one padded geometry serves both kernels: M to 128 (dx tile), N and K
+    # to 128 (the grad tile); zero rows and columns add nothing
+    mp, np_, kp = _round_up(m, 128), _round_up(n, 128), _round_up(k, 128)
+    g16 = _pad2(g.to(torch.bfloat16), mp, np_).contiguous()
+    qp = _pad2(q_packed, np_, ps.packed_width(kp))
+    bp, ap = _pad2(b, np_, r), _pad2(a, r, kp)
+    dx = None
+    if want_dx:
+        dx = lords_matmul_t_mod.lords_matmul_t(g16, qp, bp, ap,
+                                               codebook)[:m, :k]
+    if not want_params:
+        return (dx, None, None, *tail)
+    wp = None if w is None else _pad2(w.to(torch.float32), np_, kp)
+    out = lords_grad_mod.lords_grad(_pad2(x2d.to(torch.bfloat16), mp, kp),
+                                    g16, qp, bp, ap, codebook, w=wp)
+    db = out[0].sum(0)[:n]                     # Σ over K tiles -> (N, r)
+    da = out[1].sum(0)[:, :k]                  # Σ over N tiles -> (r, K)
+    return (dx, db, da) if w is None else (dx, db, da, out[2][:n, :k])
+
+
+class _LordsQMatmul(torch.autograd.Function):
+    """y = x2d · dequant(q, b, a)ᵀ with the fused LoRDS backward."""
+
+    @staticmethod
+    def forward(ctx, x2d, q_packed, b, a, codebook, backend):
+        ctx.save_for_backward(x2d, q_packed, b, a)
+        ctx.codebook, ctx.backend = codebook, backend
+        return _lords_forward(x2d, q_packed, b, a, codebook, backend)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2d, q_packed, b, a = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        dx, db, da = _lords_grads(g, x2d, q_packed, b, a, None, ctx.codebook,
+                                  ctx.backend, want_dx=need[0],
+                                  want_params=need[2] or need[3])
+        return (_cast(dx, x2d.dtype), None, _cast(db, b.dtype),
+                _cast(da, a.dtype), None, None)
+
+
+def _lords_qat_forward(x2d, w, b, a, codebook, backend):
+    """(y, packed codes of W ⊘ clamp(B·A)): ``lut_quantize`` feeds its codes
+    straight to the forward kernel on ``fused``."""
+    if backend == "ref":
+        q_packed = ref.lut_quantize_ref(w, b, a, codebook)
+    else:
+        n, k = w.shape
+        kq = _round_up(k, 8)  # the quantize kernel takes K % 8 == 0
+        q_packed = lut_quantize_mod.lut_quantize(
+            _pad2(w, n, kq), b, _pad2(a, a.shape[0], kq), codebook)
+        if kq != k:
+            q_packed = q_packed[:, :pack_spec(codebook).packed_width(k)]
+            q_packed = q_packed.contiguous()
+    return _lords_forward(x2d, q_packed, b, a, codebook, backend), q_packed
+
+
+class _LordsQatQMatmul(torch.autograd.Function):
+    """y = x2d · (ROUND(W ⊘ S) ⊙ S)ᵀ with the STE backward (Eq. 4/5); the
+    forward's packed codes feed the backward kernels directly."""
+
+    @staticmethod
+    def forward(ctx, x2d, w, b, a, codebook, backend):
+        y, q_packed = _lords_qat_forward(x2d, w, b, a, codebook, backend)
+        ctx.save_for_backward(x2d, w, b, a, q_packed)
+        ctx.codebook, ctx.backend = codebook, backend
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x2d, w, b, a, q_packed = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        dx, db, da, dw = _lords_grads(g, x2d, q_packed, b, a, w, ctx.codebook,
+                                      ctx.backend, want_dx=need[0],
+                                      want_params=any(need[1:4]))
+        return (_cast(dx, x2d.dtype), _cast(dw, w.dtype), _cast(db, b.dtype),
+                _cast(da, a.dtype), None, None)
+
+
 def qmatmul(params: dict, x: torch.Tensor, spec: QuantSpec, n: int, m: int, *,
             backend: str | None = None) -> torch.Tensor:
-    """y = x @ Ŵᵀ for a LoRDS linear (frozen / peft), in the compute dtype.
+    """y = x @ Ŵᵀ for a LoRDS linear (frozen / peft / qat), in the compute
+    dtype, differentiable in x, B, A (and the qat W).
 
     ``x`` may carry any leading batch dims over the in-features axis ``m``;
     the result replaces that axis with ``n``.
     """
-    if spec.method != "lords" or spec.mode not in ("frozen", "peft"):
+    if spec.method != "lords" or spec.mode not in _LORDS_MODES:
         raise NotImplementedError(
             f"qmatmul: method={spec.method!r} mode={spec.mode!r} is not "
-            "ported (lords frozen/peft only)")
+            f"ported (lords {'/'.join(_LORDS_MODES)} only)")
     backend = resolve_backend(backend, x)
     lead = x.shape[:-1]
     x2d = x.reshape(-1, m).to(spec.compute_dtype).contiguous()
-    y2d = _lords_forward(x2d, params["q"], params["b"].to(spec.ba_compute_dtype),
-                         params["a"].to(spec.ba_compute_dtype), spec.codebook,
-                         backend)
+    b = params["b"].to(spec.ba_compute_dtype)
+    a = params["a"].to(spec.ba_compute_dtype)
+    if spec.mode == "qat":
+        base, fn = params["w"], _LordsQatQMatmul
+        plain = lambda *args: _lords_qat_forward(*args)[0]  # noqa: E731
+    else:
+        base, fn, plain = params["q"], _LordsQMatmul, _lords_forward
+    args = (x2d, base, b, a, spec.codebook, backend)
+    y2d = fn.apply(*args) if _needs_grad(x2d, base, b, a) else plain(*args)
     return y2d.to(spec.compute_dtype).reshape(*lead, n)
 
 
@@ -181,6 +309,29 @@ def _attn_prefill_fused(q, k, v, qpos, kpos, logit_scale):
         _pad_axis(kpos, 1, sk, value=-1).contiguous(),
         logit_scale=logit_scale)
     return y[:, :s]
+
+
+class _AttnPrefill(torch.autograd.Function):
+    """The flash kernel's forward; the backward recomputes the plain version
+    under autograd (the JAX package's ``_attn_prefill_bwd``): the kernel is
+    the serving fast path, training attention costs what the plain path
+    costs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, positions, logit_scale):
+        ctx.save_for_backward(q, k, v, positions)
+        ctx.logit_scale = logit_scale
+        return _attn_prefill_fused(q, k, v, positions, positions, logit_scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, positions = ctx.saved_tensors
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = ref.attn_prefill_ref(*qkv, positions, ctx.logit_scale)
+            grads = torch.autograd.grad(out, qkv, g.to(torch.float32))
+        return (*(d.to(t.dtype) for d, t in zip(grads, (q, k, v))), None,
+                None)
 
 
 def _group_q(q, nkv):
@@ -238,6 +389,8 @@ def qattention(kind: str, *args, logit_scale: float,
     scale = float(logit_scale)
     if kind == "prefill":
         q, k, v, positions = args
+        if fused and _needs_grad(q, k, v):
+            return _AttnPrefill.apply(q, k, v, positions, scale)
         if fused:
             return _attn_prefill_fused(q, k, v, positions, positions, scale)
         return ref.attn_prefill_ref(q, k, v, positions, scale)

@@ -1,0 +1,53 @@
+"""Transposed LoRDS dequant-matmul (the activation gradient of a quantized
+linear): the wrapper of ``csrc/lords_matmul_t.cu``.
+
+    dx[M, K] (f32) = g[M, N] (bf16) · Ŵ,   Ŵ = bf16(lut[Q] ⊙ clamp(B·A))
+
+Port of the JAX package's ``lords_matmul_t_pallas``.  On CUDA tensors the
+wrapper launches the hand-written kernel (or raises); on CPU tensors it runs
+the plain version :func:`repro_torch.kernels.ref.lords_matmul_t_ref`.
+``lords_matmul_t.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.lords_matmul import check_lords_operands, device_lut
+from repro_torch.kernels.ref import lords_matmul_t_ref
+
+__all__ = ["lords_matmul_t", "BM", "BN", "BK"]
+
+BM, BN, BK = 128, 32, 128  # dx tile (BM x BK) and reduction step over N
+
+
+def lords_matmul_t(g, q_packed, b, a, codebook_name: str = "nf4") -> torch.Tensor:
+    """g (M, N) bf16 · dequant(q (N, K·bits/8) u8, b (N, r), a (r, K) f32)
+    → (M, K) f32.  M, K must divide 128 and N 32 (the dispatch layer pads)."""
+    what = "lords_matmul_t"
+    if g.dim() != 2 or a.dim() != 2 or g.shape[1] != b.shape[0]:
+        raise ValueError(f"{what}: g {tuple(g.shape)} does not match b "
+                         f"{tuple(b.shape)}")
+    # g stands where the forward's x stands: the same operand checks, with
+    # an (M, K) stand-in for x that holds no memory
+    m, n, k, r, ps = check_lords_operands(
+        what, torch.empty((g.shape[0], a.shape[1]), dtype=g.dtype,
+                          device="meta"), q_packed, b, a, codebook_name)
+    if m % BM or n % BN or k % BK:
+        raise ValueError(
+            f"{what}: shape (M={m}, N={n}, K={k}) not divisible by the "
+            f"kernel tile ({BM}, {BN}, {BK})")
+    if not _build.on_card(what, g=g, q=q_packed, b=b, a=a):
+        return lords_matmul_t_ref(g, q_packed, b, a, codebook_name)
+    lut = device_lut(codebook_name, str(g.device))
+    dx = torch.empty((m, k), dtype=torch.float32, device=g.device)
+    fn = _build.bind("lords_matmul_t", "lords_matmul_t_launch", "ppppppiiiiiip")
+    err = fn(g.data_ptr(), q_packed.data_ptr(), b.data_ptr(), a.data_ptr(),
+             lut.data_ptr(), dx.data_ptr(), m, n, k, r, ps.bits, lut.numel(),
+             torch.cuda.current_stream(g.device).cuda_stream)
+    _build.check(err, what)
+    lords_matmul_t.launches += 1
+    return dx
+
+
+lords_matmul_t.launches = 0

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the kernels on the serving path.
+"""Plain PyTorch versions of the kernels on the serving and training paths.
 
 They mirror the JAX package's oracles function for function and compute in
 float32 as those do.  They are the ``ref`` backend of
@@ -11,11 +11,16 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import lut
-from repro_torch.core.quantize import unpack_codes
-from repro_torch.core.scaling import clamp_scale
+from repro_torch.core.peft import scale_grads
+from repro_torch.core.qat import ste_cotangents
+from repro_torch.core.quantize import pack_codes, quantize_codes, unpack_codes
+from repro_torch.core.scaling import SCALE_EPS, clamp_scale
 
 __all__ = [
     "lords_matmul_ref",
+    "lut_quantize_ref",
+    "lords_matmul_t_ref",
+    "lords_grads_ref",
     "attn_prefill_ref",
     "attn_decode_ref",
     "attn_prefill_pos",
@@ -29,12 +34,20 @@ __all__ = [
 ATTN_NEG_INF = -1e30  # finite mask value: exp(m - m) stays NaN-free
 
 
-def _dequant_lords(q_packed, b, a, codebook_name, dtype):
-    """Ŵ = lut[Q] ⊙ clamp(B·A), computed in f32 and cast to ``dtype``."""
+def _lords_terms(q_packed, b, a, codebook_name):
+    """The shared dequant terms (lut[Q], clamped S, clamp mask), in f32: the
+    one place the forward and backward plain versions dequantize."""
     codes = unpack_codes(q_packed, codebook_name)
     levels = lut.codebook(codebook_name, device=q_packed.device)
     vals = levels[codes.long()]
-    s = clamp_scale(b.to(torch.float32) @ a.to(torch.float32))
+    s_raw = b.to(torch.float32) @ a.to(torch.float32)
+    mask = (s_raw.abs() >= SCALE_EPS).to(torch.float32)
+    return vals, clamp_scale(s_raw), mask
+
+
+def _dequant_lords(q_packed, b, a, codebook_name, dtype):
+    """Ŵ = lut[Q] ⊙ clamp(B·A), computed in f32 and cast to ``dtype``."""
+    vals, s, _ = _lords_terms(q_packed, b, a, codebook_name)
     return (vals * s).to(dtype)
 
 
@@ -44,6 +57,41 @@ def lords_matmul_ref(x, q_packed, b, a, codebook_name: str = "nf4"):
     the product, and the product accumulates in f32."""
     w_hat = _dequant_lords(q_packed, b, a, codebook_name, x.dtype)
     return x.to(torch.float32) @ w_hat.to(torch.float32).T
+
+
+def lut_quantize_ref(w, b, a, codebook_name: str = "nf4"):
+    """Packed nearest-level codes of W ⊘ (B·A) (Alg. 1's quantization step):
+    w (N, K) f32, b (N, r), a (r, K) → (N, K·bits/8) uint8."""
+    s = b.to(torch.float32) @ a.to(torch.float32)
+    return pack_codes(quantize_codes(w, s, codebook_name), codebook_name)
+
+
+def lords_matmul_t_ref(g, q_packed, b, a, codebook_name: str = "nf4"):
+    """dx = g @ (lut[Q] ⊙ clamp(B·A)) in f32.  g: (M, N); q: (N, K·bits/8)
+    → (M, K) f32."""
+    w_hat = _dequant_lords(q_packed, b, a, codebook_name, torch.float32)
+    return g.to(torch.float32) @ w_hat
+
+
+def lords_grads_ref(g, x, q_packed, b, a, codebook_name: str = "nf4", w=None,
+                    want_dx: bool = True):
+    """The LoRDS backward in plain f32 math (one dequantization).
+
+    Returns ``(dx, dB, dA)`` for frozen / peft, plus ``dW`` when the qat
+    master weight ``w`` is given; ``want_dx=False`` drops dx.  The STE rule
+    (Eq. 4/5) and the S = B·A chain rule are :func:`repro_torch.core.qat.
+    ste_cotangents` and :func:`repro_torch.core.peft.scale_grads`.
+    """
+    vals, s, mask = _lords_terms(q_packed, b, a, codebook_name)
+    g32 = g.to(torch.float32)
+    head = (g32 @ (vals * s),) if want_dx else ()
+    dw_hat = g32.T @ x.to(torch.float32)                   # ∂L/∂Ŵ (N, K)
+    if w is None:                                          # frozen / peft
+        return (*head, *scale_grads(dw_hat * vals * mask, b, a))
+    resid = vals - w.to(torch.float32) / s                 # Q − W ⊘ S
+    dw, ds = ste_cotangents(dw_hat, resid)
+    db, da = scale_grads(ds * mask, b, a)
+    return (*head, db, da, dw)
 
 
 def attn_prefill_pos(q, k, v, qpos, kpos, logit_scale: float, *,

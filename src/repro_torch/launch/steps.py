@@ -1,5 +1,9 @@
 """Sampling, the decode loop of batch serving and the engine's two steps.
 
+``train_step`` is the JAX package's train plan (``build_plan`` of a
+``train`` shape) as an eager function: microbatches, f32 gradient
+accumulation and the guarded AdamW update.
+
 ``generate`` is the JAX package's on-device generation loop (a
 ``lax.scan`` over decode steps) as a Python loop over
 :func:`repro_torch.models.forward_decode`.  ``prefill_chunk_step`` and
@@ -9,19 +13,84 @@ plain functions: no jit, plans or shardings.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
+from repro_torch.core import peft
 from repro_torch.kernels import dispatch
 from repro_torch.models import (
     forward_decode,
     forward_decode_paged,
     forward_prefill_chunk,
+    forward_train,
 )
+from repro_torch.optim import guarded_update
 
 __all__ = ["sample_token", "sample_token_guarded", "NONFINITE_TOKEN",
-           "generate", "prefill_chunk_step", "paged_generate"]
+           "pick_microbatches", "train_step", "generate",
+           "prefill_chunk_step", "paged_generate"]
 
 NONFINITE_TOKEN = -1
+
+
+def pick_microbatches(global_batch: int, seq: int,
+                      target_tokens: int = 8192) -> int:
+    """The smallest divisor of the batch that keeps each microbatch at
+    ``target_tokens`` live tokens or fewer (the remat carry's footprint)."""
+    want = -(-global_batch * seq // target_tokens)
+    for n in range(1, global_batch + 1):
+        if global_batch % n == 0 and n >= want:
+            return n
+    return global_batch
+
+
+def train_step(trainable: dict, frozen: dict, opt, batch: dict, *, cfg,
+               lr: float, backend: str | None = None,
+               max_gnorm: float | None = None):
+    """One optimizer step; returns (trainable, opt, metrics).
+
+    ``trainable`` / ``frozen`` are the path dicts of
+    :func:`repro_torch.core.peft.partition`; ``batch`` holds (B, S)
+    ``tokens`` and ``labels`` tensors on the model's device.  The batch is
+    split into microbatches of at most ``min(8192, cfg.micro_tokens)``
+    tokens whose gradients accumulate in f32; the update is
+    :func:`repro_torch.optim.guarded_update` (``max_gnorm`` None: only a
+    non-finite norm skips).  The params and moments are updated in place.
+    metrics: {"loss", "grad_norm", "update_skipped"} as floats.
+    """
+    tokens, labels = batch["tokens"], batch["labels"]
+    n_micro = pick_microbatches(tokens.shape[0], tokens.shape[1],
+                                min(8192, cfg.micro_tokens))
+    keys = list(trainable)
+    leaves = [trainable[k].requires_grad_(True) for k in keys]
+    params = peft.combine(trainable, frozen)
+    grads = None
+    loss_sum = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    for mb_tokens, mb_labels in zip(tokens.chunk(n_micro),
+                                    labels.chunk(n_micro)):
+        loss, _ = forward_train(params, cfg, {"tokens": mb_tokens,
+                                              "labels": mb_labels},
+                                backend=backend)
+        g = torch.autograd.grad(loss, leaves, allow_unused=True)
+        g = [torch.zeros_like(p) if gi is None else gi
+             for gi, p in zip(g, leaves)]
+        if n_micro == 1:
+            grads = g
+        elif grads is None:
+            grads = [gi.to(torch.float32) for gi in g]
+        else:
+            for acc, gi in zip(grads, g):
+                acc += gi.to(torch.float32)
+        loss_sum += loss.detach()
+    if n_micro > 1:
+        grads = [gi / n_micro for gi in grads]
+    thr = math.inf if max_gnorm is None else max_gnorm
+    trainable, opt, gnorm, ok = guarded_update(
+        trainable, dict(zip(keys, grads)), opt, lr, thr)
+    return trainable, opt, {"loss": float(loss_sum / n_micro),
+                            "grad_norm": float(gnorm),
+                            "update_skipped": 0.0 if ok else 1.0}
 
 
 def sample_token(logits, temperature: float,

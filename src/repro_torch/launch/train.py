@@ -1,0 +1,183 @@
+"""Training entry point (PEFT / QAT) on one device, with the spike guard and
+checkpoint rollback.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \\
+        --smoke --device cpu --steps 3 [--mode qat] [--backend fused]
+
+Without ``--device`` it runs on the card (and raises when there is none).
+The JAX package's mesh, elastic-recovery, desync and fault-injection paths
+are not part of this module.
+"""
+from __future__ import annotations
+
+import argparse
+import math
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.checkpoint import Checkpointer
+from repro_torch.configs import SHAPES, ShapeCfg, get_config, smoke_variant
+from repro_torch.core import peft
+from repro_torch.data import SyntheticLM, make_batch_iterator
+from repro_torch.kernels import dispatch
+from repro_torch.launch.steps import train_step
+from repro_torch.models import model_init
+from repro_torch.models.common import resolve_device
+from repro_torch.optim import adamw_init
+
+__all__ = ["run_training", "batch_tensors", "main"]
+
+
+def batch_tensors(batch: dict, device) -> dict:
+    """A pipeline batch (numpy) as int64 tensors on ``device``."""
+    return {k: torch.from_numpy(np.asarray(v, np.int64)).to(device)
+            for k, v in batch.items()}
+
+
+# the spike guard: a threshold of SPIKE_FACTOR x the EMA of accepted grad
+# norms after SPIKE_WARMUP accepted steps; ROLLBACK_AFTER consecutive skips
+# restore the latest checkpoint (the JAX package's defaults)
+SPIKE_FACTOR, SPIKE_WARMUP, ROLLBACK_AFTER = 10.0, 10, 3
+
+
+def run_training(cfg, shape_cfg, *, steps: int, lr: float = 1e-4,
+                 ckpt_dir: str | None = None, ckpt_every: int = 50,
+                 seed: int = 0, log_every: int = 10,
+                 backend: str | None = None, device=None,
+                 params=None) -> dict:
+    """Train ``cfg`` for ``steps`` steps of ``shape_cfg``'s batches.
+
+    ``params`` (default: :func:`repro_torch.models.model_init` from
+    ``seed``) is split by :func:`repro_torch.core.peft.partition`; the
+    trainable leaves are updated in place.  ``backend`` pins the dispatch
+    backend for the forward, the backward and the remat recompute.
+
+    Every update goes through :func:`repro_torch.optim.guarded_update`
+    behind the spike threshold above: a non-finite or spiking gradient skips
+    the update (counted in ``skipped_steps``), and after ``ROLLBACK_AFTER``
+    consecutive skips the latest checkpoint is restored, the data position
+    included (``rollbacks``).  With ``ckpt_dir`` the run resumes from the
+    latest checkpoint there and saves every ``ckpt_every`` steps.
+
+    Returns {"losses", "step_ms", "trainable", "frozen", "opt",
+    "skipped_steps", "rollbacks"}; ``step_ms`` is the host time of each
+    step, ending when its loss reaches the host.
+    """
+    device = resolve_device(device)
+    if params is None:
+        params = model_init(cfg, seed, device=device)
+    trainable, frozen = peft.partition(params, cfg.quant)
+    opt = adamw_init(trainable)
+    print(f"[train] {cfg.name} mode={cfg.quant.mode} "
+          f"backend={dispatch.resolve_backend(backend, params['embed'])} "
+          f"device={device} trainable={sum(t.numel() for t in trainable.values())}",
+          flush=True)
+
+    ckpt = Checkpointer(ckpt_dir) if ckpt_dir else None
+    start_step = 0
+    if ckpt is not None:
+        restored = ckpt.restore({"trainable": trainable, "opt": opt,
+                                 "data_step": 0})
+        if restored is not None:
+            trainable, opt = restored["trainable"], restored["opt"]
+            start_step = restored["data_step"]
+            print(f"[train] resumed from step {start_step}", flush=True)
+
+    source = SyntheticLM(cfg.vocab_size, shape_cfg.seq_len,
+                         shape_cfg.global_batch, seed=seed)
+    it = make_batch_iterator(source, start_step)
+    losses, step_ms = [], []
+    gnorm_ema, accepted, consecutive_skips = None, 0, 0
+    skipped_steps = rollbacks = 0
+
+    for _ in range(steps):
+        step, batch = next(it)
+        if gnorm_ema is None or accepted < SPIKE_WARMUP:
+            thr = math.inf  # no baseline yet
+        else:
+            thr = SPIKE_FACTOR * gnorm_ema
+        t0 = time.perf_counter()
+        trainable, opt, metrics = train_step(
+            trainable, frozen, opt, batch_tensors(batch, device), cfg=cfg,
+            lr=lr, backend=backend, max_gnorm=thr)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if metrics["update_skipped"]:
+            skipped_steps += 1
+            consecutive_skips += 1
+            print(f"[train] step {step:5d} SKIPPED (grad_norm "
+                  f"{metrics['grad_norm']:.3g} > threshold {thr:.3g})",
+                  flush=True)
+            if (consecutive_skips >= ROLLBACK_AFTER and ckpt is not None
+                    and ckpt.latest_step() is not None):
+                restored = ckpt.restore({"trainable": trainable, "opt": opt,
+                                         "data_step": 0})
+                trainable, opt = restored["trainable"], restored["opt"]
+                it = make_batch_iterator(source, restored["data_step"])
+                gnorm_ema, accepted, consecutive_skips = None, 0, 0
+                rollbacks += 1
+                print(f"[train] {ROLLBACK_AFTER} consecutive skips — restored "
+                      f"step {restored['data_step']}", flush=True)
+            continue
+        consecutive_skips = 0
+        gn = metrics["grad_norm"]
+        if math.isfinite(gn):
+            gnorm_ema = gn if gnorm_ema is None else 0.9 * gnorm_ema + 0.1 * gn
+            accepted += 1
+        losses.append(metrics["loss"])
+        if step % log_every == 0:
+            print(f"[train] step {step:5d} loss {metrics['loss']:.4f}",
+                  flush=True)
+        if ckpt is not None and (step + 1) % ckpt_every == 0:
+            ckpt.save(step + 1, {"trainable": trainable, "opt": opt,
+                                 "data_step": step + 1})
+    return {"losses": losses, "step_ms": step_ms, "trainable": trainable,
+            "frozen": frozen, "opt": opt, "skipped_steps": skipped_steps,
+            "rollbacks": rollbacks}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--shape", default="train_4k", choices=sorted(SHAPES))
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--lr", type=float, default=1e-4)
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced config and shape (CPU)")
+    ap.add_argument("--seq-len", type=int, default=None)
+    ap.add_argument("--global-batch", type=int, default=None)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--mode", default=None, choices=["peft", "qat"],
+                    help="override cfg.quant.mode for this run")
+    ap.add_argument("--backend", default=None, choices=list(dispatch.BACKENDS),
+                    help="pin the kernel backend (forward and backward)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda)")
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = smoke_variant(cfg)
+        shape = ShapeCfg("smoke", args.seq_len or 128, args.global_batch or 8,
+                         "train")
+    else:
+        shape = SHAPES[args.shape]
+        shape = ShapeCfg(shape.name, args.seq_len or shape.seq_len,
+                         args.global_batch or shape.global_batch, "train")
+    if args.mode:
+        cfg = cfg.with_(quant=cfg.quant.with_(mode=args.mode))
+    t0 = time.time()
+    out = run_training(cfg, shape, steps=args.steps, lr=args.lr,
+                       ckpt_dir=args.ckpt_dir, backend=args.backend,
+                       device=args.device)
+    dt = time.time() - t0
+    if out["losses"]:
+        print(f"[train] done: {len(out['losses'])} steps in {dt:.1f}s; "
+              f"loss {out['losses'][0]:.4f} -> {out['losses'][-1]:.4f}")
+    else:
+        print(f"[train] done in {dt:.1f}s; every step was skipped")
+
+
+if __name__ == "__main__":
+    main()

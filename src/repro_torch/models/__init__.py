@@ -5,6 +5,7 @@ from repro_torch.models.model import (  # noqa: F401
     forward_decode_paged,
     forward_prefill,
     forward_prefill_chunk,
+    forward_train,
     model_init,
     paged_cache_init,
 )

@@ -38,7 +38,8 @@ from repro_torch.models.common import (
 
 __all__ = [
     "chunked_causal_attention", "decode_attention", "gqa_init",
-    "gqa_cache_init", "gqa_prefill", "gqa_decode", "gqa_paged_cache_init",
+    "gqa_cache_init", "gqa_train", "gqa_prefill", "gqa_decode",
+    "gqa_paged_cache_init",
     "gqa_decode_paged", "gqa_prefill_chunk",
 ]
 
@@ -134,6 +135,16 @@ def _gqa_qkv(params, x, cfg, quant, positions):
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def gqa_train(params, x, cfg, quant, positions):
+    """Training forward of the attention block: x (b, s, d) at positions
+    (b, s) → (b, s, d); no cache."""
+    b, s, d = x.shape
+    nh, hd = cfg.num_heads, cfg.resolved_head_dim
+    q, k, v = _gqa_qkv(params, x, cfg, quant, positions)
+    out = chunked_causal_attention(q, k, v, positions=positions)
+    return qmatmul(params["wo"], out.reshape(b, s, nh * hd), quant, d, nh * hd)
 
 
 def _kv_init(cfg, lead, device, dtype=torch.bfloat16):

@@ -15,6 +15,7 @@ from repro_torch.kernels.dispatch import qmatmul
 __all__ = [
     "resolve_device",
     "f32_matmul",
+    "f32_matmul_train",
     "qlinear_init",
     "qlinear_apply",
     "dense_init",
@@ -51,6 +52,35 @@ def f32_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     else:
         y = x2d.to(torch.float32) @ w.to(torch.float32).t()
     return y.reshape(*x.shape[:-1], w.shape[0])
+
+
+class _F32Matmul(torch.autograd.Function):
+    """:func:`f32_matmul` with a backward that works on every device (the
+    card's mixed-dtype ``torch.mm`` is not differentiated): the cotangents
+    are f32 products, cast to the operands' dtypes, as the JAX package's
+    ``f32_einsum`` transposes."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return f32_matmul(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g2d = g.reshape(-1, w.shape[0])
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = (g2d @ w.to(torch.float32)).reshape(x.shape).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            x2d = x.reshape(-1, x.shape[-1]).to(torch.float32)
+            dw = (g2d.t() @ x2d).to(w.dtype)
+        return dx, dw
+
+
+def f32_matmul_train(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """:func:`f32_matmul`, differentiable in ``x`` and ``w``."""
+    return _F32Matmul.apply(x, w)
 
 
 def qlinear_init(n, m, quant_spec, *, generator=None, device=None, w=None):

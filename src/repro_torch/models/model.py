@@ -5,6 +5,7 @@ Param layout: ``{"layers": [per-layer dict, ...], "final_norm", "embed",
 {w_gate, w_up, w_down}}``.  The JAX package stacks layers on a leading axis
 and scans over them; here a Python loop walks the list.
 
+  * ``forward_train(params, cfg, batch)`` -> (mean next-token loss, metrics)
   * ``forward_prefill(params, cfg, batch, cache, positions)`` -> (last-live
     logits (b, 1, Vp) f32, cache)
   * ``forward_decode(params, cfg, batch, cache, pos)`` -> (logits (b, 1, Vp)
@@ -20,19 +21,25 @@ Caches and page pools are updated in place (see
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels import dispatch
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (
     dense_init,
     f32_matmul,
+    f32_matmul_train,
     resolve_device,
     rmsnorm,
     rmsnorm_init,
 )
 
-__all__ = ["model_init", "cache_init", "paged_cache_init", "forward_prefill",
-           "forward_decode", "forward_prefill_chunk", "forward_decode_paged"]
+__all__ = ["model_init", "cache_init", "paged_cache_init", "forward_train",
+           "forward_prefill", "forward_decode", "forward_prefill_chunk",
+           "forward_decode_paged"]
+
+LOSS_CHUNK = 512  # tokens per vocabulary-loss chunk
 
 
 def _check_dense(cfg):
@@ -104,6 +111,68 @@ def _mlp_residual(blk, x, cfg):
     h = rmsnorm(blk["ln2"], x, cfg.norm_eps)
     return x + moe_mod.dense_mlp_apply(blk["mlp"], h, cfg.d_model, cfg.d_ff,
                                        cfg.quant)
+
+
+def _block_train(blk, x, cfg, positions, backend):
+    # the backend is pinned inside the body: under cfg.remat this runs again
+    # in the backward, on the autograd thread, where no scope is set
+    with dispatch.backend_scope(backend):
+        h = rmsnorm(blk["ln1"], x, cfg.norm_eps)
+        x = x + attn.gqa_train(blk["mixer"], h, cfg, cfg.quant, positions)
+        return _mlp_residual(blk, x, cfg)
+
+
+def _chunk_loss(x, labels, head):
+    """(sum of the masked next-token NLL, live label count) of one chunk:
+    f32 logits over the padded vocabulary; labels of -1 are masked."""
+    logits = f32_matmul_train(x, head)                     # (b, c, Vp) f32
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    mask = (labels >= 0).to(torch.float32)
+    return ((logz - gold) * mask).sum(), mask.sum()
+
+
+def forward_train(params, cfg, batch, *, backend: str | None = None):
+    """batch: {"tokens": (b, s), "labels": (b, s)} (label -1 = masked).
+
+    Returns (mean loss, {"loss", "tokens"}).  Layers run in a Python loop;
+    under ``cfg.remat`` each layer and each vocabulary chunk is a
+    ``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint`` with
+    nothing saved), so the backward keeps one layer's activations at a time
+    and one chunk of logits.  The loss never materializes (b, s, V) logits:
+    it runs over chunks of 512 positions.  ``backend`` (default: resolved
+    once here) holds for the forward, the backward and the recompute.
+    """
+    tokens, labels = batch["tokens"], batch["labels"]
+    b, s = labels.shape
+    backend = dispatch.resolve_backend(backend, tokens)
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=tokens.device)[None].expand(b, s)
+    x = params["embed"][tokens.long()]
+    for blk in params["layers"]:
+        if cfg.remat:
+            x = checkpoint(_block_train, blk, x, cfg, positions, backend,
+                           use_reentrant=False)
+        else:
+            x = _block_train(blk, x, cfg, positions, backend)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    head = _head_matrix(params)
+    chunk = min(LOSS_CHUNK, s)
+    if s % chunk:
+        raise ValueError(f"sequence length {s} is not a multiple of the "
+                         f"loss chunk {chunk}")
+    labels = labels.long()
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, s, chunk):
+        args = (x[:, c0:c0 + chunk], labels[:, c0:c0 + chunk], head)
+        if cfg.remat:  # recompute the chunk's logits in the backward
+            nll, n = checkpoint(_chunk_loss, *args, use_reentrant=False)
+        else:
+            nll, n = _chunk_loss(*args)
+        tot, cnt = tot + nll, cnt + n
+    loss = tot / torch.clamp(cnt, min=1.0)
+    return loss, {"loss": loss, "tokens": cnt}
 
 
 def forward_prefill(params, cfg, batch, cache, positions=None):

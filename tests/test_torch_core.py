@@ -143,7 +143,9 @@ def test_dequantize_weight_matches_jax():
 
 
 def test_unported_modes_raise():
+    # qat is ported (tests/test_torch_train.py); the adapter baselines are not
     with pytest.raises(NotImplementedError):
-        init_quantized_linear(8, 32, QuantSpec(mode="qat"), device="cpu")
+        init_quantized_linear(8, 32, QuantSpec(method="qlora", mode="peft"),
+                              device="cpu")
     with pytest.raises(NotImplementedError):
         dequantize_weight({}, QuantSpec(method="blockwise"))

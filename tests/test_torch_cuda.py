@@ -14,14 +14,24 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import QuantSpec, init_quantized_linear
+from repro_torch.configs import get_config, smoke_variant
+from repro_torch.core import QuantSpec, init_quantized_linear, peft
+from repro_torch.data import SyntheticLM
 from repro_torch.kernels import dispatch, ref
 from repro_torch.kernels.attn_decode import attn_decode
 from repro_torch.kernels.attn_decode_paged import attn_decode_paged
 from repro_torch.kernels.attn_prefill import attn_prefill
 from repro_torch.kernels.lords_decode import lords_decode
+from repro_torch.kernels.lords_grad import lords_grad
 from repro_torch.kernels.lords_matmul import lords_matmul
-from repro_torch.models.common import kv_quantize
+from repro_torch.kernels.lords_matmul_t import lords_matmul_t
+from repro_torch.kernels.lut_quantize import flipped_codes, lut_quantize
+from repro_torch.launch.train import batch_tensors
+from repro_torch.models import forward_train, model_init
+from repro_torch.models.common import f32_matmul_train, kv_quantize
+
+KERNELS = (lords_matmul, lords_decode, attn_prefill, attn_decode,
+           attn_decode_paged, lords_matmul_t, lords_grad, lut_quantize)
 
 
 @pytest.fixture
@@ -187,3 +197,153 @@ def test_chunk_prefill_kernel_matches_plain(dev):
     live = qpos_t >= 0
     torch.testing.assert_close(y[live], y_ref[live], rtol=0, atol=1e-4)
     assert not y[~live].any()
+
+
+# ---------------------------------------------------------------------------
+# training kernels and the training path
+# ---------------------------------------------------------------------------
+
+
+def _rel(x, ref_, scale):
+    return (x - ref_).abs().max().item() / max(ref_.abs().max().item(), 1e-30) <= scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codebook", ["nf4", "nf3", "int8"])
+@pytest.mark.parametrize("mtok,n,k,r", [(300, 200, 160, 6), (33, 130, 320, 24)])
+def test_backward_kernels_match_plain_through_dispatch(dev, codebook, mtok, n, k, r):
+    """dx, dB, dA (and the qat dW) of ``dispatch._lords_grads`` on
+    ``fused`` (padded to the tiles) against the plain backward.  dx rounds
+    Ŵ to bf16 (2^-9 relative per weight, random in sign over N): 5e-3 of
+    max |dx|.  The gradients of B, A, W take exact bf16 products summed in
+    f32 in another order: 1e-4 of their scale."""
+    rng = np.random.default_rng(mtok + r)
+    x, p = _linear(n, k, r, dev, codebook, seed=r)
+    x = _bf16(rng, dev, mtok, k)
+    g = _bf16(rng, dev, mtok, n).float()
+    w = torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32) * 0.05).to(dev)
+    for wq in (None, w):
+        before = (lords_matmul_t.launches, lords_grad.launches)
+        got = dispatch._lords_grads(g, x, p["q"], p["b"], p["a"], wq, codebook, "fused")
+        want = ref.lords_grads_ref(g, x, p["q"], p["b"], p["a"], codebook, w=wq)
+        assert (lords_matmul_t.launches, lords_grad.launches) == (before[0] + 1, before[1] + 1)
+        assert _rel(got[0], want[0], 5e-3)
+        for name, a, b in zip(("db", "da", "dw"), got[1:], want[1:]):
+            assert a.shape == b.shape, name
+            assert _rel(a, b, 1e-4), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codebook", ["nf4", "nf3", "nf2", "int8"])
+def test_lut_quantize_kernel_matches_plain(dev, codebook):
+    """Codes equal the plain version's except where W/S lies within 4 f32
+    ulps of a level midpoint (S = B·A summed in another order)."""
+    rng = np.random.default_rng(5)
+    for n, k, r in ((200, 224, 6), (64, 1024, 24)):  # 224: a ragged column tile
+        _, p = _linear(n, k, r, dev, codebook, seed=n)
+        w = torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32) * 0.05).to(dev)
+        before = lut_quantize.launches
+        got = lut_quantize(w, p["b"], p["a"], codebook)
+        assert lut_quantize.launches == before + 1
+        want = ref.lut_quantize_ref(w, p["b"], p["a"], codebook)
+        assert got.shape == want.shape and got.dtype == torch.uint8
+        count, ulps = flipped_codes(w, p["b"], p["a"], got, want, codebook)
+        assert ulps <= 4, (count, ulps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["peft", "qat"])
+def test_qmatmul_autograd_fused_matches_ref(dev, mode):
+    """Gradients of sum(qmatmul(x)²) through the autograd Functions, fused
+    against ref on the card; the same bound as the CPU test against JAX
+    (bf16 outputs and dx: 2^-7 of each gradient's scale)."""
+    n, m, mtok = 200, 160, 70
+    spec = QuantSpec(block_size=32, rank=6, mode=mode)
+    x, p = _linear(n, m, 6, dev, seed=3)
+    if mode == "qat":
+        p = init_quantized_linear(n, m, spec, generator=torch.Generator(dev).manual_seed(1),
+                                  device=dev)
+    names = ["w", "b", "a"] if mode == "qat" else ["b", "a"]
+    out = {}
+    for backend in ("fused", "ref"):
+        pp = {k: v.detach().clone().requires_grad_(k in names) for k, v in p.items()}
+        xx = x[:mtok].detach().clone().requires_grad_()
+        y = dispatch.qmatmul(pp, xx, spec, n, m, backend=backend)
+        out[backend] = torch.autograd.grad((y.float() ** 2).sum(), [xx] + [pp[k] for k in names])
+    for name, a, b in zip(["x"] + names, out["fused"], out["ref"]):
+        assert _rel(a.float(), b.float(), 2.0**-7), name
+
+
+@pytest.mark.cuda
+def test_f32_head_product_backward_on_card(dev):
+    """The LM head's f32-output product differentiates on the card, and its
+    gradients equal the CPU's upcast product's (f32 sums in another order:
+    1e-5 of their scale)."""
+    rng = np.random.default_rng(9)
+    x = _bf16(rng, dev, 3, 40, 128)
+    w = _bf16(rng, dev, 512, 128)
+    gy = torch.from_numpy(rng.standard_normal((3, 40, 512)).astype(np.float32)).to(dev)
+    grads = {}
+    for d in (dev, torch.device("cpu")):
+        xx, ww = x.to(d).requires_grad_(), w.to(d).requires_grad_()
+        y = f32_matmul_train(xx, ww)
+        assert y.dtype == torch.float32
+        grads[d.type] = [t.float().cpu() for t in torch.autograd.grad(y, (xx, ww), gy.to(d))]
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        assert _rel(a, b, 1e-5)
+
+
+def _train_setup(dev, mode="peft"):
+    cfg = smoke_variant(get_config("llama3-8b")).with_(remat=True)
+    cfg = cfg.with_(quant=cfg.quant.with_(mode=mode))
+    params = model_init(cfg, 0, device=dev)
+    batch = batch_tensors(SyntheticLM(cfg.vocab_size, 128, 2, seed=1).batch_at(0), dev)
+    trainable, frozen = peft.partition(params, cfg.quant)
+    leaves = [t.requires_grad_() for t in trainable.values()]
+    return cfg, peft.combine(trainable, frozen), batch, leaves
+
+
+def _zero_counts():
+    for fn in KERNELS:
+        fn.launches = 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["peft", "qat"])
+def test_remat_ref_step_launches_no_kernel(dev, mode):
+    """Under backend_scope("ref") a remat forward_train and its backward —
+    which PyTorch runs, with the recompute, on its own device thread — launch
+    no kernel at all."""
+    cfg, params, batch, leaves = _train_setup(dev, mode)
+    _zero_counts()
+    with dispatch.backend_scope("ref"):
+        loss, _ = forward_train(params, cfg, batch)
+        grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(g).all() for g in grads)
+    assert {fn.__name__: fn.launches for fn in KERNELS} == {fn.__name__: 0 for fn in KERNELS}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["peft", "qat"])
+def test_remat_fused_step_launches_backward_kernels(dev, mode):
+    """The fused remat step runs the forward kernels (twice: the recompute)
+    and the backward kernels, and its gradients agree with ref's (cosine
+    >= 0.999: attention rounds differently on the two backends)."""
+    cfg, params, batch, leaves = _train_setup(dev, mode)
+    _zero_counts()
+    loss, _ = forward_train(params, cfg, batch)  # the card's default: fused
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    used = [lords_matmul, attn_prefill, lords_matmul_t, lords_grad]
+    if mode == "qat":
+        used.append(lut_quantize)
+    assert all(fn.launches > 0 for fn in used), {fn.__name__: fn.launches for fn in used}
+    assert lords_matmul.launches >= 14  # the 14 linears, and the recompute
+    with dispatch.backend_scope("ref"):
+        loss_ref, _ = forward_train(params, cfg, batch)
+        grads_ref = torch.autograd.grad(loss_ref, leaves)
+    assert abs(loss.item() - loss_ref.item()) < 1e-2
+    for a, b in zip(grads, grads_ref):
+        a, b = a.double().flatten(), b.double().flatten()
+        assert torch.nn.functional.cosine_similarity(a, b, dim=0) >= 0.999
