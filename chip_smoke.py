@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phase 1 builds the CUDA sources of ``src/repro_torch/csrc`` (one ``nvcc``
-each, all at once).  Phase 2 holds each of the eight kernels against its
+each, all at once).  Phase 2 holds each of the eleven kernels against its
 plain PyTorch version at the shapes llama3-8b's paths give it (the training
 kernels at a 4096-token step), and times kernel, plain version, one library
 call (where one computes the same function) and the bytes/FLOP bound.
@@ -15,8 +15,14 @@ cache.  Phase 4 runs the paged continuous-batching engine (int8 pool, 8
 slots, a 16-request trace that forces an eviction).  Phase 5 trains the
 same model in PEFT mode through ``repro_torch.launch.train.run_training``
 (a warm-up step and 3 steps of 4096 tokens); phase 6 trains llama3-8b at
-full width and 4 layers in QAT mode.  Each path runs with the launch counts
-set to 0 just before it, must launch every kernel it uses, and must hold
+full width and 4 layers in QAT mode.  Phase 7 serves block-wise NF4 and
+QLoRA at phase 3's settings (block 128: the bytes of phase 3's LoRDS
+model); phase 8 trains QLoRA's adapters at phase 5's settings; phase 9
+trains PEQA-style block scales at 4 layers; phase 10 quantizes layer 0's
+seven matrices by block-wise NF4, the LoRDS init, Algorithm 1, GPTQ, AWQ,
+LoftQ, QPiSSA and SmoothRot and runs the bit / rank allocation over them.
+Each path runs with the launch counts set to 0 just before it, must launch
+every kernel it uses (and none of another path's linears), and must hold
 its outputs (teacher-forced logits, or one step's gradients) within a
 stated bound of the ``ref`` backend.  Exits non-zero, printing no result,
 when no CUDA device is visible or the port's sources are missing; any
@@ -50,6 +56,13 @@ TRAIN_SEQ, TRAIN_BATCH = 4096, 1
 PEFT_LR, QAT_LR = 1e-3, 1e-4
 QAT_LAYERS = 4   # 16 B per weight of master W, its gradient and two moments
 CHECK_LAYERS = 4  # depth of the fused-vs-ref gradient checks
+# phases 7-10: the block-wise baselines at the config's own block (the
+# block the LoRDS parity rank is defined at, so a block-wise model stores
+# the bytes of phase 3's LoRDS model), QLoRA's adapter rank, PEQA's depth
+BASE_BLOCK, ADAPTER_RANK, PEQA_LAYERS = 128, 32, 4
+# phase 10: Algorithm 1 at the paper's lr and step count; GPTQ / AWQ /
+# SmoothRot calibration tokens; LoftQ's alternations
+PTQ_LR, PTQ_STEPS, PTQ_TOKENS, PTQ_LOFTQ_ITERS = 0.05, 500, 2048, 5
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "lords_matmul": ("lords_matmul", "src/repro/kernels/lords_matmul.py:140"),
     "lords_decode": ("lords_decode", "src/repro/kernels/lords_decode.py:84"),
@@ -59,6 +72,9 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "lords_matmul_t": ("lords_matmul_t", "src/repro/kernels/lords_matmul_t.py:75"),
     "lords_grad": ("lords_grad", "src/repro/kernels/lords_grad.py:121"),
     "lut_quantize": ("lut_quantize", "src/repro/kernels/lut_quantize.py:70"),
+    "block_matmul": ("block_matmul", "src/repro/kernels/block_matmul.py:54"),
+    "block_matmul_t": ("block_matmul_t", "src/repro/kernels/lords_matmul_t.py:161"),
+    "block_grad": ("block_grad", "src/repro/kernels/lords_grad.py:232"),
 }
 LIBRARY_NOTES = {
     "lut_quantize": "no PyTorch call computes it; torch.bucketize over a precomputed ratio "
@@ -220,6 +236,7 @@ def check_kernels(cfg, torch, F):
 
     check_attention(cfg, torch, F, results, gen, flush)
     check_train_kernels(cfg, torch, results, gen, flush)
+    check_block_kernels(cfg, torch, results, gen, flush)
     del scratch
     return results
 
@@ -327,6 +344,98 @@ def check_train_kernels(cfg, torch, results, gen, flush):
         del p, q, b, a, w_hat, g, x, w, codes, codes_ref, ratio
     log(f"[yardstick] torch.bucketize over a precomputed W/S ratio, the seven linears of "
         f"a layer: {bucket_ms:.4f} ms (lut_quantize also builds S and packs the codes)")
+
+
+def check_block_kernels(cfg, torch, results, gen, flush):
+    """Phase 2, block-wise: the three kernels of the block-wise NF4 /
+    QLoRA / PEQA paths at the seven linear shapes, block 128 (the config's
+    own): ``block_matmul`` at serve_batch's prefill and decode M, and
+    ``block_matmul_t`` and ``block_grad`` at a 4096-token step, each called
+    through the dispatch as the main path calls it (at these shapes nothing
+    is padded: decode's M = 4 <= 8 goes unpadded to the decode entry point,
+    whose N and K multiples are 32 and 256)."""
+    from repro_torch.core.quantize import dequantize_blockwise, quantize_blockwise
+    from repro_torch.kernels import dispatch, ref
+
+    dev = torch.device("cuda")
+    cb, bs = "nf4", BASE_BLOCK
+    m_pre, m_train = BATCH * (PROMPT + GEN), TRAIN_SEQ * TRAIN_BATCH
+    for (n, k), names in _layer_shapes(cfg).items():
+        label, weight = "/".join(names), len(names)
+        w = torch.randn(n, k, generator=gen, device=dev) / math.sqrt(k)
+        q, s_blk = quantize_blockwise(w, bs, cb)
+        del w
+        w_hat = dequantize_blockwise(q, s_blk, bs, cb, dtype=torch.bfloat16)
+        w_bytes = q.numel() + s_blk.numel() * 4
+        shape = f"{label} N={n} K={k} bs={bs}"
+
+        # forward: exact bf16 products on both sides (Ŵ rounded to bf16 the
+        # same way), f32 sums in another order: 1e-4 of the output's scale.
+        # Decode's M = 4 goes unpadded to the decode entry point (M <= 8).
+        for m, primary in ((m_pre, True), (BATCH, False)):
+            x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+
+            def fused():
+                return dispatch._block_forward(x, q, s_blk, bs, cb, "fused")
+
+            y, y_ref = fused(), ref.block_matmul_ref(x, q, s_blk, bs, cb)
+            torch.cuda.synchronize()
+            err = (y - y_ref).abs().max().item()
+            nbytes = m * k * 2 + w_bytes + m * n * 4
+            b_ms, b_by = bound(nbytes, {"bf16": (2 * m * n * k, BF16_FLOP_S)})
+            reps = 10 if primary else 30
+            results["block_matmul"].add(
+                f"{'prefill' if primary else 'decode'} M={m} {shape}", err,
+                1e-4 * y_ref.abs().max().item(), timed(fused, reps, flush),
+                timed(lambda: ref.block_matmul_ref(x, q, s_blk, bs, cb), 3, flush),
+                timed(lambda: torch.matmul(x, w_hat.t()), reps, flush),
+                b_ms, b_by, weight, primary=primary)
+            del x, y, y_ref
+
+        g = torch.randn(m_train, n, generator=gen, device=dev).to(torch.bfloat16)
+        x = torch.randn(m_train, k, generator=gen, device=dev).to(torch.bfloat16)
+        shape = f"M={m_train} {shape}"
+        # the backward through the dispatch, as the training step calls it
+        # (no padding at these shapes)
+        def fused_dx():
+            return dispatch._block_grads(g, x, q, s_blk, bs, cb, "fused", want_ds=False)[0]
+
+        def fused_ds():
+            return dispatch._block_grads(g, x, q, s_blk, bs, cb, "fused", want_dx=False)[1]
+
+        # dx: Ŵ rounded to bf16 for the tensor cores where the plain version
+        # keeps f32 (2^-9 relative per weight, random in sign over N): 5e-3
+        # of max |dx|
+        dx = fused_dx()
+        dx_ref = ref.block_matmul_t_ref(g, q, s_blk, bs, cb)
+        torch.cuda.synchronize()
+        err = (dx - dx_ref).abs().max().item()
+        tol = 5e-3 * dx_ref.abs().max().item()
+        del dx, dx_ref
+        nbytes = m_train * n * 2 + w_bytes + m_train * k * 4
+        b_ms, b_by = bound(nbytes, {"bf16": (2 * m_train * n * k, BF16_FLOP_S)})
+        results["block_matmul_t"].add(
+            shape, err, tol,
+            timed(fused_dx, 5, flush),
+            timed(lambda: ref.block_matmul_t_ref(g, q, s_blk, bs, cb), 3, flush),
+            timed(lambda: torch.matmul(g, w_hat), 5, flush), b_ms, b_by, weight)
+
+        # ∂s_blk: exact bf16 products summed in f32 in another order, then
+        # per block: 1e-4 of the gradient's scale (the error is relative)
+        ds = fused_ds()
+        ds_ref, = ref.block_grads_ref(g, x, q, None, bs, cb, want_dx=False)
+        torch.cuda.synchronize()
+        err = (ds - ds_ref).abs().max().item() / ds_ref.abs().max().item()
+        del ds, ds_ref
+        nbytes = m_train * (n + k) * 2 + q.numel() + s_blk.numel() * 4
+        b_ms, b_by = bound(nbytes, {"bf16": (2 * m_train * n * k, BF16_FLOP_S)})
+        results["block_grad"].add(
+            f"{shape} (err relative to the gradient's max)", err, 1e-4,
+            timed(fused_ds, 5, flush),
+            timed(lambda: ref.block_grads_ref(g, x, q, None, bs, cb, want_dx=False), 3,
+                  flush),
+            timed(lambda: torch.matmul(g.t(), x), 5, flush), b_ms, b_by, weight)
+        del q, s_blk, w_hat, g, x
 
 
 def _randn(torch, gen, *shape, dtype=None):
@@ -568,11 +677,16 @@ def _wrappers():
     from repro_torch.kernels.lords_matmul import lords_matmul
     from repro_torch.kernels.lords_matmul_t import lords_matmul_t
     from repro_torch.kernels.lut_quantize import lut_quantize
+    from repro_torch.kernels.block_matmul import block_matmul
+    from repro_torch.kernels.lords_grad import block_grad
+    from repro_torch.kernels.lords_matmul_t import block_matmul_t
 
     return {"lords_matmul": lords_matmul, "lords_decode": lords_decode,
             "attn_prefill": attn_prefill, "attn_decode": attn_decode,
             "attn_decode_paged": attn_decode_paged, "lords_matmul_t": lords_matmul_t,
-            "lords_grad": lords_grad, "lut_quantize": lut_quantize}
+            "lords_grad": lords_grad, "lut_quantize": lut_quantize,
+            "block_matmul": block_matmul, "block_matmul_t": block_matmul_t,
+            "block_grad": block_grad}
 
 
 def counted(run):
@@ -585,9 +699,18 @@ def counted(run):
     return out, {name: fn.launches for name, fn in wrappers.items()}
 
 
-def serve_checks(cfg, params, torch, kv):
-    """Phase 3: serve llama3-8b through serve_batch with a ``kv`` cache;
-    returns the kernels' launch counts in the main run."""
+LORDS_SERVE = ("lords_matmul", "lords_decode", "attn_prefill", "attn_decode")
+LORDS_LINEAR = ("lords_matmul", "lords_decode", "lords_matmul_t", "lords_grad",
+                "lut_quantize")
+BLOCK_KERNELS = ("block_matmul", "block_matmul_t", "block_grad")
+
+
+def serve_checks(cfg, params, torch, kv, what=None, used=LORDS_SERVE, unused=BLOCK_KERNELS,
+                 expect=None):
+    """Phases 3 and 7: serve llama3-8b through serve_batch with a ``kv``
+    cache; every kernel of ``used`` must launch, none of ``unused``, and
+    ``expect`` maps kernels to their exact counts.  Returns the kernels'
+    launch counts in the main run."""
     import numpy as np
 
     from repro_torch.kernels import dispatch
@@ -595,25 +718,30 @@ def serve_checks(cfg, params, torch, kv):
     from repro_torch.models import cache_init, forward_decode, forward_prefill
 
     dev = torch.device("cuda")
+    what = what or f"serve {kv}"
     cfg = cfg.with_(kv_cache_dtype=kv)
     kw = dict(batch=BATCH, prompt_len=PROMPT, gen=GEN, params=params, device=dev)
     serve_batch(cfg, **{**kw, "gen": 2})  # warm-up: first launches, cuBLAS
     out, launches = counted(lambda: serve_batch(cfg, **kw))
     toks = out["tokens"]
-    log(f"[serve {kv}] fused: prefill {out['prefill_ms']:.1f} ms "
+    log(f"[{what}] fused: prefill {out['prefill_ms']:.1f} ms "
         f"({out['prefill_tok_s']:.1f} tok/s), decode {out['decode_tok_s']:.1f} "
         f"tok/s ({out['decode_ms']:.1f} ms for {GEN - 1} steps), launches {launches}")
     if toks.shape != (BATCH, GEN) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
         raise AssertionError(f"bad tokens {toks.shape} [{toks.min()}, {toks.max()}]")
-    used = ("lords_matmul", "lords_decode", "attn_prefill", "attn_decode")
     missing = [n for n in used if launches[n] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
+    stray = {n: launches[n] for n in unused if launches[n]}
+    wrong = {n: (launches[n], c) for n, c in (expect or {}).items() if launches[n] != c}
+    if stray or wrong:
+        raise AssertionError(f"{what}: kernels off this path launched {stray}; counts "
+                             f"(got, want) {wrong}")
 
     if kv == "bf16":
         ref_out = serve_batch(cfg, **kw, backend="ref")
         same = float((ref_out["tokens"] == toks).mean())
-        log(f"[serve {kv}] ref: prefill {ref_out['prefill_ms']:.1f} ms, decode "
+        log(f"[{what}] ref: prefill {ref_out['prefill_ms']:.1f} ms, decode "
             f"{ref_out['decode_tok_s']:.1f} tok/s; greedy tokens equal to fused: "
             f"{same * 100:.1f}% ({'identical' if same == 1.0 else 'diverged'})")
 
@@ -638,7 +766,7 @@ def serve_checks(cfg, params, torch, kv):
                         lg, _ = forward_decode(params, cfg, {"tokens": tok}, caches[b], pos)
                 logits[b] = lg[:, -1, : cfg.vocab_size]
             worst.add(torch, logits["fused"], logits["ref"], f"step {step}")
-    worst.check(f"serve {kv}")
+    worst.check(what)
     return launches
 
 
@@ -895,20 +1023,26 @@ def profile_step(cfg, params, torch, what, keys):
         t.requires_grad_(False)
 
 
-def train_peft(cfg, params, torch):
-    """Phase 5: PEFT training of the loaded model through run_training; the
-    step-0 batch's loss must fall.  Returns the counts of the trained run
-    and of the ref gradient check."""
+def train_peft(cfg, params, torch, what="train peft", keys=("b", "a"),
+               used=("lords_matmul", "lords_matmul_t", "lords_grad", "attn_prefill"),
+               unused=BLOCK_KERNELS, profile=True):
+    """Phases 5, 8 and 9: PEFT training of the loaded model through
+    run_training (the leaves whose last key is in ``keys`` train); every
+    kernel of ``used`` must launch and none of ``unused``; the step-0
+    batch's loss must fall.  Returns the counts of the trained run and of
+    the ref gradient check."""
     from repro_torch.data import SyntheticLM
     from repro_torch.launch.train import batch_tensors
     from repro_torch.models import forward_train
 
-    what = "train peft"
     out, launches = _train_run(cfg, params, torch, what, steps=4, lr=PEFT_LR)
     _report_steps(what, out, first_timed=1)
     log(f"[{what}] peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
         f"launches {launches}")
-    _require(what, launches, ("lords_matmul", "lords_matmul_t", "lords_grad", "attn_prefill"))
+    _require(what, launches, used)
+    stray = {n: launches[n] for n in unused if launches[n]}
+    if stray:
+        raise AssertionError(f"{what}: kernels off this path launched {stray}")
     batch0 = batch_tensors(SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
                            .batch_at(0), "cuda")
     with torch.no_grad():
@@ -917,8 +1051,9 @@ def train_peft(cfg, params, torch):
         f"the {len(out['losses'])} steps")
     if not again < out["losses"][0]:
         raise AssertionError(f"{what}: the step-0 batch loss did not fall")
-    ref_launches = grad_check(cfg, params, torch, what, ("b", "a"))
-    profile_step(cfg, params, torch, what, ("b", "a"))
+    ref_launches = grad_check(cfg, params, torch, what, keys)
+    if profile:
+        profile_step(cfg, params, torch, what, keys)
     return launches, ref_launches
 
 
@@ -941,6 +1076,138 @@ def train_qat(cfg, torch):
     grad_check(cfg, params, torch, what, ("w", "b", "a"))
     profile_step(cfg, params, torch, what, ("w", "b", "a"))
     return launches
+
+
+def baseline_model(cfg, torch, what):
+    """A random-weight model of ``cfg`` (a block-wise quant) from seed 0."""
+    from repro_torch.models import model_init
+
+    t0 = time.perf_counter()
+    params = model_init(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[{what}] model_init {cfg.name} full width, {cfg.num_layers} layers, "
+        f"{cfg.quant.method}/{cfg.quant.mode} {cfg.quant.codebook} block {cfg.quant.block_size}"
+        + (f" adapter rank {cfg.quant.adapter_rank}" if cfg.quant.method == "qlora" else "")
+        + f": {time.perf_counter() - t0:.1f} s; weights "
+        f"{sum(t.numel() * t.element_size() for t in _leaves(params)) / 2**30:.2f} GiB")
+    return params
+
+
+def ptq_phase(cfg, torch):
+    """Phase 10: PTQ of layer 0's seven weight matrices at full width (the
+    f32 weights behind phase 3's LoRDS model: model_init's first seven
+    draws from seed 0) by block-wise NF4, the LoRDS init, LoRDS refined by
+    Algorithm 1, GPTQ, AWQ, LoftQ, QPiSSA and SmoothRot; then the bit /
+    rank allocation over the seven.  Plain PyTorch on the card (the JAX
+    package's versions are plain XLA), f32 products without TF32."""
+    from repro_torch.core import baselines, metrics, ptq, scaling
+    from repro_torch.core.allocate import allocate, layer_bytes
+    from repro_torch.core.quantize import (
+        dequantize_blockwise,
+        dequantize_codes,
+        quantize_blockwise,
+        quantize_codes,
+        unpack_codes,
+    )
+    from repro_torch.data import synthetic_activations
+
+    dev = torch.device("cuda")
+    cb, bs, r_ad = "nf4", BASE_BLOCK, ADAPTER_RANK
+    gen = torch.Generator(device=dev).manual_seed(0)
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    nh, nkv, dff = cfg.num_heads, cfg.num_kv_heads, cfg.d_ff
+    shapes = (("wq", nh * hd, d), ("wk", nkv * hd, d), ("wv", nkv * hd, d),
+              ("wo", d, nh * hd), ("w_gate", dff, d), ("w_up", dff, d), ("w_down", d, dff))
+    mats = {name: torch.randn(n, k, generator=gen, device=dev) / math.sqrt(k)
+            for name, n, k in shapes}
+    calib = {k: torch.from_numpy(synthetic_activations(PTQ_TOKENS, k, seed=0)).to(dev,
+                                                                               torch.float32)
+             for k in {k for _, _, k in shapes}}
+    log(f"[ptq] layer 0 of {cfg.name}: {', '.join(f'{n} {tuple(w.shape)}' for n, w in mats.items())}; "
+        f"block {bs}, {cb}; Algorithm 1 at lr {PTQ_LR} for {PTQ_STEPS} steps; adapters rank "
+        f"{r_ad} (LoftQ {PTQ_LOFTQ_ITERS} iterations); calibration {PTQ_TOKENS} tokens from "
+        f"synthetic_activations(seed 0); TF32 off")
+
+    def lords_hat(w, b, a, q_packed=None):
+        s = scaling.scale_matrix(b, a)
+        codes = quantize_codes(w, s, cb) if q_packed is None else unpack_codes(q_packed, cb)
+        return dequantize_codes(codes, s, cb)
+
+    def awq_hat(w, x):
+        q, s_blk, sc = baselines.awq_quantize(w, x, bs, cb)
+        return dequantize_blockwise(q, s_blk, bs, cb) / sc[None, :]
+
+    def adapter_hat(init, w):
+        q, s_blk, lb, la = init(w)
+        return dequantize_blockwise(q, s_blk, bs, cb) + lb @ la
+
+    t_phase = time.perf_counter()
+    failures = []
+    for name, w in mats.items():
+        x = calib[w.shape[1]]
+        histories = {}
+
+        def refined(w=w):
+            res = ptq.ptq_refine(w, cb, bs, steps=PTQ_STEPS, lr=PTQ_LR)
+            histories["lords_refined"] = res.loss_history
+            return lords_hat(w, res.b, res.a, res.q_packed)
+
+        methods = {
+            "nf4": lambda w=w: dequantize_blockwise(*quantize_blockwise(w, bs, cb), bs, cb),
+            "lords_init": lambda w=w: lords_hat(w, *scaling.lords_init_from_weight(w, bs)),
+            "lords_refined": refined,
+            "gptq": lambda w=w, x=x: dequantize_blockwise(
+                *baselines.gptq_quantize(w, x, bs, cb), bs, cb),
+            "awq": lambda w=w, x=x: awq_hat(w, x),
+            "smoothrot": lambda w=w, x=x: baselines.smoothrot_dequantize(
+                *baselines.smoothrot_quantize(w, x, bs, cb), bs, cb),
+            "loftq": lambda w=w: adapter_hat(
+                lambda v: baselines.loftq_init(v, bs, cb, r_ad, PTQ_LOFTQ_ITERS), w),
+            "qpissa": lambda w=w: adapter_hat(
+                lambda v: baselines.qpissa_init(v, bs, cb, r_ad), w),
+        }
+        rows = {}
+        for method, fn in methods.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            w_hat = fn()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            fro = metrics.frobenius_error(w, w_hat).item()
+            nuc = metrics.quant_error(w, w_hat).item()
+            cal = ((x @ (w - w_hat).T) ** 2).mean().item()
+            rows[method] = (fro, nuc, ms, cal)
+            del w_hat
+        nuc_nf4 = rows["nf4"][1]
+        for method, (fro, nuc, ms, cal) in rows.items():
+            log(f"[ptq] {name} {method}: frobenius {fro:.6f}, nuclear {nuc:.4f}, "
+                f"error reduction vs nf4 {1 - nuc / nuc_nf4:+.4f}, calibration output "
+                f"MSE {cal:.4e}, {ms:.1f} ms")
+        lh = histories["lords_refined"]
+        ok = (rows["lords_refined"][0] < rows["nf4"][0]
+              and rows["lords_refined"][0] < rows["lords_init"][0] and lh[-1] < lh[0])
+        log(f"[ptq] {name} Algorithm 1 loss {lh[0].item():.4e} -> {lh[-1].item():.4e} over "
+            f"{PTQ_STEPS} steps; refined < nf4 and < init: {'PASS' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(name)
+    log(f"[ptq] seven matrices in {time.perf_counter() - t_phase:.1f} s")
+    if failures:
+        raise AssertionError(f"ptq: refined LoRDS did not beat block-wise NF4 and its "
+                             f"init on {failures}")
+
+    # the allocation: ranks (4, 8, 16) x (nf2, nf3, nf4) under the bytes of
+    # nf3 at rank 8 on every matrix, activation-weighted (E[x²])
+    budget = sum(layer_bytes(n, k, "nf3", 8) for _, n, k in shapes)
+    t0 = time.perf_counter()
+    plan = allocate(mats, budget, col_weights={
+        name: (calib[w.shape[1]] ** 2).mean(0) for name, w in mats.items()}, block_size=bs)
+    log(f"[ptq] allocate under {budget} B (nf3 at rank 8 everywhere), "
+        f"{time.perf_counter() - t0:.1f} s: "
+        + ", ".join(f"{l.name} {l.codebook} r{l.rank} {l.bytes} B" for l in plan.layers)
+        + f"; total {plan.total_bytes} B, {plan.avg_bits():.3f} code bits/weight, "
+        f"error {plan.total_error:.4e}")
+    if plan.total_bytes > budget:
+        raise AssertionError("allocate overspent its budget")
 
 
 def _leaves(tree):
@@ -1035,6 +1302,49 @@ def main() -> int:
     t0 = time.perf_counter()
     paths["train qat"] = train_qat(cfg, torch)
     log(f"[train qat] phase time {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    # phases 7 and 8: block-wise NF4 and QLoRA served at phase 3's settings
+    # (bf16 cache), then QLoRA trained at phase 5's
+    n_linear = 7 * cfg.num_layers * GEN  # prefill + 31 decode steps
+    for method, mode in (("blockwise", "frozen"), ("qlora", "peft")):
+        what = f"serve {method}"
+        t0 = time.perf_counter()
+        qcfg = cfg.with_(quant=cfg.quant.with_(method=method, mode=mode,
+                                               block_size=BASE_BLOCK, adapter_rank=ADAPTER_RANK))
+        params = baseline_model(qcfg, torch, what)
+        paths[f"serve_batch {method}"] = serve_checks(
+            qcfg, params, torch, "bf16", what=what, used=("block_matmul", "attn_prefill",
+                                                          "attn_decode"),
+            unused=LORDS_LINEAR + ("block_matmul_t", "block_grad"),
+            expect={"block_matmul": n_linear})
+        log(f"[{what}] phase time {time.perf_counter() - t0:.1f} s")
+        if method == "qlora":
+            t0 = time.perf_counter()
+            paths["train qlora"], paths["train qlora ref check"] = train_peft(
+                qcfg, params, torch, what="train qlora", keys=("lora_a", "lora_b"),
+                used=("block_matmul", "block_matmul_t", "attn_prefill"),
+                unused=LORDS_LINEAR + ("block_grad",))
+            log(f"[train qlora] phase time {time.perf_counter() - t0:.1f} s")
+        del params
+        torch.cuda.empty_cache()
+
+    # phase 9: PEQA-style block-wise PEFT (s_blk trains), depth cut
+    t0 = time.perf_counter()
+    qcfg = cfg.with_(num_layers=PEQA_LAYERS, quant=cfg.quant.with_(
+        method="blockwise", mode="peft", block_size=BASE_BLOCK))
+    params = baseline_model(qcfg, torch, "train peqa")
+    paths["train peqa"], paths["train peqa ref check"] = train_peft(
+        qcfg, params, torch, what="train peqa", keys=("s_blk",),
+        used=BLOCK_KERNELS + ("attn_prefill",), unused=LORDS_LINEAR, profile=False)
+    log(f"[train peqa] phase time {time.perf_counter() - t0:.1f} s")
+    del params
+    torch.cuda.empty_cache()
+
+    # phase 10: PTQ of one layer at full width
+    t0 = time.perf_counter()
+    ptq_phase(cfg, torch)
+    log(f"[ptq] phase time {time.perf_counter() - t0:.1f} s")
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [

@@ -2,8 +2,11 @@
 of the low-rank scale.
 
 PEFT (paper §3.4): only the scaling matrices B and A train — the
-multiplicative update ΔW = Q ⊙ (B'A' − BA).  QAT: everything trains (W
-through the STE).  Packed codes never train.  The choice is structural, by
+multiplicative update ΔW = Q ⊙ (B'A' − BA).  The baselines' PEFT trains
+the additive adapter (QLoRA / LoftQ / QPiSSA: ``lora_a``, ``lora_b``), the
+block scales (block-wise, PEQA-style: ``s_blk``) or everything (``none``).
+QAT: everything trains (W through the STE).  Packed codes and AWQ's channel
+scales never train.  The choice is structural, by
 leaf path in the port's param tree (nested dicts and lists of tensors).
 
 ``partition(params, quant)`` splits the leaves into two dicts ``{path:
@@ -20,7 +23,7 @@ from repro_torch.core.lords import QuantSpec
 __all__ = ["trainable_leaf", "partition", "combine", "scale_grads"]
 
 # never trainable, whatever the mode
-_ALWAYS_FROZEN = {"q"}
+_ALWAYS_FROZEN = {"q", "awq_s"}
 
 
 def scale_grads(ds, b, a):
@@ -42,6 +45,12 @@ def trainable_leaf(path: tuple, quant: QuantSpec) -> bool:
         return True  # W (STE), B/A, norms, embeddings, head
     if quant.method == "lords":  # peft
         return key in ("b", "a")
+    if quant.method in ("qlora", "loftq", "qpissa"):
+        return key in ("lora_b", "lora_a")
+    if quant.method == "none":
+        return True
+    if quant.method == "blockwise":
+        return key == "s_blk"  # PEQA-style: tune the block scales only
     return False
 
 

@@ -31,6 +31,9 @@ __all__ = [
     "dequantize_codes",
     "pack_codes",
     "unpack_codes",
+    "fake_quant",
+    "quantize_blockwise",
+    "dequantize_blockwise",
 ]
 
 
@@ -137,3 +140,48 @@ def unpack_codes(packed: torch.Tensor, codebook_name: str) -> torch.Tensor:
                           device=packed.device) * ps.bits
     codes = (word[..., None] >> shifts) & (2**ps.bits - 1)
     return codes.reshape(*lead, -1).to(torch.uint8)
+
+
+def fake_quant(w: torch.Tensor, s: torch.Tensor,
+               codebook_name: str) -> torch.Tensor:
+    """Non-differentiable fake quantization lut[ROUND(W ⊘ S)] ⊙ S in W's
+    dtype (the STE version is :mod:`repro_torch.core.qat`)."""
+    codes = quantize_codes(w, s, codebook_name)
+    return dequantize_codes(codes, s, codebook_name, dtype=w.dtype)
+
+
+# ---------------------------------------------------------------------------
+# block-wise (the NF4 / INT4 baseline format)
+# ---------------------------------------------------------------------------
+
+
+def quantize_blockwise(w: torch.Tensor, block_size: int,
+                       codebook_name: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """Standard block-wise quantization → (packed codes, block scales
+    (n, m / eff_block)); the block is clamped to the row length."""
+    from repro_torch.core.scaling import (
+        blockwise_scales,
+        eff_block,
+        expand_block_scales,
+    )
+
+    block_size = eff_block(w.shape[1], block_size)
+    s_blk = blockwise_scales(w, block_size)
+    codes = quantize_codes(w, expand_block_scales(s_blk, block_size),
+                           codebook_name)
+    return pack_codes(codes, codebook_name), s_blk
+
+
+def dequantize_blockwise(packed: torch.Tensor, s_blk: torch.Tensor,
+                         block_size: int, codebook_name: str,
+                         dtype=torch.float32) -> torch.Tensor:
+    """lut[Q] ⊙ repeat(s_blk) in ``dtype``.  The block is read from
+    ``s_blk``'s columns (``block_size`` is kept for the JAX signature), so
+    a block clamped at quantization is honoured."""
+    from repro_torch.core.scaling import expand_block_scales
+
+    del block_size
+    codes = unpack_codes(packed, codebook_name)
+    bs = codes.shape[-1] // s_blk.shape[-1]
+    s = expand_block_scales(s_blk, bs).to(dtype)
+    return dequantize_codes(codes, s, codebook_name, dtype=dtype)

@@ -8,8 +8,6 @@ rank ``r = ⌊n·m / (B·(n+m))⌋`` with a balanced ``sqrt(Σ)`` split.
 """
 from __future__ import annotations
 
-import math
-
 import torch
 
 __all__ = [
@@ -69,25 +67,34 @@ def svd_init(s_dense: torch.Tensor, rank: int) -> tuple[torch.Tensor, torch.Tens
     return u[:, :r] * root[None, :], root[:, None] * vt[:r, :]
 
 
-def _block_svd_init(s_blk: torch.Tensor, block_size: int,
-                    rank: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """:func:`svd_init` of ``expand_block_scales(s_blk)`` without the dense
-    (n, m) SVD.  With E the (m/B, m) block-indicator matrix, E·Eᵀ = B·I, so
-    S = (√B·s_blk)·(E/√B) and E/√B has orthonormal rows: the SVD of S is the
-    SVD of the (n, m/B) matrix √B·s_blk with its right vectors expanded by
-    E/√B.  Same factors, at the cost of an (n, m/B) SVD — what makes a
-    full-width model init on the card take seconds instead of minutes.
+def _block_svd_init(s_blk: torch.Tensor, block_size: int, rank: int,
+                    inv_c: torch.Tensor | None = None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`svd_init` of ``expand_block_scales(s_blk) ⊙ inv_c`` (column
+    j scaled by ``inv_c[j]``, 1 when None) without the dense (n, m) SVD.
+
+    S = s_blk · E · diag(inv_c), E the (m/B, m) block-indicator matrix.
+    The rows of M = E·diag(inv_c) have disjoint supports, hence are
+    orthogonal, with norms ν_β = √Σ_{j∈β} inv_c_j² (√B without smoothing);
+    so S = (s_blk·diag(ν))·V with V = diag(1/ν)·M row-orthonormal, and the
+    SVD of S is the SVD of the (n, m/B) matrix s_blk·diag(ν) with its right
+    vectors expanded by V.  Same factors as the dense route, at the cost of
+    an (n, m/B) SVD — what makes a full-width init on the card take seconds
+    instead of minutes.
 
     S has at most m/B nonzero singular values; a rank above that gets zero
     columns of B and zero rows of A, the exact form of the dense SVD's
     zero-σ components, so the factors keep the dense route's shapes."""
     n, nb = s_blk.shape
-    root_b = math.sqrt(block_size)
-    u, sig, vt = torch.linalg.svd(s_blk * root_b, full_matrices=False)
+    if inv_c is None:
+        inv_c = s_blk.new_ones(nb * block_size)
+    nu = inv_c.reshape(nb, block_size).square().sum(-1).sqrt()
+    u, sig, vt = torch.linalg.svd(s_blk * nu[None, :], full_matrices=False)
     r = min(rank, sig.shape[0])
     root = torch.sqrt(sig[:r])
     b = u[:, :r] * root[None, :]
-    a = expand_block_scales(root[:, None] * vt[:r, :], block_size) / root_b
+    a = expand_block_scales(root[:, None] * vt[:r, :] / nu[None, :],
+                            block_size) * inv_c[None, :]
     extra = min(rank, n, nb * block_size) - r
     if extra > 0:
         b = torch.cat([b, b.new_zeros(n, extra)], dim=1)
@@ -100,13 +107,25 @@ def lords_init_from_weight(
     block_size: int,
     rank: int | None = None,
     extra_rank: int = 0,
+    channel_scale: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full LoRDS init: block scales -> dense S -> truncated SVD -> (B, A)."""
+    """Full LoRDS init: block scales -> dense S -> truncated SVD -> (B, A).
+
+    ``channel_scale`` (m,): SmoothQuant-style per-input-channel scales c_j
+    folded into the init — the block scales are those of W ⊙ c and S is
+    divided back by c, so quantizing W against S is quantizing W ⊙ c
+    against its own block scales (no runtime transform, no stored tensor).
+    """
     n, m = w.shape
     if rank is None:
         rank = parity_rank(n, m, block_size, extra_rank)
     block_size = eff_block(m, block_size)
-    return _block_svd_init(blockwise_scales(w, block_size), block_size, rank)
+    if channel_scale is None:
+        return _block_svd_init(blockwise_scales(w, block_size), block_size,
+                               rank)
+    c = channel_scale.to(w.dtype).abs().clamp_min(SCALE_EPS)
+    return _block_svd_init(blockwise_scales(w * c[None, :], block_size),
+                           block_size, rank, inv_c=1.0 / c)
 
 
 def scale_matrix(b: torch.Tensor, a: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,87 @@
+"""Fused block-wise dequant-matmul (the bitsandbytes-style NF4 baseline and
+the frozen base of QLoRA / LoftQ / QPiSSA): the wrapper of
+``csrc/block_matmul.cu``.
+
+    y[M, N] (f32) = x[M, K] (bf16) · Ŵᵀ,   Ŵ = bf16(lut[Q] ⊙ repeat(s_blk))
+
+The block is K / (s_blk's columns).  Port of the JAX package's
+``block_matmul_pallas``, which serves every block-wise linear at every M.
+M ≤ 8 launches the source's decode entry point (a weight-stream GEMV)
+instead of the 128-row tile; both count as ``block_matmul`` launches.
+On CUDA tensors the wrapper launches the hand-written kernel (or raises); on
+CPU tensors it runs the plain version
+:func:`repro_torch.kernels.ref.block_matmul_ref`.  ``block_matmul.launches``
+counts kernel launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.quantize import pack_spec
+from repro_torch.kernels import _build
+from repro_torch.kernels.lords_matmul import device_lut
+from repro_torch.kernels.ref import block_matmul_ref
+
+__all__ = ["block_matmul", "check_block_operands", "tile", "BM", "BN", "BK",
+           "DECODE_M_MAX"]
+
+BM, BN, BK = 128, 128, 32  # the kernel's tile; shapes must divide it
+DECODE_M_MAX, DECODE_BN, DECODE_BK = 8, 32, 256  # the decode entry point's
+
+
+def tile(m: int) -> tuple[int, int, int]:
+    """The (M, N, K) multiples a call with ``m`` rows must meet: the decode
+    entry point's for m ≤ 8 (M free), else the 128-row tile's."""
+    if m <= DECODE_M_MAX:
+        return 1, DECODE_BN, DECODE_BK
+    return BM, BN, BK
+
+
+def check_block_operands(what, m, k, q_packed, s_blk, codebook_name) -> tuple:
+    """Shape / dtype checks shared by the block-wise wrappers for an
+    (M, K)-sided operand; returns (N, block size, PackSpec)."""
+    if q_packed.dim() != 2 or s_blk.dim() != 2:
+        raise ValueError(f"{what}: q and s_blk must be 2-D")
+    n = q_packed.shape[0]
+    ps = pack_spec(codebook_name)
+    nblk = s_blk.shape[1]
+    if (q_packed.shape[1] != ps.packed_width(k) or s_blk.shape[0] != n
+            or nblk == 0 or k % nblk):
+        raise ValueError(
+            f"{what}: q {tuple(q_packed.shape)}, s_blk {tuple(s_blk.shape)} "
+            f"do not match (M={m}, K={k}) at {ps.bits} bits")
+    _build.require_dtype(what, q_packed, torch.uint8, "q")
+    _build.require_dtype(what, s_blk, torch.float32, "s_blk")
+    return n, k // nblk, ps
+
+
+def block_matmul(x, q_packed, s_blk, codebook_name: str = "nf4") -> torch.Tensor:
+    """x (M, K) bf16 · dequant(q (N, K·bits/8) u8, s_blk (N, K/bs) f32)ᵀ →
+    (M, N) f32.  M, N must divide 128 and K 32; for M ≤ 8, N must divide
+    32 and K 256 (the dispatch layer pads)."""
+    what = "block_matmul"
+    if x.dim() != 2:
+        raise ValueError(f"{what}: x must be 2-D")
+    m, k = x.shape
+    n, bs, ps = check_block_operands(what, m, k, q_packed, s_blk, codebook_name)
+    _build.require_dtype(what, x, torch.bfloat16, "x")
+    tm, tn, tk = tile(m)
+    if m % tm or n % tn or k % tk:
+        raise ValueError(
+            f"{what}: shape (M={m}, N={n}, K={k}) not divisible by the "
+            f"kernel tile ({tm}, {tn}, {tk})")
+    if not _build.on_card(what, x=x, q=q_packed, s_blk=s_blk):
+        return block_matmul_ref(x, q_packed, s_blk, bs, codebook_name)
+    lut = device_lut(codebook_name, str(x.device))
+    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    entry = "block_decode_launch" if m <= DECODE_M_MAX else "block_matmul_launch"
+    fn = _build.bind("block_matmul", entry, "pppppiiiiiip")
+    err = fn(x.data_ptr(), q_packed.data_ptr(), s_blk.data_ptr(), lut.data_ptr(),
+             y.data_ptr(), m, n, k, bs, ps.bits, lut.numel(),
+             torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, what)
+    block_matmul.launches += 1
+    return y
+
+
+block_matmul.launches = 0

@@ -1,13 +1,15 @@
 """Kernel dispatch for the quantized linears and the hot attention shapes.
 
 ``qmatmul(params, x, spec, n, m)`` is the entry point every quantized linear
-goes through and ``qattention(kind, ...)`` the one every attention call goes
-through, as in the JAX package.  Two backends:
+goes through (any :class:`QuantSpec` method) and ``qattention(kind, ...)``
+the one every attention call goes through, as in the JAX package.  Two
+backends:
 
   * ``fused`` — the hand-written CUDA kernels (``lords_matmul``,
     ``lords_decode``, ``attn_prefill``, ``attn_decode``,
-    ``attn_decode_paged``, and for training ``lords_matmul_t``,
-    ``lords_grad`` and ``lut_quantize``) behind the pad-to-tile logic
+    ``attn_decode_paged``, the block-wise ``block_matmul``, and for
+    training ``lords_matmul_t``, ``lords_grad``, ``lut_quantize``,
+    ``block_matmul_t`` and ``block_grad``) behind the pad-to-tile logic
     below.  On a CUDA tensor each wrapper launches its kernel or raises; on
     a CPU tensor it runs its plain version, so the CPU tests reach the
     padding and routing of this path too.
@@ -24,30 +26,43 @@ Gradients: when autograd needs them, a quantized linear runs as a
 ``lords_grad`` (dB, dA and the qat dW) on ``fused``, and
 :func:`repro_torch.kernels.ref.lords_grads_ref` on ``ref`` — the JAX
 package's custom VJPs.  The qat forward quantizes W with ``lut_quantize``
-and saves the packed codes for its backward.  ``qattention("prefill")``
-differentiates through the flash kernel's forward and recomputes the plain
-version in its backward (as the JAX package does).  Each Function keeps the
+and saves the packed codes for its backward.  A frozen block-quantized base
+(block-wise, and the QLoRA / LoftQ / QPiSSA base) runs as
+``_BlockQMatmul``: ``block_matmul`` forward, ``block_matmul_t`` (dx) and
+``block_grad`` (∂s_blk, skipped when ``s_blk`` is frozen) backward.  The
+bases that need Ŵ itself (AWQ's un-folded channel scales, block-wise QAT's
+STE, ``none``) take the plain dense product, as in the JAX package, and an
+adapter's two products and the bias are plain PyTorch outside any kernel.
+``qattention("prefill")`` differentiates through the flash kernel's forward
+and recomputes the plain version in its backward (as the JAX package
+does).  Each Function keeps the
 backend its forward resolved: PyTorch runs a CUDA backward on its own
 thread, where :func:`backend_scope` is not set.
 
 Padding: the kernels take tile-divisible shapes.  K is zero-padded (exact:
 padded x columns are zero), padded N rows and M rows are sliced off, and
 padded attention positions are -1 (dead).  Lords forwards with M ≤ 8
-flattened tokens route to the weight-stationary decode kernel.
+flattened tokens route to the weight-stationary decode kernel; the
+block-wise wrapper serves every M, as the JAX package's kernel does (its
+source has a decode entry point for M ≤ 8).  Block-wise K pads to a
+multiple of lcm(128 or 256, block) so tiles and blocks stay commensurate,
+and padded scales are 1.0.
 """
 from __future__ import annotations
 
 import contextlib
+import math
 import threading
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.lords import QuantSpec
+from repro_torch.core.lords import ADAPTER_METHODS, METHODS, QuantSpec
 from repro_torch.core.quantize import pack_spec
 from repro_torch.kernels import attn_decode as attn_decode_mod
 from repro_torch.kernels import attn_decode_paged as attn_decode_paged_mod
 from repro_torch.kernels import attn_prefill as attn_prefill_mod
+from repro_torch.kernels import block_matmul as block_matmul_mod
 from repro_torch.kernels import lords_decode as lords_decode_mod
 from repro_torch.kernels import lords_grad as lords_grad_mod
 from repro_torch.kernels import lords_matmul as lords_matmul_mod
@@ -68,7 +83,6 @@ __all__ = [
 BACKENDS = ("fused", "ref")
 DECODE_M_MAX = lords_decode_mod.DECODE_M_MAX
 _ATTN_KINDS = ("prefill", "chunk_prefill", "decode", "paged_decode")
-_LORDS_MODES = ("frozen", "peft", "qat")
 
 _TLS = threading.local()
 
@@ -256,31 +270,159 @@ class _LordsQatQMatmul(torch.autograd.Function):
                 _cast(da, a.dtype), None, None)
 
 
+# ---------------------------------------------------------------------------
+# block-wise base: y = x @ (lut[Q] ⊙ repeat(s_blk))ᵀ
+# ---------------------------------------------------------------------------
+
+
+def _block_padded(q_packed, s_blk, m, n, k, block_size, ps, mmult=128,
+                  kstep=128):
+    """The padded geometry of a block-wise call: M to ``mmult``, N to 128,
+    K to lcm(``kstep``, block_size) so tiles and blocks stay commensurate;
+    padded scales are 1.0 (padded x / g entries are zero, so they add
+    nothing).  The backward's two kernels share the defaults."""
+    kmult = kstep * block_size // math.gcd(kstep, block_size)
+    mp, np_, kp = _round_up(m, mmult), _round_up(n, 128), _round_up(k, kmult)
+    qp = _pad2(q_packed, np_, ps.packed_width(kp))
+    pc, pr = kp // block_size - s_blk.shape[1], np_ - n
+    s_pad = s_blk.to(torch.float32)
+    if pc or pr:
+        s_pad = F.pad(s_pad, (0, pc, 0, pr), value=1.0)
+    return qp, s_pad.contiguous(), mp, np_, kp
+
+
+def _block_forward(x2d, q_packed, s_blk, block_size, codebook, backend):
+    """y (M, N) f32 = x2d · (lut[Q] ⊙ repeat(s_blk))ᵀ on the chosen
+    backend."""
+    if backend == "ref":
+        return ref.block_matmul_ref(x2d, q_packed, s_blk, block_size, codebook)
+    m, k = x2d.shape
+    n = q_packed.shape[0]
+    tm, _, tk = block_matmul_mod.tile(m)
+    qp, s_pad, mp, _, kp = _block_padded(q_packed, s_blk, m, n, k, block_size,
+                                         pack_spec(codebook), tm, max(tk, 128))
+    y = block_matmul_mod.block_matmul(_pad2(x2d, mp, kp), qp, s_pad, codebook)
+    return y[:m, :n]
+
+
+def _block_grads(g, x2d, q_packed, s_blk, block_size, codebook, backend, *,
+                 want_dx=True, want_ds=True):
+    """The block-wise backward ``(dx, ∂s_blk)`` in f32, a term not wanted
+    None: ``block_matmul_t`` and ``block_grad`` (its partials summed here)
+    on ``fused``."""
+    if backend == "ref":
+        if want_ds:
+            out = ref.block_grads_ref(g, x2d, q_packed, s_blk, block_size,
+                                      codebook, want_dx=want_dx)
+            return out if want_dx else (None, out[0])
+        return (ref.block_matmul_t_ref(g, q_packed, s_blk, block_size,
+                                       codebook), None)
+    m, k = x2d.shape
+    n = q_packed.shape[0]
+    qp, s_pad, mp, np_, kp = _block_padded(q_packed, s_blk, m, n, k,
+                                           block_size, pack_spec(codebook))
+    g16 = _pad2(g.to(torch.bfloat16), mp, np_).contiguous()
+    dx = ds = None
+    if want_dx:
+        dx = lords_matmul_t_mod.block_matmul_t(g16, qp, s_pad, codebook)[:m, :k]
+    if want_ds:
+        parts = lords_grad_mod.block_grad(
+            _pad2(x2d.to(torch.bfloat16), mp, kp).contiguous(), g16, qp,
+            block_size, codebook)
+        ds = parts.sum(0)[:n, :s_blk.shape[1]]
+    return dx, ds
+
+
+class _BlockQMatmul(torch.autograd.Function):
+    """y = x2d · (lut[Q] ⊙ repeat(s_blk))ᵀ with the fused block-wise
+    backward; ∂s_blk is computed only when ``s_blk`` needs a gradient
+    (PEQA), not for QLoRA's frozen base."""
+
+    @staticmethod
+    def forward(ctx, x2d, q_packed, s_blk, block_size, codebook, backend):
+        ctx.save_for_backward(x2d, q_packed, s_blk)
+        ctx.block_size, ctx.codebook, ctx.backend = block_size, codebook, backend
+        return _block_forward(x2d, q_packed, s_blk, block_size, codebook,
+                              backend)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2d, q_packed, s_blk = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        dx, ds = _block_grads(g, x2d, q_packed, s_blk, ctx.block_size,
+                              ctx.codebook, ctx.backend, want_dx=need[0],
+                              want_ds=need[2])
+        return (_cast(dx, x2d.dtype), None, _cast(ds, s_blk.dtype), None, None,
+                None)
+
+
+# ---------------------------------------------------------------------------
+# public entry point
+# ---------------------------------------------------------------------------
+
+
+def _fused_supported(params: dict, spec: QuantSpec) -> bool:
+    """Whether the base weight runs through a kernel: not an AWQ base (its
+    per-channel smoothing is un-folded densely), not block-wise QAT (s_blk
+    trains through the STE on Ŵ), not ``none``."""
+    if "awq_s" in params:
+        return False
+    if spec.method in ("lords", *ADAPTER_METHODS):
+        return True
+    return spec.method == "blockwise" and spec.mode != "qat"
+
+
+def _dense_base(params, x2d, spec):
+    """The plain product with a materialized Ŵ in the compute dtype."""
+    from repro_torch.core.lords import dequantize_weight
+
+    w_hat = dequantize_weight(params, spec)
+    return torch.matmul(x2d.to(spec.compute_dtype), w_hat.t())
+
+
 def qmatmul(params: dict, x: torch.Tensor, spec: QuantSpec, n: int, m: int, *,
             backend: str | None = None) -> torch.Tensor:
-    """y = x @ Ŵᵀ for a LoRDS linear (frozen / peft / qat), in the compute
-    dtype, differentiable in x, B, A (and the qat W).
+    """y = x @ Ŵᵀ (+ the additive adapter + bias) for any QuantSpec, in the
+    compute dtype, differentiable in x and in every trainable leaf.
 
     ``x`` may carry any leading batch dims over the in-features axis ``m``;
     the result replaces that axis with ``n``.
     """
-    if spec.method != "lords" or spec.mode not in _LORDS_MODES:
-        raise NotImplementedError(
-            f"qmatmul: method={spec.method!r} mode={spec.mode!r} is not "
-            f"ported (lords {'/'.join(_LORDS_MODES)} only)")
+    if spec.method not in METHODS:
+        raise ValueError(f"unknown quant method {spec.method!r}; "
+                         f"expected one of {METHODS}")
     backend = resolve_backend(backend, x)
+    cd = spec.compute_dtype
     lead = x.shape[:-1]
-    x2d = x.reshape(-1, m).to(spec.compute_dtype).contiguous()
-    b = params["b"].to(spec.ba_compute_dtype)
-    a = params["a"].to(spec.ba_compute_dtype)
-    if spec.mode == "qat":
-        base, fn = params["w"], _LordsQatQMatmul
-        plain = lambda *args: _lords_qat_forward(*args)[0]  # noqa: E731
-    else:
-        base, fn, plain = params["q"], _LordsQMatmul, _lords_forward
-    args = (x2d, base, b, a, spec.codebook, backend)
-    y2d = fn.apply(*args) if _needs_grad(x2d, base, b, a) else plain(*args)
-    return y2d.to(spec.compute_dtype).reshape(*lead, n)
+    x2d = x.reshape(-1, m).to(cd).contiguous()
+    if not _fused_supported(params, spec):
+        y2d = _dense_base(params, x2d, spec)
+    elif spec.method == "lords":
+        b = params["b"].to(spec.ba_compute_dtype)
+        a = params["a"].to(spec.ba_compute_dtype)
+        if spec.mode == "qat":
+            base, fn = params["w"], _LordsQatQMatmul
+            plain = lambda *args: _lords_qat_forward(*args)[0]  # noqa: E731
+        else:
+            base, fn, plain = params["q"], _LordsQMatmul, _lords_forward
+        args = (x2d, base, b, a, spec.codebook, backend)
+        y2d = fn.apply(*args) if _needs_grad(x2d, base, b, a) else plain(*args)
+    else:  # block-wise base (also the qlora / loftq / qpissa frozen base)
+        from repro_torch.core.baselines import baseline_block_operands
+
+        q_packed, s_blk, bs = baseline_block_operands(params, m)
+        args = (x2d, q_packed, s_blk, bs, spec.codebook, backend)
+        y2d = (_BlockQMatmul.apply(*args) if _needs_grad(x2d, s_blk)
+               else _block_forward(*args))
+    y2d = y2d.to(cd)
+    if spec.method in ADAPTER_METHODS and "lora_a" in params:
+        # the unmergeable additive adapter: y += (x · Aᵀ) · Bᵀ, two plain
+        # products (the extra GEMM the paper's Fig. 2 measures)
+        xa = torch.matmul(x2d, params["lora_a"].to(cd).t())
+        y2d = y2d + torch.matmul(xa, params["lora_b"].to(cd).t())
+    if "bias" in params:
+        y2d = y2d + params["bias"].to(y2d.dtype)
+    return y2d.reshape(*lead, n)
 
 
 # ---------------------------------------------------------------------------

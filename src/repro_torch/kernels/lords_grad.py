@@ -1,27 +1,34 @@
-"""LoRDS parameter gradients of a quantized linear: the wrapper of
-``csrc/lords_grad.cu``.
+"""Parameter gradients of a quantized linear: the wrappers of
+``csrc/lords_grad.cu`` (LoRDS: dB, dA and the qat dW) and
+``csrc/block_grad.cu`` (block-wise: ∂s_blk).
 
-Accumulates ∂L/∂Ŵ = gᵀ·x tile by tile (never written out) and reduces it
-to the rank-space gradients: per-K-tile partials of dB (K/128, N, r) and
-per-N-tile partials of dA (N/128, r, K), which the caller sums over their
-first axis; with the qat master weight ``w`` it also returns dW = ∂L/∂Ŵ
-(N, K) and uses the STE residual (paper Eq. 4/5).
+``lords_grad`` accumulates ∂L/∂Ŵ = gᵀ·x tile by tile (never written out)
+and reduces it to the rank-space gradients: per-K-tile partials of dB
+(K/128, N, r) and per-N-tile partials of dA (N/128, r, K), which the
+caller sums over their first axis; with the qat master weight ``w`` it
+also returns dW = ∂L/∂Ŵ (N, K) and uses the STE residual (Eq. 4/5).
 
-Port of the JAX package's ``lords_grad_pallas``.  On CUDA tensors the
-wrapper launches the hand-written kernel (or raises); on CPU tensors it
-runs the plain version (:func:`repro_torch.kernels.ref.lords_grads_ref`,
-its dB and dA returned as single partials).  ``lords_grad.launches`` counts
-kernel launches.
+``block_grad`` accumulates gᵀ·x the same way and returns per-tile
+partials of ∂s_blk (slots, N, K/bs), the per-block sums of (gᵀ·x) ⊙ lut[Q]
+(no clamp mask), which the caller sums over their first axis.
+
+Ports of the JAX package's ``lords_grad_pallas`` and ``block_grad_pallas``.
+On CUDA tensors each wrapper launches its hand-written kernel (or raises);
+on CPU tensors it runs its plain version
+(:func:`repro_torch.kernels.ref.lords_grads_ref`,
+:func:`repro_torch.kernels.ref.block_grads_ref`, their results returned as
+single partials).  ``<wrapper>.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.quantize import pack_spec
 from repro_torch.kernels import _build
 from repro_torch.kernels.lords_matmul import check_lords_operands, device_lut
-from repro_torch.kernels.ref import lords_grads_ref
+from repro_torch.kernels.ref import block_grads_ref, lords_grads_ref
 
-__all__ = ["lords_grad", "BM", "BN", "BK"]
+__all__ = ["lords_grad", "block_grad", "block_grad_slots", "BM", "BN", "BK"]
 
 BM, BN, BK = 32, 128, 128  # M step, and the (N, K) tile of one block
 
@@ -69,3 +76,57 @@ def lords_grad(x, g, q_packed, b, a, codebook_name: str = "nf4", *, w=None):
 
 
 lords_grad.launches = 0
+
+
+def block_grad_slots(block_size: int) -> int:
+    """An upper bound on the K tiles of ``BK`` columns that one block of
+    ``block_size`` columns touches: the first axis of :func:`block_grad`'s
+    partials (zeroed, so a slot no block writes adds nothing).  Exact when
+    one of the two divides the other."""
+    if block_size % BK == 0:
+        return block_size // BK
+    if BK % block_size == 0:
+        return 1
+    return (block_size + BK - 2) // BK + 1
+
+
+def block_grad(x, g, q_packed, block_size: int, codebook_name: str = "nf4"):
+    """x (M, K) bf16, g (M, N) bf16, q (N, K·bits/8) u8 → per-tile partials
+    of ∂s_blk (slots, N, K/block_size) f32, summed over the first axis by
+    the caller.  M must divide 32, N and K 128, and block_size K."""
+    what = "block_grad"
+    if x.dim() != 2 or g.dim() != 2 or q_packed.dim() != 2:
+        raise ValueError(f"{what}: x, g, q must be 2-D")
+    m, k = x.shape
+    n = q_packed.shape[0]
+    ps = pack_spec(codebook_name)
+    if g.shape != (m, n) or q_packed.shape[1] != ps.packed_width(k):
+        raise ValueError(f"{what}: g {tuple(g.shape)}, q {tuple(q_packed.shape)} "
+                         f"do not match x {tuple(x.shape)} at {ps.bits} bits")
+    if block_size <= 0 or k % block_size:
+        raise ValueError(f"{what}: block {block_size} does not divide K={k}")
+    _build.require_dtype(what, x, torch.bfloat16, "x")
+    _build.require_dtype(what, g, torch.bfloat16, "g")
+    _build.require_dtype(what, q_packed, torch.uint8, "q")
+    if m % BM or n % BN or k % BK:
+        raise ValueError(
+            f"{what}: shape (M={m}, N={n}, K={k}) not divisible by the "
+            f"kernel tile ({BM}, {BN}, {BK})")
+    if not _build.on_card(what, x=x, g=g, q=q_packed):
+        ds, = block_grads_ref(g, x, q_packed, None, block_size, codebook_name,
+                              want_dx=False)
+        return ds[None]
+    dev = x.device
+    lut = device_lut(codebook_name, str(dev))
+    parts = torch.zeros((block_grad_slots(block_size), n, k // block_size),
+                        dtype=torch.float32, device=dev)
+    fn = _build.bind("block_grad", "block_grad_launch", "pppppiiiiiip")
+    err = fn(x.data_ptr(), g.data_ptr(), q_packed.data_ptr(), lut.data_ptr(),
+             parts.data_ptr(), m, n, k, block_size, ps.bits, lut.numel(),
+             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, what)
+    block_grad.launches += 1
+    return parts
+
+
+block_grad.launches = 0

@@ -1,22 +1,28 @@
-"""Transposed LoRDS dequant-matmul (the activation gradient of a quantized
-linear): the wrapper of ``csrc/lords_matmul_t.cu``.
+"""Transposed dequant-matmuls (the activation gradient of a quantized
+linear): the wrappers of ``csrc/lords_matmul_t.cu`` and
+``csrc/block_matmul_t.cu``.
 
-    dx[M, K] (f32) = g[M, N] (bf16) · Ŵ,   Ŵ = bf16(lut[Q] ⊙ clamp(B·A))
+    lords_matmul_t:  dx[M, K] (f32) = g[M, N] (bf16) · bf16(lut[Q] ⊙ clamp(B·A))
+    block_matmul_t:  dx[M, K] (f32) = g[M, N] (bf16) · bf16(lut[Q] ⊙ repeat(s_blk))
 
-Port of the JAX package's ``lords_matmul_t_pallas``.  On CUDA tensors the
-wrapper launches the hand-written kernel (or raises); on CPU tensors it runs
-the plain version :func:`repro_torch.kernels.ref.lords_matmul_t_ref`.
-``lords_matmul_t.launches`` counts kernel launches.
+Ports of the JAX package's ``lords_matmul_t_pallas`` and
+``block_matmul_t_pallas``.  On CUDA tensors each wrapper launches its
+hand-written kernel (or raises); on CPU tensors it runs its plain version
+(:func:`repro_torch.kernels.ref.lords_matmul_t_ref`,
+:func:`repro_torch.kernels.ref.block_matmul_t_ref`).  ``<wrapper>.launches``
+counts kernel launches.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.quantize import pack_spec
 from repro_torch.kernels import _build
+from repro_torch.kernels.block_matmul import check_block_operands
 from repro_torch.kernels.lords_matmul import check_lords_operands, device_lut
-from repro_torch.kernels.ref import lords_matmul_t_ref
+from repro_torch.kernels.ref import block_matmul_t_ref, lords_matmul_t_ref
 
-__all__ = ["lords_matmul_t", "BM", "BN", "BK"]
+__all__ = ["lords_matmul_t", "block_matmul_t", "BM", "BN", "BK"]
 
 BM, BN, BK = 128, 32, 128  # dx tile (BM x BK) and reduction step over N
 
@@ -51,3 +57,35 @@ def lords_matmul_t(g, q_packed, b, a, codebook_name: str = "nf4") -> torch.Tenso
 
 
 lords_matmul_t.launches = 0
+
+
+def block_matmul_t(g, q_packed, s_blk, codebook_name: str = "nf4") -> torch.Tensor:
+    """g (M, N) bf16 · dequant(q (N, K·bits/8) u8, s_blk (N, K/bs) f32) →
+    (M, K) f32, the block being K / (s_blk's columns).  M, K must divide
+    128 and N 32 (the dispatch layer pads); the same tile as
+    :func:`lords_matmul_t`."""
+    what = "block_matmul_t"
+    if g.dim() != 2 or q_packed.dim() != 2 or g.shape[1] != q_packed.shape[0]:
+        raise ValueError(f"{what}: g {tuple(g.shape)} does not match q "
+                         f"{tuple(q_packed.shape)}")
+    m, k = g.shape[0], pack_spec(codebook_name).logical_width(q_packed.shape[1])
+    n, bs, ps = check_block_operands(what, m, k, q_packed, s_blk, codebook_name)
+    _build.require_dtype(what, g, torch.bfloat16, "g")
+    if m % BM or n % BN or k % BK:
+        raise ValueError(
+            f"{what}: shape (M={m}, N={n}, K={k}) not divisible by the "
+            f"kernel tile ({BM}, {BN}, {BK})")
+    if not _build.on_card(what, g=g, q=q_packed, s_blk=s_blk):
+        return block_matmul_t_ref(g, q_packed, s_blk, bs, codebook_name)
+    lut = device_lut(codebook_name, str(g.device))
+    dx = torch.empty((m, k), dtype=torch.float32, device=g.device)
+    fn = _build.bind("block_matmul_t", "block_matmul_t_launch", "pppppiiiiiip")
+    err = fn(g.data_ptr(), q_packed.data_ptr(), s_blk.data_ptr(), lut.data_ptr(),
+             dx.data_ptr(), m, n, k, bs, ps.bits, lut.numel(),
+             torch.cuda.current_stream(g.device).cuda_stream)
+    _build.check(err, what)
+    block_matmul_t.launches += 1
+    return dx
+
+
+block_matmul_t.launches = 0

@@ -14,13 +14,16 @@ from repro_torch.core import lut
 from repro_torch.core.peft import scale_grads
 from repro_torch.core.qat import ste_cotangents
 from repro_torch.core.quantize import pack_codes, quantize_codes, unpack_codes
-from repro_torch.core.scaling import SCALE_EPS, clamp_scale
+from repro_torch.core.scaling import SCALE_EPS, clamp_scale, expand_block_scales
 
 __all__ = [
     "lords_matmul_ref",
     "lut_quantize_ref",
     "lords_matmul_t_ref",
     "lords_grads_ref",
+    "block_matmul_ref",
+    "block_matmul_t_ref",
+    "block_grads_ref",
     "attn_prefill_ref",
     "attn_decode_ref",
     "attn_prefill_pos",
@@ -92,6 +95,49 @@ def lords_grads_ref(g, x, q_packed, b, a, codebook_name: str = "nf4", w=None,
     dw, ds = ste_cotangents(dw_hat, resid)
     db, da = scale_grads(ds * mask, b, a)
     return (*head, db, da, dw)
+
+
+def _block_terms(q_packed, s_blk, block_size, codebook_name):
+    """The block-wise dequant terms (lut[Q], expanded S) in f32; S is None
+    when ``s_blk`` is."""
+    codes = unpack_codes(q_packed, codebook_name)
+    levels = lut.codebook(codebook_name, device=q_packed.device)
+    s = (None if s_blk is None
+         else expand_block_scales(s_blk.to(torch.float32), block_size))
+    return levels[codes.long()], s
+
+
+def block_matmul_ref(x, q_packed, s_blk, block_size: int,
+                     codebook_name: str = "nf4"):
+    """y = x @ (lut[Q] ⊙ repeat(s_blk))ᵀ in f32 (the bitsandbytes-style
+    baseline).  x: (M, K); q: (N, K·bits/8); s_blk: (N, K/block_size) →
+    (M, N) f32.  Ŵ is rounded to x's dtype before the product, and the
+    product accumulates in f32."""
+    vals, s = _block_terms(q_packed, s_blk, block_size, codebook_name)
+    w_hat = (vals * s).to(x.dtype)
+    return x.to(torch.float32) @ w_hat.to(torch.float32).T
+
+
+def block_matmul_t_ref(g, q_packed, s_blk, block_size: int,
+                       codebook_name: str = "nf4"):
+    """dx = g @ (lut[Q] ⊙ repeat(s_blk)) in f32.  g: (M, N) → (M, K)."""
+    vals, s = _block_terms(q_packed, s_blk, block_size, codebook_name)
+    return g.to(torch.float32) @ (vals * s)
+
+
+def block_grads_ref(g, x, q_packed, s_blk, block_size: int,
+                    codebook_name: str = "nf4", want_dx: bool = True):
+    """The block-wise backward in plain f32 math (one dequantization):
+    ``(dx, ∂s_blk)``, ∂s_blk (N, K/block_size) the per-block sums of
+    (gᵀ·x) ⊙ lut[Q] — no clamp mask: block scales are not clamped in the
+    forward.  ``want_dx=False`` returns ``(∂s_blk,)`` and needs no
+    ``s_blk`` (None)."""
+    vals, s = _block_terms(q_packed, s_blk, block_size, codebook_name)
+    g32 = g.to(torch.float32)
+    ds_full = (g32.T @ x.to(torch.float32)) * vals
+    n, k = ds_full.shape
+    ds_blk = ds_full.reshape(n, k // block_size, block_size).sum(-1)
+    return (g32 @ (vals * s), ds_blk) if want_dx else (ds_blk,)
 
 
 def attn_prefill_pos(q, k, v, qpos, kpos, logit_scale: float, *,

@@ -143,9 +143,20 @@ def test_dequantize_weight_matches_jax():
 
 
 def test_unported_modes_raise():
-    # qat is ported (tests/test_torch_train.py); the adapter baselines are not
-    with pytest.raises(NotImplementedError):
-        init_quantized_linear(8, 32, QuantSpec(method="qlora", mode="peft"),
-                              device="cpu")
-    with pytest.raises(NotImplementedError):
-        dequantize_weight({}, QuantSpec(method="blockwise"))
+    # every QuantSpec method is ported (tests/test_torch_baselines.py); what
+    # is not yet: the non-dense model families (MLA, MoE) and the explicit
+    # `dense` kernel backend
+    from repro_torch.configs.archs import smoke_variant
+    from repro_torch.configs.base import get_config
+    from repro_torch.convert import from_jax_params
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.model import model_init
+
+    for family in ("mla", "moe"):
+        cfg = smoke_variant(get_config("llama3-8b")).with_(family=family)
+        with pytest.raises(NotImplementedError):
+            model_init(cfg, device="cpu")
+        with pytest.raises(NotImplementedError):
+            from_jax_params({}, cfg, device="cpu")
+    with pytest.raises(ValueError):
+        dispatch.resolve_backend("dense", torch.zeros(1))

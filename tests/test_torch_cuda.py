@@ -16,22 +16,26 @@ import torch
 
 from repro_torch.configs import get_config, smoke_variant
 from repro_torch.core import QuantSpec, init_quantized_linear, peft
-from repro_torch.data import SyntheticLM
+from repro_torch.core.baselines import gptq_quantize
+from repro_torch.core.quantize import quantize_blockwise, unpack_codes
+from repro_torch.data import SyntheticLM, synthetic_activations
 from repro_torch.kernels import dispatch, ref
 from repro_torch.kernels.attn_decode import attn_decode
 from repro_torch.kernels.attn_decode_paged import attn_decode_paged
 from repro_torch.kernels.attn_prefill import attn_prefill
+from repro_torch.kernels.block_matmul import block_matmul
 from repro_torch.kernels.lords_decode import lords_decode
-from repro_torch.kernels.lords_grad import lords_grad
+from repro_torch.kernels.lords_grad import block_grad, lords_grad
 from repro_torch.kernels.lords_matmul import lords_matmul
-from repro_torch.kernels.lords_matmul_t import lords_matmul_t
+from repro_torch.kernels.lords_matmul_t import block_matmul_t, lords_matmul_t
 from repro_torch.kernels.lut_quantize import flipped_codes, lut_quantize
 from repro_torch.launch.train import batch_tensors
 from repro_torch.models import forward_train, model_init
 from repro_torch.models.common import f32_matmul_train, kv_quantize
 
 KERNELS = (lords_matmul, lords_decode, attn_prefill, attn_decode,
-           attn_decode_paged, lords_matmul_t, lords_grad, lut_quantize)
+           attn_decode_paged, lords_matmul_t, lords_grad, lut_quantize,
+           block_matmul, block_matmul_t, block_grad)
 
 
 @pytest.fixture
@@ -347,3 +351,139 @@ def test_remat_fused_step_launches_backward_kernels(dev, mode):
     for a, b in zip(grads, grads_ref):
         a, b = a.double().flatten(), b.double().flatten()
         assert torch.nn.functional.cosine_similarity(a, b, dim=0) >= 0.999
+
+
+# ---------------------------------------------------------------------------
+# block-wise kernels and the baselines' paths
+# ---------------------------------------------------------------------------
+
+
+def _block_linear(n, k, bs, dev, codebook, seed):
+    rng = np.random.default_rng(seed)
+    w = torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32) * 0.05)
+    q, s_blk = quantize_blockwise(w.to(dev), bs, codebook)
+    return q, s_blk, rng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codebook", ["nf4", "nf3", "nf2"])
+@pytest.mark.parametrize("bs", [32, 64, 128, 256])
+def test_block_kernels_match_plain(dev, codebook, bs):
+    """The three block-wise kernels through the dispatch's padding (M, N
+    off the tiles; K a multiple of the block but not of lcm(128, block))
+    against their plain versions.  Forward and ∂s_blk take exact bf16
+    products summed in f32 in another order: 1e-4 of their scale.  dx
+    rounds Ŵ to bf16 where the plain version keeps f32 (2^-9 relative per
+    weight, random in sign over N): 5e-3 of max |dx|."""
+    n, k, mtok = 200, 3 * bs if bs < 128 else 2 * bs, 70
+    q, s_blk, rng = _block_linear(n, k, bs, dev, codebook, seed=bs)
+    x = _bf16(rng, dev, mtok, k)
+    g = _bf16(rng, dev, mtok, n).float()
+    before = [fn.launches for fn in (block_matmul, block_matmul_t, block_grad)]
+    for m in (mtok, 8, 4, 1):  # 8, 4, 1: the decode entry point
+        y = dispatch._block_forward(x[:m], q, s_blk, bs, codebook, "fused")
+        assert _rel(y, ref.block_matmul_ref(x[:m], q, s_blk, bs, codebook), 1e-4)
+    dx, ds = dispatch._block_grads(g, x, q, s_blk, bs, codebook, "fused")
+    dx_ref, ds_ref = ref.block_grads_ref(g, x, q, s_blk, bs, codebook)
+    assert dx.shape == dx_ref.shape and ds.shape == ds_ref.shape == s_blk.shape
+    assert _rel(dx, dx_ref, 5e-3)
+    assert _rel(ds, ds_ref, 1e-4)
+    after = [fn.launches for fn in (block_matmul, block_matmul_t, block_grad)]
+    assert [a - b for a, b in zip(after, before)] == [4, 1, 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["qlora", "blockwise"])
+def test_block_function_skips_block_grad_when_scales_frozen(dev, method):
+    """QLoRA's base is frozen: its backward launches block_matmul_t for dx
+    and never block_grad; PEQA-style block-wise PEFT trains s_blk and
+    launches both.  Gradients match ref's (bf16 outputs: 2^-7 of each
+    gradient's scale)."""
+    n, m, mtok = 200, 160, 70
+    spec = QuantSpec(method=method, mode="peft", block_size=32, adapter_rank=8)
+    p = init_quantized_linear(n, m, spec, generator=torch.Generator(dev).manual_seed(2),
+                              device=dev)
+    if method == "qlora":  # B = 0 at init would make dA vanish
+        p["lora_b"] = 0.05 * torch.randn(n, 8, generator=torch.Generator(dev).manual_seed(3),
+                                         device=dev)
+    names = ["lora_a", "lora_b"] if method == "qlora" else ["s_blk"]
+    x = _bf16(np.random.default_rng(4), dev, mtok, m)
+    out = {}
+    for backend in ("fused", "ref"):
+        pp = {k: v.detach().clone().requires_grad_(k in names) for k, v in p.items()}
+        xx = x.detach().clone().requires_grad_()
+        _zero_counts()
+        y = dispatch.qmatmul(pp, xx, spec, n, m, backend=backend)
+        out[backend] = torch.autograd.grad((y.float() ** 2).sum(), [xx] + [pp[k] for k in names])
+        torch.cuda.synchronize()
+        counts = (block_matmul.launches, block_matmul_t.launches, block_grad.launches)
+        if backend == "ref":
+            assert counts == (0, 0, 0)
+        else:
+            assert counts == (1, 1, 0 if method == "qlora" else 1), counts
+    for name, a, b in zip(["x"] + names, out["fused"], out["ref"]):
+        assert _rel(a.float(), b.float(), 2.0**-7), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["qlora", "blockwise"])
+def test_baseline_remat_steps_launch_block_kernels_and_ref_none(dev, method):
+    """A remat forward_train + backward of the smoke model with a
+    block-wise base: under ref no kernel launches at all (the backward and
+    the recompute run on PyTorch's device thread); fused launches the block
+    kernels (block_grad only when s_blk trains) and its gradients agree with
+    ref's at cosine >= 0.999."""
+    cfg = smoke_variant(get_config("llama3-8b")).with_(remat=True)
+    cfg = cfg.with_(quant=cfg.quant.with_(method=method, mode="peft", adapter_rank=8))
+    params = model_init(cfg, 0, device=dev)
+    batch = batch_tensors(SyntheticLM(cfg.vocab_size, 128, 2, seed=1).batch_at(0), dev)
+    trainable, frozen = peft.partition(params, cfg.quant)
+    gen = torch.Generator(dev).manual_seed(5)
+    for path, t in trainable.items():
+        if path[-1] == "lora_b":  # B = 0 at init would make dA vanish
+            t.normal_(0.0, 0.02, generator=gen)
+    leaves = [t.requires_grad_() for t in trainable.values()]
+    params = peft.combine(trainable, frozen)
+    res = {}
+    for backend in ("ref", "fused"):
+        _zero_counts()
+        with dispatch.backend_scope(backend):
+            loss, _ = forward_train(params, cfg, batch)
+            grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        res[backend] = loss.item(), grads, {fn.__name__: fn.launches for fn in KERNELS}
+    assert not any(res["ref"][2].values()), res["ref"][2]
+    fused = res["fused"][2]
+    assert fused["block_matmul"] >= 14 and fused["block_matmul_t"] > 0, fused
+    assert (fused["block_grad"] > 0) == (method == "blockwise"), fused
+    assert fused["lords_matmul"] == fused["lords_matmul_t"] == fused["lords_grad"] == 0
+    assert abs(res["fused"][0] - res["ref"][0]) < 1e-2
+    for a, b in zip(res["fused"][1], res["ref"][1]):
+        a, b = a.double().flatten(), b.double().flatten()
+        assert torch.nn.functional.cosine_similarity(a, b, dim=0) >= 0.999
+
+
+@pytest.mark.cuda
+def test_gptq_on_card_matches_cpu(dev):
+    """GPTQ on the card against the CPU at a small size.  Its column loop
+    propagates each column's rounding error into the columns after it, so
+    an f32 difference between the two LAPACKs' inverse and Cholesky can
+    flip a code near a level midpoint and the flip then moves later
+    columns: >= 99% of the codes equal, calibration MSE within 1%."""
+    n, m, bs = 64, 256, 64
+    rng = np.random.default_rng(0)
+    w = torch.from_numpy(rng.standard_normal((n, m)).astype(np.float32) * 0.05)
+    x = torch.from_numpy(synthetic_activations(512, m, seed=0)).float()
+    out = {}
+    for d in ("cpu", dev):
+        q, s_blk = gptq_quantize(w.to(d), x.to(d), bs, "nf4")
+        out[str(d)] = (q.cpu(), s_blk.cpu())
+    (qc, sc), (qg, sg) = out["cpu"], out[str(dev)]
+    torch.testing.assert_close(sg, sc, rtol=1e-6, atol=0)
+    assert (unpack_codes(qc, "nf4") == unpack_codes(qg, "nf4")).float().mean().item() >= 0.99
+
+    def mse(q, s):
+        w_hat = ref.block_matmul_t_ref(torch.eye(n), q, s, bs, "nf4")
+        return ((x @ w_hat.T - x @ w.T) ** 2).mean().item()
+
+    assert abs(mse(qg, sg) / mse(qc, sc) - 1) <= 0.01
