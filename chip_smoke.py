@@ -4,10 +4,12 @@
     python3 chip_smoke.py
 
 Phase 1 builds the CUDA sources of ``src/repro_torch/csrc`` (one ``nvcc``
-each, all at once).  Phase 2 holds each of the eleven kernels against its
+each, all at once).  Phase 2 holds each of the thirteen kernels against its
 plain PyTorch version at the shapes llama3-8b's paths give it (the training
-kernels at a 4096-token step), and times kernel, plain version, one library
-call (where one computes the same function) and the bytes/FLOP bound.
+kernels at a 4096-token step) and minicpm3-4b's MLA paths give it (the two
+MLA decode kernels, and the prefill kernel at hd 96 / hd_v 64), and times
+kernel, plain version, one library call (where one computes the same
+function) and the bytes/FLOP bound.
 Phase 3 serves llama3-8b at full width (batch 4, prompt 512, gen 32,
 random weights from a seeded ``torch.Generator``) through
 ``repro_torch.launch.serve.serve_batch`` with a bf16 and with an int8 KV
@@ -21,8 +23,11 @@ model); phase 8 trains QLoRA's adapters at phase 5's settings; phase 9
 trains PEQA-style block scales at 4 layers; phase 10 quantizes layer 0's
 seven matrices by block-wise NF4, the LoRDS init, Algorithm 1, GPTQ, AWQ,
 LoftQ, QPiSSA and SmoothRot and runs the bit / rank allocation over them.
-Each path runs with the launch counts set to 0 just before it, must launch
-every kernel it uses (and none of another path's linears), and must hold
+Phase 11 serves minicpm3-4b (multi-head latent attention, 62 layers, full
+width) at phase 3's settings with a bf16 and an int8 latent cache; phase 12
+runs phase 4's engine and trace on it (int8 latent pool).  Each path runs
+with the launch counts set to 0 just before it, must launch every kernel
+it uses (and none of another path's linears or decode kernels), and must hold
 its outputs (teacher-forced logits, or one step's gradients) within a
 stated bound of the ``ref`` backend.  Exits non-zero, printing no result,
 when no CUDA device is visible or the port's sources are missing; any
@@ -63,6 +68,8 @@ BASE_BLOCK, ADAPTER_RANK, PEQA_LAYERS = 128, 32, 4
 # phase 10: Algorithm 1 at the paper's lr and step count; GPTQ / AWQ /
 # SmoothRot calibration tokens; LoftQ's alternations
 PTQ_LR, PTQ_STEPS, PTQ_TOKENS, PTQ_LOFTQ_ITERS = 0.05, 500, 2048, 5
+# phases 11 and 12: the repo's MLA architecture
+MLA_ARCH = "minicpm3-4b"
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "lords_matmul": ("lords_matmul", "src/repro/kernels/lords_matmul.py:140"),
     "lords_decode": ("lords_decode", "src/repro/kernels/lords_decode.py:84"),
@@ -75,10 +82,15 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "block_matmul": ("block_matmul", "src/repro/kernels/block_matmul.py:54"),
     "block_matmul_t": ("block_matmul_t", "src/repro/kernels/lords_matmul_t.py:161"),
     "block_grad": ("block_grad", "src/repro/kernels/lords_grad.py:232"),
+    "attn_decode_mla": ("attn_decode_mla", "src/repro/kernels/attn_decode.py:229"),
+    "attn_decode_mla_paged": ("attn_decode_mla", "src/repro/kernels/attn_decode.py:376"),
 }
 LIBRARY_NOTES = {
     "lut_quantize": "no PyTorch call computes it; torch.bucketize over a precomputed ratio "
                     "W/S is printed as a yardstick ([yardstick] line)",
+    "attn_decode_mla_paged": "no single PyTorch call reads a paged cache; SDPA over the "
+                             "same live windows gathered into a bf16 contiguous latent "
+                             "cache is printed as a yardstick",
 }
 NO_LIBRARY = ("no single PyTorch call reads an int8 or a paged cache; SDPA over "
               "a bf16 contiguous cache of the same live length is printed as a "
@@ -129,8 +141,8 @@ class KernelCheck:
     plain version; the row's numbers are the weighted sum of the primary
     checks (the shapes of the newest path that runs the kernel, named in
     ``primary_checks``), the others are listed with theirs under
-    ``checks``.  ``model_layers`` is the depth the launch counts were taken
-    at."""
+    ``checks``.  ``model_layers_by_path`` is the depth each path's launch
+    counts were taken at."""
 
     def __init__(self, name: str):
         self.name = name
@@ -155,7 +167,7 @@ class KernelCheck:
     def err(self) -> float:
         return max(c["max_abs_err"] for c in self.checks)
 
-    def row(self, launches: dict, layers: int) -> dict:
+    def row(self, launches: dict, depths: dict) -> dict:
         prim = [c for c in self.checks if c["primary"]]
 
         def total(key):
@@ -173,7 +185,8 @@ class KernelCheck:
                "bound_ms": total("bound_ms"),
                "bound_by": "bytes" if by["bytes"] >= by["operations"] else "operations",
                "library_ms": lib, "per": "one layer of the primary checks' path",
-               "primary_checks": [c["label"] for c in prim], "model_layers": layers,
+               "primary_checks": [c["label"] for c in prim],
+               "model_layers_by_path": {p: depths[p] for p in launches},
                "checks": self.checks}
         if lib is None:
             row["library_note"] = LIBRARY_NOTES.get(self.name, NO_LIBRARY)
@@ -235,6 +248,7 @@ def check_kernels(cfg, torch, F):
         del p, w_hat
 
     check_attention(cfg, torch, F, results, gen, flush)
+    check_mla_attention(torch, F, results, gen, flush)
     check_train_kernels(cfg, torch, results, gen, flush)
     check_block_kernels(cfg, torch, results, gen, flush)
     del scratch
@@ -443,60 +457,78 @@ def _randn(torch, gen, *shape, dtype=None):
     return t if dtype is None else t.to(dtype)
 
 
-def check_attention(cfg, torch, F, results, gen, flush):
-    """Phase 2, attention: prefill and decode at serve_batch's shapes (bf16
-    and int8 cache), chunk-mode prefill and paged decode (bf16 and int8
-    pool) at the engine's geometry."""
+def _engine_page_tables(torch, rng, pos_np):
+    """The engine decode's page tables for the slot positions ``pos_np``:
+    each slot's pages up to its position drawn without repeats from the
+    pool's pages 1.. (page 0 is the dummy), unmapped entries 0; returns
+    (pt, pos) on the card."""
+    import numpy as np
+
+    ps, npages, total = ENGINE["page_size"], ENGINE["max_pages"], ENGINE["total_pages"]
+    pt_np = np.zeros((len(pos_np), npages), np.int32)
+    for i, p in enumerate(pos_np):
+        used = p // ps + 1
+        pt_np[i, :used] = rng.choice(np.arange(1, total), size=used, replace=False)
+    return torch.from_numpy(pt_np).cuda(), torch.from_numpy(pos_np).cuda()
+
+
+def _sdpa_decode_mask(torch, pos, cap):
+    """decode_kmask's additive mask, shaped and typed for SDPA over a bf16
+    (b, heads, 1, cap) decode."""
+    from repro_torch.kernels import dispatch
+
+    return dispatch.decode_kmask(pos, cap)[:, None, None, :].to(torch.bfloat16)
+
+
+def check_prefill(torch, F, results, gen, flush, rng, *, nh, nkv, hd, hdv, tag,
+                  chunk_primary):
+    """Phase 2, kernel 3 at one (hd, hd_v): serve_batch's prefill (window
+    544 padded to the 64-row tile, prompt 512 live) and the engine's chunk
+    step (8 slots x 512 queries against the prefix window of max_pages*64
+    keys, live below each slot's chunk start, ++ the chunk; kpos is not
+    monotonic).  The bound counts 2·(hd + hd_v) operations per live
+    (query, key) pair and head; SDPA over the live rows is the library
+    time."""
     import numpy as np
 
     from repro_torch.kernels import dispatch, ref
-    from repro_torch.kernels.attn_decode import attn_decode
-    from repro_torch.kernels.attn_decode_paged import attn_decode_paged
     from repro_torch.kernels.attn_prefill import BQ, attn_prefill
-    from repro_torch.models.common import kv_quantize
 
     dev = torch.device("cuda")
     bf16 = torch.bfloat16
-    hd, nh, nkv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
-    g = nh // nkv
     scale = 1.0 / hd**0.5
     cap = PROMPT + GEN
+    heads = f"nh={nh} nkv={nkv} hd={hd} hd_v={hdv}"
 
-    # serve_batch's prefill: window 544 padded to 576, prompt 512 live
     s_pad = -(-cap // BQ) * BQ
     col = torch.arange(s_pad, device=dev, dtype=torch.int32)
     positions = torch.where(col < PROMPT, col, -1)[None].expand(BATCH, s_pad).contiguous()
     q = _randn(torch, gen, BATCH, s_pad, nh, hd, dtype=bf16)
     k = _randn(torch, gen, BATCH, s_pad, nkv, hd, dtype=bf16)
-    v = _randn(torch, gen, BATCH, s_pad, nkv, hd, dtype=bf16)
+    v = _randn(torch, gen, BATCH, s_pad, nkv, hdv, dtype=bf16)
     out = attn_prefill(q, k, v, positions, positions, logit_scale=scale)
-    out_ref = ref.attn_prefill_pos(q, k, v, positions, positions, scale)
     # f32 on both sides; exp and summation order differ: 1e-4 absolute on
     # outputs of O(1)
-    err = (out - out_ref).abs().max().item()
-    live = ((positions[:, None, :] <= positions[:, :, None])
-            & (positions[:, None, :] >= 0)).sum().item()
-    nbytes = q.numel() * 2 + 2 * k.numel() * 2 + out.numel() * 4 + 2 * positions.numel() * 4
-    b_ms, b_by = bound(nbytes, {"bf16": (4 * hd * g * live * nkv, BF16_FLOP_S)})
-    qt = q[:, :PROMPT].transpose(1, 2).contiguous()
-    kt = k[:, :PROMPT].transpose(1, 2).contiguous()
-    vt = v[:, :PROMPT].transpose(1, 2).contiguous()
+    err = (out - ref.attn_prefill_pos(q, k, v, positions, positions, scale)).abs().max().item()
+    pairs = ((positions[:, None, :] <= positions[:, :, None])
+             & (positions[:, None, :] >= 0)).sum().item()
+    nbytes = ((q.numel() + k.numel() + v.numel()) * 2 + out.numel() * 4
+              + 2 * positions.numel() * 4)
+    b_ms, b_by = bound(nbytes, {"bf16": (2 * (hd + hdv) * nh * pairs, BF16_FLOP_S)})
+    qt, kt, vt = (t[:, :PROMPT].transpose(1, 2).contiguous() for t in (q, k, v))
     results["attn_prefill"].add(
-        f"serve_batch prefill b={BATCH} s=S={s_pad} nh={nh} nkv={nkv} hd={hd} "
-        f"live_pairs={live}", err, 1e-4,
-        timed(lambda: attn_prefill(q, k, v, positions, positions, logit_scale=scale), 10, flush),
+        f"{tag}serve_batch prefill b={BATCH} s=S={s_pad} {heads} live_pairs={pairs}",
+        err, 1e-4,
+        timed(lambda: attn_prefill(q, k, v, positions, positions, logit_scale=scale), 10,
+              flush),
         timed(lambda: ref.attn_prefill_pos(q, k, v, positions, positions, scale), 3, flush),
-        timed(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+        timed(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=scale,
                                                      enable_gqa=True), 10, flush),
         b_ms, b_by, primary=False)
-    del q, k, v, qt, kt, vt, out, out_ref
+    del q, k, v, qt, kt, vt, out
 
-    # the engine's chunk step: 8 slots x 512 queries against the prefix
-    # window of max_pages*64 keys (live below each slot's chunk start) ++
-    # the chunk; kpos is not monotonic
     slots, cs = ENGINE["slots"], ENGINE["chunk"]
     window = ENGINE["max_pages"] * ENGINE["page_size"]
-    rng = np.random.default_rng(2)
     pos0 = np.array([0, cs] * (slots // 2))
     n_live = np.where(pos0 == 0, cs, rng.integers(64, cs + 1, slots))
     qpos = np.full((slots, cs), -1, np.int32)
@@ -505,11 +537,10 @@ def check_attention(cfg, torch, F, results, gen, flush):
         qpos[i, :n] = p0 + np.arange(n)
         kpos[i, :p0] = np.arange(p0)
         kpos[i, window:window + n] = p0 + np.arange(n)
-    qpos_t = torch.from_numpy(qpos).to(dev)
-    kpos_t = torch.from_numpy(kpos).to(dev)
+    qpos_t, kpos_t = torch.from_numpy(qpos).to(dev), torch.from_numpy(kpos).to(dev)
     q = _randn(torch, gen, slots, cs, nh, hd, dtype=bf16)
     k = _randn(torch, gen, slots, window + cs, nkv, hd, dtype=bf16)
-    v = _randn(torch, gen, slots, window + cs, nkv, hd, dtype=bf16)
+    v = _randn(torch, gen, slots, window + cs, nkv, hdv, dtype=bf16)
 
     def chunk():
         return dispatch.qattention("chunk_prefill", q, k, v, qpos_t, kpos_t,
@@ -519,23 +550,46 @@ def check_attention(cfg, torch, F, results, gen, flush):
     out_ref = ref.attn_chunk_prefill_ref(q, k, v, qpos_t, kpos_t, scale)
     qlive = qpos_t >= 0
     err = (out[qlive] - out_ref[qlive]).abs().max().item()  # dead rows differ by contract
-    pairs = ((kpos_t[:, None, :] <= qpos_t[:, :, None]) & (kpos_t[:, None, :] >= 0)
-             & qlive[:, :, None]).sum().item()
-    live_keys = int((kpos >= 0).sum())
-    nbytes = (q.numel() * 2 + 2 * live_keys * nkv * hd * 2 + out.numel() * 4
-              + (qpos.size + kpos.size) * 4)
-    b_ms, b_by = bound(nbytes, {"bf16": (4 * hd * g * pairs * nkv, BF16_FLOP_S)})
+    del out_ref
     mask = ((kpos_t[:, None, :] <= qpos_t[:, :, None]) & (kpos_t[:, None, :] >= 0))[:, None]
+    pairs = (mask[:, 0] & qlive[:, :, None]).sum().item()
+    live_keys = int((kpos >= 0).sum())
+    nbytes = (q.numel() * 2 + live_keys * nkv * (hd + hdv) * 2 + out.numel() * 4
+              + (qpos.size + kpos.size) * 4)
+    b_ms, b_by = bound(nbytes, {"bf16": (2 * (hd + hdv) * nh * pairs, BF16_FLOP_S)})
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     results["attn_prefill"].add(
-        f"engine chunk slots={slots} chunk={cs} keys={window}+{cs} live_keys={live_keys} "
-        f"live_pairs={pairs}", err, 1e-4,
+        f"{tag}engine chunk slots={slots} chunk={cs} keys={window}+{cs} {heads} "
+        f"live_keys={live_keys} live_pairs={pairs}", err, 1e-4,
         timed(chunk, 10, flush),
         timed(lambda: ref.attn_chunk_prefill_ref(q, k, v, qpos_t, kpos_t, scale), 3, flush),
-        timed(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+        timed(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=scale,
                                                      enable_gqa=True), 10, flush),
-        b_ms, b_by)
-    del q, k, v, qt, kt, vt, out, out_ref, mask
+        b_ms, b_by, primary=chunk_primary)
+    del q, k, v, qt, kt, vt, out, mask
+
+
+def check_attention(cfg, torch, F, results, gen, flush):
+    """Phase 2, attention: prefill and decode at serve_batch's shapes (bf16
+    and int8 cache), chunk-mode prefill and paged decode (bf16 and int8
+    pool) at the engine's geometry."""
+    import numpy as np
+
+    from repro_torch.kernels import dispatch, ref
+    from repro_torch.kernels.attn_decode import attn_decode
+    from repro_torch.kernels.attn_decode_paged import attn_decode_paged
+    from repro_torch.models.common import kv_quantize
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    hd, nh, nkv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    g = nh // nkv
+    scale = 1.0 / hd**0.5
+    cap = PROMPT + GEN
+    rng = np.random.default_rng(2)
+    check_prefill(torch, F, results, gen, flush, rng, nh=nh, nkv=nkv, hd=hd, hdv=hd, tag="",
+                  chunk_primary=True)
+    slots = ENGINE["slots"]
 
     # serve_batch's decode at its last step: 543 of 544 slots live, bf16 and
     # int8 cache (codes and per-(slot, head) scales from kv_quantize)
@@ -577,12 +631,7 @@ def check_attention(cfg, torch, F, results, gen, flush):
     # pool of ENGINE["total_pages"]; scattered tables, unmapped entries 0
     ps, npages, total = ENGINE["page_size"], ENGINE["max_pages"], ENGINE["total_pages"]
     pos_np = rng.integers(64, npages * ps - 129, slots).astype(np.int32)
-    pt_np = np.zeros((slots, npages), np.int32)
-    for i, p in enumerate(pos_np):
-        used = p // ps + 1
-        pt_np[i, :used] = rng.choice(np.arange(1, total), size=used, replace=False)
-    pt = torch.from_numpy(pt_np).to(dev)
-    ppos = torch.from_numpy(pos_np).to(dev)
+    pt, ppos = _engine_page_tables(torch, rng, pos_np)
     qp = _randn(torch, gen, slots, nkv, g, hd, dtype=bf16)
     kpool = _randn(torch, gen, total, ps, nkv, hd, dtype=bf16)
     vpool = _randn(torch, gen, total, ps, nkv, hd, dtype=bf16)
@@ -591,7 +640,7 @@ def check_attention(cfg, torch, F, results, gen, flush):
     capp = npages * ps
     kcont = ref.gather_pool(kpool, pt).transpose(1, 2).contiguous()
     vcont = ref.gather_pool(vpool, pt).transpose(1, 2).contiguous()
-    pmask = dispatch.decode_kmask(ppos, capp)[:, None, None, :].to(bf16)
+    pmask = _sdpa_decode_mask(torch, ppos, capp)
     sdpa_ms = timed(lambda: F.scaled_dot_product_attention(
         qp.reshape(slots, nh, 1, hd), kcont, vcont, attn_mask=pmask, enable_gqa=True), 50, flush)
     for kv, operands, elt, primary in (("bf16", (kpool, vpool), 2, False),
@@ -640,6 +689,129 @@ def check_attention(cfg, torch, F, results, gen, flush):
             f"paged {paged_ms:.4f} ms vs contiguous {cont_ms:.4f} ms, max |Δ| {diff:.2e}")
 
 
+def check_mla_attention(torch, F, results, gen, flush):
+    """Phase 2, MLA (minicpm3-4b: 40 heads, latent 256, rope 32, hd 96 /
+    hd_v 64): the contiguous MLA decode at serve_batch's last step (bf16
+    and int8 latent cache), the paged one at the engine's geometry (bf16
+    and int8 pool, scattered tables), and the prefill kernel at (96, 64) in
+    serve_batch's prefill and the engine's chunk."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.attn_decode_mla import attn_decode_mla
+    from repro_torch.kernels.attn_decode_mla_paged import attn_decode_mla_paged
+    from repro_torch.models.common import kv_quantize
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    mcfg = get_config(MLA_ARCH)
+    m, nh = mcfg.mla, mcfg.num_heads
+    lat, rope = m.kv_lora_rank, m.qk_rope_dim
+    hd, hdv = m.qk_nope_dim + m.qk_rope_dim, m.v_head_dim
+    scale = 1.0 / hd**0.5
+    cap = PROMPT + GEN
+    rng = np.random.default_rng(12)
+
+    def mla_bytes(b, live, elt):
+        # q_lat f32 and q_rope bf16 in, the live cache once (codes, a scale
+        # per slot for int8, the RoPE keys), pos in, the latent out
+        return (b * nh * (lat * 4 + rope * 2) + live * (lat * elt + rope * 2
+                + (4 if elt == 1 else 0)) + b * 4 + b * nh * lat * 4)
+
+    def mla_ops(live):
+        return {"f32": (2 * nh * live * (2 * lat + rope), FP32_FLOP_S)}
+
+    # serve_batch's decode at its last step: 543 of 544 slots live
+    ql = _randn(torch, gen, BATCH, nh, lat)
+    qr = _randn(torch, gen, BATCH, nh, rope, dtype=bf16)
+    c = _randn(torch, gen, BATCH, cap, lat, dtype=bf16)
+    kr = _randn(torch, gen, BATCH, cap, rope, dtype=bf16)
+    pos = torch.full((BATCH,), cap - 2, dtype=torch.int32, device=dev)
+    live = BATCH * (cap - 1)
+    cq, cs = kv_quantize(c)
+    # SDPA over the bf16 latent cache: q = [q_lat, q_rope], k = [c, k_rope],
+    # v = c, one KV head for the 40 query heads; concatenations done ahead
+    qs = torch.cat([ql.to(bf16), qr], -1)[:, :, None]
+    ks = torch.cat([c, kr], -1)[:, None]
+    vs = c[:, None]
+    smask = _sdpa_decode_mask(torch, pos, cap)
+    sdpa_ms = timed(lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=smask, scale=scale, enable_gqa=True), 50, flush)
+    # f32 on both sides; the kernel folds the int8 scale into the latent
+    # dot and the probability, and sums in another order: 1e-4 absolute on
+    # outputs of O(1)
+    for kv, operands, elt, primary in (("bf16", (c, kr, pos), 2, True),
+                                       ("int8", (cq, kr, pos, cs), 1, False)):
+        args = (ql, qr, *operands)
+        out = attn_decode_mla(*args, logit_scale=scale)
+        err = (out - ref.attn_mla_decode_ref(*args, logit_scale=scale)).abs().max().item()
+        b_ms, b_by = bound(mla_bytes(BATCH, live, elt), mla_ops(live))
+        results["attn_decode_mla"].add(
+            f"serve_batch {kv} cache b={BATCH} S={cap} nh={nh} L={lat} R={rope} "
+            f"live={cap - 1}", err, 1e-4,
+            timed(lambda: attn_decode_mla(*args, logit_scale=scale), 50, flush),
+            timed(lambda: ref.attn_mla_decode_ref(*args, logit_scale=scale), 5, flush),
+            sdpa_ms if kv == "bf16" else None, b_ms, b_by, primary=primary)
+    # ragged rows: slot 0 only, a 32-slot tile edge, the full window
+    rpos = torch.tensor([0, 31, 32, cap - 1], dtype=torch.int32, device=dev)
+    for kv, operands in (("bf16", (c, kr, rpos)), ("int8", (cq, kr, rpos, cs))):
+        err = (attn_decode_mla(ql, qr, *operands, logit_scale=scale)
+               - ref.attn_mla_decode_ref(ql, qr, *operands, logit_scale=scale)
+               ).abs().max().item()
+        log(f"[kernel] attn_decode_mla {kv} ragged pos {rpos.tolist()}: max_abs_err "
+            f"{err:.3e} (tol 1.000e-04) {'PASS' if err <= 1e-4 else 'FAIL'}")
+        if err > 1e-4:
+            raise AssertionError(f"attn_decode_mla {kv} ragged: error {err} > 1e-4")
+    del c, kr, cq, cs, qs, ks, vs
+
+    # the engine's decode: 8 slots, pages of 64, 20-entry scattered tables
+    # into ENGINE["total_pages"]; unmapped entries 0
+    slots, ps = ENGINE["slots"], ENGINE["page_size"]
+    npages, total = ENGINE["max_pages"], ENGINE["total_pages"]
+    pos_np = rng.integers(64, npages * ps - 129, slots).astype(np.int32)
+    pos_np[0] = 3 * ps - 1  # the last slot of a page
+    pos_np[1] = 3 * ps      # the first slot of the next
+    pt, ppos = _engine_page_tables(torch, rng, pos_np)
+    qlp = _randn(torch, gen, slots, nh, lat)
+    qrp = _randn(torch, gen, slots, nh, rope, dtype=bf16)
+    cpool = _randn(torch, gen, total, ps, lat, dtype=bf16)
+    krpool = _randn(torch, gen, total, ps, rope, dtype=bf16)
+    cpq, cps = kv_quantize(cpool)
+    plive = int((pos_np + 1).sum())
+    capp = npages * ps
+    qs = torch.cat([qlp.to(bf16), qrp], -1)[:, :, None]
+    cwin = ref.gather_pool(cpool, pt)
+    ks = torch.cat([cwin, ref.gather_pool(krpool, pt)], -1)[:, None]
+    vs = cwin[:, None]
+    pmask = _sdpa_decode_mask(torch, ppos, capp)
+    sdpa_ms = timed(lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=pmask, scale=scale, enable_gqa=True), 50, flush)
+    for kv, operands, elt, primary in (("bf16", (cpool, krpool, pt, ppos), 2, False),
+                                       ("int8", (cpq, krpool, pt, ppos, cps), 1, True)):
+        args = (qlp, qrp, *operands)
+
+        def plain():
+            return ref.attn_mla_decode_paged_ref(pt, qlp, qrp, operands[0], operands[1],
+                                                 ppos, *operands[4:], logit_scale=scale)
+
+        out = attn_decode_mla_paged(*args, logit_scale=scale)
+        err = (out - plain()).abs().max().item()
+        b_ms, b_by = bound(mla_bytes(slots, plive, elt) + pt.numel() * 4, mla_ops(plive))
+        results["attn_decode_mla_paged"].add(
+            f"engine {kv} pool slots={slots} ps={ps} np={npages} pages={total} "
+            f"live_slots={plive}", err, 1e-4,
+            timed(lambda: attn_decode_mla_paged(*args, logit_scale=scale), 50, flush),
+            timed(plain, 5, flush), None, b_ms, b_by, primary=primary)
+    log(f"[yardstick] SDPA over the engine's live windows gathered into a bf16 contiguous "
+        f"latent cache (b={slots}, S={capp}, nh={nh}, one KV head): {sdpa_ms:.4f} ms")
+    del cpool, krpool, cpq, cps, cwin, qs, ks, vs
+
+    # the prefill kernel at (96, 64); K and V have all 40 heads
+    check_prefill(torch, F, results, gen, flush, rng, nh=nh, nkv=nh, hd=hd, hdv=hdv,
+                  tag="mla ", chunk_primary=False)
+
+
 # teacher-forced logits, fused against ref: both backends are fed the same
 # tokens.  Tolerance: the ref path rounds attention probabilities and scaled
 # queries to bf16 where the kernels keep f32, and the bf16 residual stream
@@ -670,6 +842,8 @@ class LogitBound:
 
 def _wrappers():
     from repro_torch.kernels.attn_decode import attn_decode
+    from repro_torch.kernels.attn_decode_mla import attn_decode_mla
+    from repro_torch.kernels.attn_decode_mla_paged import attn_decode_mla_paged
     from repro_torch.kernels.attn_decode_paged import attn_decode_paged
     from repro_torch.kernels.attn_prefill import attn_prefill
     from repro_torch.kernels.lords_decode import lords_decode
@@ -686,7 +860,8 @@ def _wrappers():
             "attn_decode_paged": attn_decode_paged, "lords_matmul_t": lords_matmul_t,
             "lords_grad": lords_grad, "lut_quantize": lut_quantize,
             "block_matmul": block_matmul, "block_matmul_t": block_matmul_t,
-            "block_grad": block_grad}
+            "block_grad": block_grad, "attn_decode_mla": attn_decode_mla,
+            "attn_decode_mla_paged": attn_decode_mla_paged}
 
 
 def counted(run):
@@ -700,6 +875,9 @@ def counted(run):
 
 
 LORDS_SERVE = ("lords_matmul", "lords_decode", "attn_prefill", "attn_decode")
+GQA_DECODE = ("attn_decode", "attn_decode_paged")
+MLA_SERVE = ("lords_matmul", "lords_decode", "attn_prefill", "attn_decode_mla")
+MLA_ENGINE = ("lords_matmul", "lords_decode", "attn_prefill", "attn_decode_mla_paged")
 LORDS_LINEAR = ("lords_matmul", "lords_decode", "lords_matmul_t", "lords_grad",
                 "lut_quantize")
 BLOCK_KERNELS = ("block_matmul", "block_matmul_t", "block_grad")
@@ -707,7 +885,7 @@ BLOCK_KERNELS = ("block_matmul", "block_matmul_t", "block_grad")
 
 def serve_checks(cfg, params, torch, kv, what=None, used=LORDS_SERVE, unused=BLOCK_KERNELS,
                  expect=None):
-    """Phases 3 and 7: serve llama3-8b through serve_batch with a ``kv``
+    """Phases 3, 7 and 11: serve ``cfg`` through serve_batch with a ``kv``
     cache; every kernel of ``used`` must launch, none of ``unused``, and
     ``expect`` maps kernels to their exact counts.  Returns the kernels'
     launch counts in the main run."""
@@ -722,11 +900,13 @@ def serve_checks(cfg, params, torch, kv, what=None, used=LORDS_SERVE, unused=BLO
     cfg = cfg.with_(kv_cache_dtype=kv)
     kw = dict(batch=BATCH, prompt_len=PROMPT, gen=GEN, params=params, device=dev)
     serve_batch(cfg, **{**kw, "gen": 2})  # warm-up: first launches, cuBLAS
+    torch.cuda.reset_peak_memory_stats()
     out, launches = counted(lambda: serve_batch(cfg, **kw))
     toks = out["tokens"]
     log(f"[{what}] fused: prefill {out['prefill_ms']:.1f} ms "
         f"({out['prefill_tok_s']:.1f} tok/s), decode {out['decode_tok_s']:.1f} "
-        f"tok/s ({out['decode_ms']:.1f} ms for {GEN - 1} steps), launches {launches}")
+        f"tok/s ({out['decode_ms']:.1f} ms for {GEN - 1} steps), peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches {launches}")
     if toks.shape != (BATCH, GEN) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
         raise AssertionError(f"bad tokens {toks.shape} [{toks.min()}, {toks.max()}]")
     missing = [n for n in used if launches[n] == 0]
@@ -785,9 +965,12 @@ def engine_trace(cfg, n: int):
                     max_new=int(m)) for i, (p, m) in enumerate(zip(plens, gens))]
 
 
-def engine_checks(cfg, params, torch):
-    """Phase 4: the paged continuous-batching engine with an int8 pool at
-    full width; returns the kernels' launch counts in the engine run."""
+def engine_checks(cfg, params, torch, what="engine",
+                  used=("lords_matmul", "lords_decode", "attn_prefill", "attn_decode_paged"),
+                  unused=()):
+    """Phases 4 and 12: the paged continuous-batching engine with an int8
+    pool at full width; every kernel of ``used`` must launch in the engine
+    run, none of ``unused``.  Returns the kernels' launch counts."""
     from repro_torch.launch.engine import Engine
 
     cfg = cfg.with_(kv_cache_dtype="int8")
@@ -796,13 +979,13 @@ def engine_checks(cfg, params, torch):
     t0 = time.perf_counter()
     eng.warmup()
     torch.cuda.synchronize()
-    log(f"[engine] warm-up {time.perf_counter() - t0:.1f} s; geometry {ENGINE}, "
+    log(f"[{what}] warm-up {time.perf_counter() - t0:.1f} s; geometry {ENGINE}, "
         f"{len(reqs)} requests, prompts {min(len(r.tokens) for r in reqs)}.."
         f"{max(len(r.tokens) for r in reqs)}, max_new {min(r.max_new for r in reqs)}.."
         f"{max(r.max_new for r in reqs)}, all arriving at 0")
     st, launches = counted(lambda: eng.run(reqs))
     per_step = st["decode_ms"] / max(st["decode_steps"], 1)
-    log(f"[engine] goodput {st['goodput_tok_s']:.1f} tok/s ({st['generated_tokens']} tokens "
+    log(f"[{what}] goodput {st['goodput_tok_s']:.1f} tok/s ({st['generated_tokens']} tokens "
         f"in {st['wall_s']:.2f} s), latency p50 {st['latency_p50_s']:.2f} s p99 "
         f"{st['latency_p99_s']:.2f} s, prefill_ms {st['prefill_ms']:.1f} over "
         f"{st['chunk_steps']} chunk_steps ({st['prefill_ms'] / max(st['chunk_steps'], 1):.1f} "
@@ -818,16 +1001,18 @@ def engine_checks(cfg, params, torch):
         raise AssertionError(f"page audit failed: {st['page_audit']}")
     if st["evictions"] < 1:
         raise AssertionError("the pool was sized to force an eviction; none happened")
-    used = ("lords_matmul", "lords_decode", "attn_prefill", "attn_decode_paged")
     missing = [n for n in used if launches[n] == 0]
     if missing:
         raise AssertionError(f"kernels never launched in the engine run: {missing}")
+    stray = {n: launches[n] for n in unused if launches[n]}
+    if stray:
+        raise AssertionError(f"{what}: kernels off this path launched {stray}")
     for kv in ("bf16", "int8"):
-        paged_teacher_forced(cfg.with_(kv_cache_dtype=kv), params, torch)
+        paged_teacher_forced(cfg.with_(kv_cache_dtype=kv), params, torch, what)
     return launches
 
 
-def paged_teacher_forced(cfg, params, torch):
+def paged_teacher_forced(cfg, params, torch, what="engine"):
     """A 2-chunk forward_prefill_chunk and 8 forward_decode_paged steps for
     4 slots with scattered page tables, fused against ref (same bound)."""
     import numpy as np
@@ -886,7 +1071,7 @@ def paged_teacher_forced(cfg, params, torch):
                                                  ptd, pos)
                 logits[b] = lg[:, -1, : cfg.vocab_size]
             worst.add(torch, logits["fused"], logits["ref"], f"decode step {step}")
-    worst.check(f"engine {cfg.kv_cache_dtype} pool, 2 chunks + 8 decode steps, {slots} slots")
+    worst.check(f"{what} {cfg.kv_cache_dtype} pool, 2 chunks + 8 decode steps, {slots} slots")
 
 
 def _train_run(cfg, params, torch, what, steps, lr):
@@ -1222,8 +1407,9 @@ def _leaves(tree):
 
 
 def load_model(cfg, torch):
-    """llama3-8b at full width with random weights from seed 0, at full
-    depth unless its init would take over 300 s."""
+    """``cfg`` (llama3-8b, or minicpm3-4b for phases 11-12) at full width
+    with random weights from seed 0, at full depth unless its init would
+    take over 300 s."""
     from repro_torch.models import model_init
 
     dev = torch.device("cuda")
@@ -1283,24 +1469,28 @@ def main() -> int:
 
     # phases 3 and 4: the main paths, each driven with the counts at 0
     cfg, params = load_model(cfg, torch)
-    paths = {}
+    paths, depths = {}, {}  # each path's launch counts and the depth they were taken at
     for kv in ("bf16", "int8"):
         t0 = time.perf_counter()
         paths[f"serve_batch {kv}"] = serve_checks(cfg, params, torch, kv)
+        depths[f"serve_batch {kv}"] = cfg.num_layers
         log(f"[serve {kv}] phase time {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     paths["engine int8"] = engine_checks(cfg, params, torch)
+    depths["engine int8"] = cfg.num_layers
     log(f"[engine] phase time {time.perf_counter() - t0:.1f} s")
 
     # phases 5 and 6: training; phase 5 trains the loaded model's B and A in
     # place, after the serving phases have used them
     t0 = time.perf_counter()
     paths["train peft"], paths["train peft ref check"] = train_peft(cfg, params, torch)
+    depths["train peft"], depths["train peft ref check"] = cfg.num_layers, CHECK_LAYERS
     log(f"[train peft] phase time {time.perf_counter() - t0:.1f} s")
     del params
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     paths["train qat"] = train_qat(cfg, torch)
+    depths["train qat"] = QAT_LAYERS
     log(f"[train qat] phase time {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
 
@@ -1318,6 +1508,7 @@ def main() -> int:
                                                           "attn_decode"),
             unused=LORDS_LINEAR + ("block_matmul_t", "block_grad"),
             expect={"block_matmul": n_linear})
+        depths[f"serve_batch {method}"] = cfg.num_layers
         log(f"[{what}] phase time {time.perf_counter() - t0:.1f} s")
         if method == "qlora":
             t0 = time.perf_counter()
@@ -1325,6 +1516,7 @@ def main() -> int:
                 qcfg, params, torch, what="train qlora", keys=("lora_a", "lora_b"),
                 used=("block_matmul", "block_matmul_t", "attn_prefill"),
                 unused=LORDS_LINEAR + ("block_grad",))
+            depths["train qlora"], depths["train qlora ref check"] = cfg.num_layers, CHECK_LAYERS
             log(f"[train qlora] phase time {time.perf_counter() - t0:.1f} s")
         del params
         torch.cuda.empty_cache()
@@ -1337,6 +1529,8 @@ def main() -> int:
     paths["train peqa"], paths["train peqa ref check"] = train_peft(
         qcfg, params, torch, what="train peqa", keys=("s_blk",),
         used=BLOCK_KERNELS + ("attn_prefill",), unused=LORDS_LINEAR, profile=False)
+    depths["train peqa"] = PEQA_LAYERS
+    depths["train peqa ref check"] = min(PEQA_LAYERS, CHECK_LAYERS)
     log(f"[train peqa] phase time {time.perf_counter() - t0:.1f} s")
     del params
     torch.cuda.empty_cache()
@@ -1345,10 +1539,31 @@ def main() -> int:
     t0 = time.perf_counter()
     ptq_phase(cfg, torch)
     log(f"[ptq] phase time {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    # phases 11 and 12: minicpm3-4b's MLA through serve_batch (bf16 and
+    # int8 latent caches) and the paged engine (int8 latent pool)
+    mcfg, params = load_model(get_config(MLA_ARCH), torch)
+    for kv in ("bf16", "int8"):
+        what = f"serve mla {kv}"
+        t0 = time.perf_counter()
+        paths[f"serve_batch mla {kv}"] = serve_checks(
+            mcfg, params, torch, kv, what=what, used=MLA_SERVE,
+            unused=BLOCK_KERNELS + GQA_DECODE + ("attn_decode_mla_paged",))
+        depths[f"serve_batch mla {kv}"] = mcfg.num_layers
+        log(f"[{what}] phase time {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    paths["engine mla int8"] = engine_checks(
+        mcfg, params, torch, what="engine mla", used=MLA_ENGINE,
+        unused=BLOCK_KERNELS + GQA_DECODE + ("attn_decode_mla",))
+    depths["engine mla int8"] = mcfg.num_layers
+    log(f"[engine mla] phase time {time.perf_counter() - t0:.1f} s")
+    del params
+    torch.cuda.empty_cache()
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [
-        results[n].row({p: counts[n] for p, counts in paths.items()}, cfg.num_layers)
+        results[n].row({p: counts[n] for p, counts in paths.items()}, depths)
         for n in KERNELS]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

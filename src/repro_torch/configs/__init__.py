@@ -1,4 +1,4 @@
-"""repro_torch.configs — dense architecture registry.
+"""repro_torch.configs — the dense architecture registry (GQA and MLA).
 
 ``get_config('<arch-id>')`` returns a config with the JAX package's
 dimensions; ``smoke_variant(cfg)`` shrinks it for CPU tests.
@@ -7,6 +7,7 @@ from repro_torch.configs import archs  # noqa: F401  (registers every config)
 from repro_torch.configs.archs import smoke_variant  # noqa: F401
 from repro_torch.configs.base import (  # noqa: F401
     SHAPES,
+    MLACfg,
     ModelConfig,
     ShapeCfg,
     get_config,

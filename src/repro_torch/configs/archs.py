@@ -1,9 +1,23 @@
-"""Dense decoder configs (same dimensions as the JAX package's registry) and
-the reduced smoke variant used by the CPU tests.  The MoE, MLA, SSM and
-embedding-input architectures come with their model families."""
+"""Dense decoder configs, GQA and MLA (same dimensions as the JAX package's
+registry), and the reduced smoke variant used by the CPU tests.  The MoE,
+SSM and embedding-input architectures come with their model families."""
 from __future__ import annotations
 
-from repro_torch.configs.base import ModelConfig, register
+from repro_torch.configs.base import MLACfg, ModelConfig, register
+
+
+@register
+def minicpm3_4b_cfg() -> ModelConfig:
+    # [hf:openbmb/MiniCPM3-4B] dense with MLA; 62L d=2560 40H d_ff=6400 v=73448
+    # (MLA dims follow MiniCPM3-4B's HF config)
+    return ModelConfig(
+        name="minicpm3-4b", family="dense", num_layers=62, d_model=2560,
+        num_heads=40, num_kv_heads=40, d_ff=6400, vocab_size=73448,
+        attn_kind="mla",
+        mla=MLACfg(q_lora_rank=768, kv_lora_rank=256, qk_nope_dim=64,
+                   qk_rope_dim=32, v_head_dim=64),
+        head_dim=96, rope_theta=10000.0,
+    )
 
 
 @register
@@ -66,11 +80,16 @@ def qwen3_4b_cfg() -> ModelConfig:
 
 def smoke_variant(cfg: ModelConfig) -> ModelConfig:
     """Shrink a dense config to CPU-smoke size (the JAX package's dense
-    smoke dimensions: 2 layers, d 64, 4 heads, head_dim 16, vocab 256)."""
-    return cfg.with_(
+    smoke dimensions: 2 layers, d 64, 4 heads, head_dim 16, vocab 256; MLA
+    ranks 32 / 16 / 16 / 8 / 16)."""
+    kw = dict(
         num_layers=2, d_model=64, num_heads=4,
         num_kv_heads=min(4, cfg.num_kv_heads), d_ff=128 if cfg.d_ff else 0,
         vocab_size=256, head_dim=16, vocab_pad_multiple=64,
         # smaller quant blocks so tiny matrices still have >1 block
         quant=cfg.quant.with_(block_size=32, rank=2),
     )
+    if cfg.attn_kind == "mla":
+        kw["mla"] = MLACfg(q_lora_rank=32, kv_lora_rank=16, qk_nope_dim=16,
+                           qk_rope_dim=8, v_head_dim=16)
+    return cfg.with_(**kw)

@@ -1,4 +1,5 @@
-"""Config schema of the dense decoder family and the architecture registry."""
+"""Config schema of the dense decoder family (GQA or multi-head latent
+attention) and the architecture registry."""
 from __future__ import annotations
 
 import dataclasses
@@ -6,16 +7,28 @@ import math
 
 from repro_torch.core.lords import QuantSpec
 
-__all__ = ["ModelConfig", "ShapeCfg", "SHAPES", "KV_CACHE_DTYPES", "register",
-           "get_config"]
+__all__ = ["MLACfg", "ModelConfig", "ShapeCfg", "SHAPES", "KV_CACHE_DTYPES",
+           "ATTN_KINDS", "register", "get_config"]
 
 KV_CACHE_DTYPES = ("bf16", "int8")
+ATTN_KINDS = ("gqa", "mla")
+
+
+@dataclasses.dataclass(frozen=True)
+class MLACfg:
+    """Multi-head latent attention ranks (DeepSeek-style; minicpm3)."""
+    q_lora_rank: int = 768
+    kv_lora_rank: int = 256
+    qk_nope_dim: int = 64
+    qk_rope_dim: int = 32
+    v_head_dim: int = 64
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense (the only family ported so far)
+    family: str                    # dense, with GQA or MLA attention (the
+                                   # only family ported so far)
     num_layers: int
     d_model: int
     num_heads: int
@@ -23,6 +36,8 @@ class ModelConfig:
     d_ff: int                      # SwiGLU hidden width
     vocab_size: int
     head_dim: int | None = None    # default d_model // num_heads
+    attn_kind: str = "gqa"         # gqa | mla
+    mla: MLACfg | None = None
     rope_theta: float = 500000.0
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
@@ -37,6 +52,10 @@ class ModelConfig:
     micro_tokens: int = 8192       # live tokens per microbatch (training)
 
     def __post_init__(self):
+        if self.attn_kind not in ATTN_KINDS:
+            raise ValueError(f"attn_kind {self.attn_kind!r} not in {ATTN_KINDS}")
+        if self.attn_kind == "mla" and self.mla is None:
+            raise ValueError("attn_kind 'mla' needs an MLACfg in mla")
         if self.kv_cache_dtype not in KV_CACHE_DTYPES:
             raise ValueError(f"kv_cache_dtype {self.kv_cache_dtype!r} not in "
                              f"{KV_CACHE_DTYPES}")

@@ -3,10 +3,10 @@
 ``from_jax_params(tree, cfg)`` takes the JAX model's values as a nested dict
 of numpy arrays (``split_tree`` output, each leaf passed through
 ``numpy.asarray``) and returns the params :func:`repro_torch.models.
-model_init` would build: the leading ``layers`` axis of the scanned stack is
-unstacked into a list, uint8 codes stay uint8, f32 stays f32, and bf16
-leaves (numpy's ``bfloat16`` extension dtype) go bf16 → f32 → bf16, which is
-lossless.  With converted weights both packages compute the same function.
+model_init` would build, GQA or MLA mixers alike: the leading ``layers``
+axis of the scanned stack is unstacked into a list, uint8 codes stay uint8,
+f32 stays f32, and bf16 leaves (numpy's ``bfloat16`` extension dtype) go
+bf16 → f32 → bf16, which is lossless.  With converted weights both packages compute the same function.
 No JAX import is needed: the input is plain numpy.
 """
 from __future__ import annotations

@@ -4,8 +4,10 @@
 //
 // Replaces: src/repro/kernels/attn_prefill.py::attn_prefill_pallas.
 //
-// Semantics carried over exactly: q (b, s, nh, hd) and k/v (b, S, nkv, hd)
-// bf16 stay in their stored layout; query head h reads KV head h / g (no
+// Semantics carried over exactly: q (b, s, nh, hd), k (b, S, nkv, hd) and
+// v (b, S, nkv, hd_v) bf16 stay in their stored layout (hd_v is the value
+// head dim, as the TPU kernel's hdv = v.shape[-1]: MLA attends with
+// hd 96 = nope 64 + rope 32 and hd_v 64); query head h reads KV head h / g (no
 // expansion of K/V in memory); query i attends key j when
 // 0 <= kpos[j] <= qpos[i] (-1 marks a dead row or column); the mask value is
 // the finite -1e30; p is zeroed through the liveness mask; the 1/l
@@ -27,7 +29,8 @@
 // Later work: bf16 tensor-core products (mma/wgmma) with an f32 softmax.
 //
 // Shapes: s % 64 == 0, S % 64 == 0 (the dispatch layer pads with -1
-// positions); hd in {16, 32, 64, 128}.
+// positions); (hd, hd_v) in {(16, 16), (32, 32), (64, 64), (128, 128),
+// (96, 64)}.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -38,15 +41,16 @@ namespace {
 constexpr int BQ = 64, BKV = 64, THREADS = 256;
 constexpr float kNegInf = -1e30f;
 
-template <int HD>
+template <int HD, int HDV>
 struct Smem {
   static constexpr int QS = HD + 1;        // f32 row stride of the Q tile
-  static constexpr int KS = HD / 2 + 1;    // bf16x2 word stride of K / V rows (odd)
+  static constexpr int KS = HD / 2 + 1;    // bf16x2 word stride of K rows (odd)
+  static constexpr int VS = HDV / 2 + 1;   // bf16x2 word stride of V rows (odd)
   static constexpr int PS = BKV + 1;       // f32 row stride of the P tile
   static constexpr size_t q = 0;
   static constexpr size_t k = q + sizeof(float) * BQ * QS;
   static constexpr size_t v = k + sizeof(uint32_t) * BKV * KS;
-  static constexpr size_t p = v + sizeof(uint32_t) * BKV * KS;
+  static constexpr size_t p = v + sizeof(uint32_t) * BKV * VS;
   static constexpr size_t stats = p + sizeof(float) * BQ * PS;  // m, l, alpha
   static constexpr size_t pos = stats + sizeof(float) * 3 * BQ;  // qpos, kpos
   static constexpr size_t total = pos + sizeof(int) * (BQ + BKV + 1);
@@ -57,13 +61,13 @@ __device__ __forceinline__ float bf16_at(const uint32_t* row, int d) {
   return __uint_as_float((d & 1) ? (w & 0xffff0000u) : (w << 16));
 }
 
-template <int HD>
+template <int HD, int HDV>
 __global__ void __launch_bounds__(THREADS)
 attn_prefill_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v, const int* __restrict__ qpos,
                     const int* __restrict__ kpos, float* __restrict__ out, float scale,
                     int s, int S, int nh, int nkv) {
-  using L = Smem<HD>;
+  using L = Smem<HD, HDV>;
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem + L::q);
   uint32_t* ks = reinterpret_cast<uint32_t*>(smem + L::k);
@@ -79,7 +83,7 @@ attn_prefill_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, bi = blockIdx.z;
   const int hk = h / (nh / nkv);
-  constexpr int NC = HD / 16;  // output columns per thread
+  constexpr int NC = HDV / 16;  // output columns per thread
 
   // Q tile (scaled, f32), positions and running statistics
   if (tid == 0) *qmax_s = -1;
@@ -118,10 +122,14 @@ attn_prefill_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
       const int row = i / (HD / 8), c = (i % (HD / 8)) * 8;
       const size_t off = (((size_t)bi * S + kv0 + row) * nkv + hk) * HD + c;
       const uint4 kq = *reinterpret_cast<const uint4*>(k + off);
-      const uint4 vq = *reinterpret_cast<const uint4*>(v + off);
       uint32_t* kd = ks + row * L::KS + c / 2;
-      uint32_t* vd = vs + row * L::KS + c / 2;
       kd[0] = kq.x; kd[1] = kq.y; kd[2] = kq.z; kd[3] = kq.w;
+    }
+    for (int i = tid; i < BKV * HDV / 8; i += THREADS) {
+      const int row = i / (HDV / 8), c = (i % (HDV / 8)) * 8;
+      const size_t off = (((size_t)bi * S + kv0 + row) * nkv + hk) * HDV + c;
+      const uint4 vq = *reinterpret_cast<const uint4*>(v + off);
+      uint32_t* vd = vs + row * L::VS + c / 2;
       vd[0] = vq.x; vd[1] = vq.y; vd[2] = vq.z; vd[3] = vq.w;
     }
     __syncthreads();
@@ -201,7 +209,7 @@ attn_prefill_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
 #pragma unroll
         for (int i = 0; i < 4; ++i) pv[i] = ps[(ty + 16 * i) * L::PS + jj];
 #pragma unroll
-        for (int j = 0; j < NC; ++j) vv[j] = bf16_at(vs + jj * L::KS, tx + 16 * j);
+        for (int j = 0; j < NC; ++j) vv[j] = bf16_at(vs + jj * L::VS, tx + 16 * j);
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -216,24 +224,25 @@ attn_prefill_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
     const int row = ty + 16 * i;
     const float l = l_s[row];
     const float inv = l == 0.f ? 0.f : 1.f / l;
-    float* orow = out + (((size_t)bi * s + q0 + row) * nh + h) * HD;
+    float* orow = out + (((size_t)bi * s + q0 + row) * nh + h) * HDV;
 #pragma unroll
     for (int j = 0; j < NC; ++j) orow[tx + 16 * j] = acc[i][j] * inv;
   }
 }
 
-template <int HD>
+template <int HD, int HDV>
 int launch(const void* q, const void* k, const void* v, const void* qpos, const void* kpos,
            void* out, float scale, int b, int s, int S, int nh, int nkv,
            cudaStream_t stream) {
-  constexpr size_t smem = Smem<HD>::total;
+  constexpr size_t smem = Smem<HD, HDV>::total;
   if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        attn_prefill_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaError_t err = cudaFuncSetAttribute(attn_prefill_kernel<HD, HDV>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
     if (err != cudaSuccess) return err;
   }
   dim3 grid(s / BQ, nh, b);
-  attn_prefill_kernel<HD><<<grid, THREADS, smem, stream>>>(
+  attn_prefill_kernel<HD, HDV><<<grid, THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(qpos),
       static_cast<const int*>(kpos), static_cast<float*>(out), scale, s, S, nh, nkv);
@@ -242,15 +251,21 @@ int launch(const void* q, const void* k, const void* v, const void* qpos, const 
 
 }  // namespace
 
+// q (b, s, nh, hd), k (b, S, nkv, hd), v (b, S, nkv, hd_v) bf16; qpos
+// (b, s), kpos (b, S) int32; out (b, s, nh, hd_v) f32.
 extern "C" int attn_prefill_launch(const void* q, const void* k, const void* v,
                                    const void* qpos, const void* kpos, void* out, float scale,
-                                   int b, int s, int S, int nh, int nkv, int hd, void* stream) {
+                                   int b, int s, int S, int nh, int nkv, int hd, int hd_v,
+                                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 16: return launch<16>(q, k, v, qpos, kpos, out, scale, b, s, S, nh, nkv, st);
-    case 32: return launch<32>(q, k, v, qpos, kpos, out, scale, b, s, S, nh, nkv, st);
-    case 64: return launch<64>(q, k, v, qpos, kpos, out, scale, b, s, S, nh, nkv, st);
-    case 128: return launch<128>(q, k, v, qpos, kpos, out, scale, b, s, S, nh, nkv, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+#define PAIR(HD, HDV)                                                                   \
+  if (hd == HD && hd_v == HDV)                                                          \
+    return launch<HD, HDV>(q, k, v, qpos, kpos, out, scale, b, s, S, nh, nkv, st);
+  PAIR(16, 16)
+  PAIR(32, 32)
+  PAIR(64, 64)
+  PAIR(128, 128)
+  PAIR(96, 64)
+#undef PAIR
+  return static_cast<int>(cudaErrorInvalidValue);
 }

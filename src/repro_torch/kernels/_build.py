@@ -30,8 +30,8 @@ __all__ = ["SOURCES", "CSRC", "BUILD_DIR", "NVCC_FLAGS", "nvcc_command",
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("lords_matmul", "lords_decode", "attn_prefill", "attn_decode",
-           "lords_matmul_t", "lords_grad", "lut_quantize", "block_matmul",
-           "block_matmul_t", "block_grad")
+           "attn_decode_mla", "lords_matmul_t", "lords_grad", "lut_quantize",
+           "block_matmul", "block_matmul_t", "block_grad")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 

@@ -7,7 +7,8 @@ backends:
 
   * ``fused`` — the hand-written CUDA kernels (``lords_matmul``,
     ``lords_decode``, ``attn_prefill``, ``attn_decode``,
-    ``attn_decode_paged``, the block-wise ``block_matmul``, and for
+    ``attn_decode_paged``, the MLA decode kernels ``attn_decode_mla`` and
+    ``attn_decode_mla_paged``, the block-wise ``block_matmul``, and for
     training ``lords_matmul_t``, ``lords_grad``, ``lut_quantize``,
     ``block_matmul_t`` and ``block_grad``) behind the pad-to-tile logic
     below.  On a CUDA tensor each wrapper launches its kernel or raises; on
@@ -41,7 +42,8 @@ thread, where :func:`backend_scope` is not set.
 
 Padding: the kernels take tile-divisible shapes.  K is zero-padded (exact:
 padded x columns are zero), padded N rows and M rows are sliced off, and
-padded attention positions are -1 (dead).  Lords forwards with M ≤ 8
+padded attention positions are -1 (dead); the MLA decode kernels take
+every shape as it comes (no head padding).  Lords forwards with M ≤ 8
 flattened tokens route to the weight-stationary decode kernel; the
 block-wise wrapper serves every M, as the JAX package's kernel does (its
 source has a decode entry point for M ≤ 8).  Block-wise K pads to a
@@ -60,6 +62,8 @@ import torch.nn.functional as F
 from repro_torch.core.lords import ADAPTER_METHODS, METHODS, QuantSpec
 from repro_torch.core.quantize import pack_spec
 from repro_torch.kernels import attn_decode as attn_decode_mod
+from repro_torch.kernels import attn_decode_mla as attn_decode_mla_mod
+from repro_torch.kernels import attn_decode_mla_paged as attn_decode_mla_paged_mod
 from repro_torch.kernels import attn_decode_paged as attn_decode_paged_mod
 from repro_torch.kernels import attn_prefill as attn_prefill_mod
 from repro_torch.kernels import block_matmul as block_matmul_mod
@@ -82,7 +86,8 @@ __all__ = [
 
 BACKENDS = ("fused", "ref")
 DECODE_M_MAX = lords_decode_mod.DECODE_M_MAX
-_ATTN_KINDS = ("prefill", "chunk_prefill", "decode", "paged_decode")
+_ATTN_KINDS = ("prefill", "chunk_prefill", "decode", "mla_decode",
+               "paged_decode", "paged_mla_decode")
 
 _TLS = threading.local()
 
@@ -496,6 +501,12 @@ def _attn_paged_fused(q, k_pool, v_pool, pt, pos, k_scale, v_scale,
     return y.reshape(q.shape[0], q.shape[1], v_pool.shape[-1])
 
 
+def _mla_queries(q_lat, q_rope):
+    """The MLA kernels' query operands, contiguous: q_lat in f32 (exact for
+    a bf16 q_lat, which the kernel would widen anyway), q_rope as given."""
+    return q_lat.to(torch.float32).contiguous(), q_rope.contiguous()
+
+
 def _optional(args, n):
     """The optional trailing operands (int8 scales) of a call, None-filled."""
     return tuple(args[i] if i < len(args) else None for i in range(n))
@@ -518,10 +529,20 @@ def qattention(kind: str, *args, logit_scale: float,
                           v_scale=None, ...) with q (b, nh, hd), the cache
                           k/v (b, S, nkv, hd) [int8 + scales (b, S, nkv)]
                           and pos (b,) (slots <= pos live) → (b, nh, hd).
+    kind="mla_decode":    qattention("mla_decode", q_lat, q_rope, c, k_rope,
+                          pos, c_scale=None, ...) with q_lat (b, nh, L),
+                          q_rope (b, nh, R), the latent cache c (b, S, L)
+                          [int8 + c_scale (b, S)] and k_rope (b, S, R) →
+                          the weighted latent (b, nh, L).
     kind="paged_decode":  qattention("paged_decode", q, k_pool, v_pool, pt,
                           pos, k_scale=None, v_scale=None, ...) with pools
                           (P, ps, nkv, hd) [+ scale pools (P, ps, nkv)] and
                           the page table pt (b, np) → (b, nh, hd).
+    kind="paged_mla_decode":
+                          qattention("paged_mla_decode", q_lat, q_rope,
+                          c_pool, k_rope_pool, pt, pos, c_scale=None, ...)
+                          with pools (P, ps, L) [+ (P, ps)] and (P, ps, R)
+                          → (b, nh, L).
     """
     if kind not in _ATTN_KINDS:
         raise ValueError(f"unknown attention kind {kind!r}; "
@@ -547,6 +568,24 @@ def qattention(kind: str, *args, logit_scale: float,
         if fused:
             return _attn_decode_fused(q, k, v, pos, k_scale, v_scale, scale)
         return ref.attn_decode_ref(q, k, v, pos, scale, k_scale, v_scale)
+    if kind == "mla_decode":
+        q_lat, q_rope, c, k_rope, pos = args[:5]
+        c_scale, = _optional(args[5:], 1)
+        if fused:
+            return attn_decode_mla_mod.attn_decode_mla(
+                *_mla_queries(q_lat, q_rope), c, k_rope, pos.contiguous(),
+                c_scale, logit_scale=scale)
+        return ref.attn_mla_decode_ref(q_lat, q_rope, c, k_rope, pos, c_scale,
+                                       scale)
+    if kind == "paged_mla_decode":
+        q_lat, q_rope, c_pool, k_rope_pool, pt, pos = args[:6]
+        c_scale, = _optional(args[6:], 1)
+        if fused:
+            return attn_decode_mla_paged_mod.attn_decode_mla_paged(
+                *_mla_queries(q_lat, q_rope), c_pool, k_rope_pool,
+                pt.contiguous(), pos.contiguous(), c_scale, logit_scale=scale)
+        return ref.attn_mla_decode_paged_ref(pt, q_lat, q_rope, c_pool,
+                                             k_rope_pool, pos, c_scale, scale)
     q, k_pool, v_pool, pt, pos = args[:5]
     k_scale, v_scale = _optional(args[5:], 2)
     if fused:

@@ -30,6 +30,8 @@ __all__ = [
     "attn_decode_kmask",
     "attn_chunk_prefill_ref",
     "attn_decode_paged_ref",
+    "attn_mla_decode_ref",
+    "attn_mla_decode_paged_ref",
     "gather_pool",
     "ATTN_NEG_INF",
 ]
@@ -249,3 +251,37 @@ def attn_decode_paged_ref(pt, q, k_pool, v_pool, pos, k_scale=None,
 
     return attn_decode_ref(q, gather(k_pool), gather(v_pool), pos,
                            logit_scale, gather(k_scale), gather(v_scale))
+
+
+def attn_mla_decode_ref(q_lat, q_rope, c, k_rope, pos, c_scale=None,
+                        logit_scale: float = 1.0):
+    """Absorbed-latent MLA decode, in f32.
+
+    q_lat (b, nh, L) scores against the latent cache c (b, S, L) and
+    q_rope (b, nh, R) against the shared RoPE key cache k_rope (b, S, R);
+    slots ``<= pos`` (b,) are live.  The output is the probability-weighted
+    latent (b, nh, L): the v_up absorption stays outside.  ``c_scale``
+    (b, S) dequantizes an int8 latent cache up front.
+    """
+    cf = c.to(torch.float32)
+    if c_scale is not None:
+        cf = cf * c_scale[..., None].to(torch.float32)
+    scores = torch.einsum("bhl,bsl->bhs", q_lat.to(torch.float32), cf)
+    scores = scores + torch.einsum("bhr,bsr->bhs", q_rope.to(torch.float32),
+                                   k_rope.to(torch.float32))
+    scores = scores * logit_scale
+    live = torch.arange(c.shape[1], device=c.device)[None, :] <= pos[:, None]
+    scores = torch.where(live[:, None], scores, ATTN_NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhs,bsl->bhl", probs, cf)
+
+
+def attn_mla_decode_paged_ref(pt, q_lat, q_rope, c_pool, k_rope_pool, pos,
+                              c_scale=None, logit_scale: float = 1.0):
+    """Paged MLA decode: gather each sequence's pages of c_pool (P, ps, L),
+    k_rope_pool (P, ps, R) [and the c_scale pool (P, ps)] through ``pt``
+    (b, np), then :func:`attn_mla_decode_ref`.  Returns (b, nh, L) f32."""
+    cs = None if c_scale is None else gather_pool(c_scale, pt)
+    return attn_mla_decode_ref(q_lat, q_rope, gather_pool(c_pool, pt),
+                               gather_pool(k_rope_pool, pt), pos, cs,
+                               logit_scale)

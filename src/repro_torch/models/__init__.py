@@ -1,4 +1,5 @@
-"""repro_torch.models — the dense decoder family (all linears LoRDS-quantized)."""
+"""repro_torch.models — the dense decoder family, GQA or MLA attention (all
+linears LoRDS-quantized)."""
 from repro_torch.models.model import (  # noqa: F401
     cache_init,
     forward_decode,

@@ -1,5 +1,5 @@
-"""GQA attention: prefill and decode over a contiguous KV cache, and the
-chunked prefill and decode of the paged engine over a global page pool.
+"""GQA and MLA attention: prefill and decode over a contiguous KV cache, and
+the chunked prefill and decode of the paged engine over a global page pool.
 
 Every projection goes through :func:`repro_torch.kernels.dispatch.qmatmul`.
 On the ``fused`` backend contiguous attention goes through
@@ -16,6 +16,16 @@ paged pool is the same dict over (P, ps, nkv, hd) [+ (P, ps, nkv)], page 0
 being the dummy that unmapped page-table entries point at.  The store
 functions update caches and pools **in place** (the JAX package returns new
 arrays); this saves a full cache copy per layer and step.
+
+MLA (multi-head latent attention, DeepSeek-style; minicpm3) caches only the
+compressed latent ``c`` (…, kv_lora) and the shared RoPE key ``k_rope``
+(…, rope): ``{"c", "k_rope"}`` in bf16, or for ``int8`` the latent as codes
+plus ``c_scale`` (…,) f32 (one scale per token) with ``k_rope`` kept bf16.
+Prefill and chunked prefill up-project the latents to per-head keys and
+values and run the flash prefill (hd = nope + rope, hd_v = v_head_dim);
+decode absorbs ``k_up`` into the query and ``v_up`` into the output, so it
+attends the latent cache directly (``qattention("mla_decode")`` on
+``fused``; on ``ref`` the einsum body of the JAX package's portable path).
 """
 from __future__ import annotations
 
@@ -29,11 +39,14 @@ from repro_torch.kernels.dispatch import (
     qmatmul,
 )
 from repro_torch.kernels.ref import gather_pool
+from repro_torch.core.lords import dequantize_weight
 from repro_torch.models.common import (
     apply_rope,
     kv_dequantize,
     kv_quantize,
     qlinear_init,
+    rmsnorm,
+    rmsnorm_init,
 )
 
 __all__ = [
@@ -41,6 +54,8 @@ __all__ = [
     "gqa_cache_init", "gqa_train", "gqa_prefill", "gqa_decode",
     "gqa_paged_cache_init",
     "gqa_decode_paged", "gqa_prefill_chunk",
+    "mla_init", "mla_train", "mla_cache_init", "mla_prefill", "mla_decode",
+    "mla_paged_cache_init", "mla_decode_paged", "mla_prefill_chunk",
 ]
 
 NEG_INF = -1e30
@@ -52,7 +67,7 @@ def _f32_dot(subscripts, *args):
 
 
 def chunked_causal_attention(q, k, v, *, logit_scale=None, positions=None):
-    """q (b,s,nh,hd), k/v (b,s,nkv,hd) -> (b,s,nh,hd); causal.
+    """q/k (b,s,nh|nkv,hd), v (b,s,nkv,hd_v) -> (b,s,nh,hd_v); causal.
 
     ``positions`` (b, s) int32 drives the mask (-1 marks dead padding rows);
     None means the aligned arange.  The JAX package chunks the queries to
@@ -342,3 +357,227 @@ def gqa_prefill_chunk(params, x, cfg, quant, qpos, pos0, pool, pt):
                      logit_scale=1.0 / math.sqrt(hd))
     out = out.to(x.dtype).reshape(b, cs, nh * hd)
     return qmatmul(params["wo"], out, quant, d, nh * hd), pool
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention; minicpm3)
+# ---------------------------------------------------------------------------
+
+
+def mla_init(cfg, quant, *, generator=None, device=None):
+    m, d, nh = cfg.mla, cfg.d_model, cfg.num_heads
+    qk = m.qk_nope_dim + m.qk_rope_dim
+    kw = dict(generator=generator, device=device)
+    return {
+        "q_down": qlinear_init(m.q_lora_rank, d, quant, **kw),
+        "q_up": qlinear_init(nh * qk, m.q_lora_rank, quant, **kw),
+        "kv_down": qlinear_init(m.kv_lora_rank + m.qk_rope_dim, d, quant, **kw),
+        "k_up": qlinear_init(nh * m.qk_nope_dim, m.kv_lora_rank, quant, **kw),
+        "v_up": qlinear_init(nh * m.v_head_dim, m.kv_lora_rank, quant, **kw),
+        "wo": qlinear_init(d, nh * m.v_head_dim, quant, **kw),
+        "q_norm": rmsnorm_init(m.q_lora_rank, device),
+        "kv_norm": rmsnorm_init(m.kv_lora_rank, device),
+    }
+
+
+def _mla_scale(cfg):
+    return 1.0 / math.sqrt(cfg.mla.qk_nope_dim + cfg.mla.qk_rope_dim)
+
+
+def _mla_q(params, x, cfg, quant, positions):
+    """(q_nope (b,s,nh,nope), q_rope (b,s,nh,rope) rotated at positions)."""
+    m, d, nh = cfg.mla, cfg.d_model, cfg.num_heads
+    b, s, _ = x.shape
+    qk = m.qk_nope_dim + m.qk_rope_dim
+    ql = qmatmul(params["q_down"], x, quant, m.q_lora_rank, d)
+    ql = rmsnorm(params["q_norm"], ql, cfg.norm_eps)
+    q = qmatmul(params["q_up"], ql, quant, nh * qk, m.q_lora_rank)
+    q = q.reshape(b, s, nh, qk)
+    q_nope, q_rope = q[..., : m.qk_nope_dim], q[..., m.qk_nope_dim:]
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_latents(params, x, cfg, quant, positions):
+    """(c (b,s,kv_lora) normalized, k_rope (b,s,rope) rotated)."""
+    m, d = cfg.mla, cfg.d_model
+    ckv = qmatmul(params["kv_down"], x, quant, m.kv_lora_rank + m.qk_rope_dim, d)
+    c, k_rope = ckv[..., : m.kv_lora_rank], ckv[..., m.kv_lora_rank:]
+    c = rmsnorm(params["kv_norm"], c, cfg.norm_eps)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    return c, k_rope
+
+
+def _mla_up(params, c, k_rope, cfg, quant):
+    """Per-head keys (b,W,nh,nope+rope) and values (b,W,nh,v) of the
+    latents c (b,W,kv_lora) and the shared RoPE keys k_rope (b,W,rope)."""
+    m, nh = cfg.mla, cfg.num_heads
+    b, w, _ = c.shape
+    k_nope = qmatmul(params["k_up"], c, quant, nh * m.qk_nope_dim,
+                     m.kv_lora_rank).reshape(b, w, nh, m.qk_nope_dim)
+    v = qmatmul(params["v_up"], c, quant, nh * m.v_head_dim,
+                m.kv_lora_rank).reshape(b, w, nh, m.v_head_dim)
+    k = torch.cat([k_nope, k_rope[:, :, None].expand(b, w, nh, m.qk_rope_dim)],
+                  dim=-1)
+    return k, v
+
+
+def _mla_out(params, out, cfg, quant):
+    """The output projection of per-head values out (b, s, nh, v)."""
+    m, d, nh = cfg.mla, cfg.d_model, cfg.num_heads
+    b, s = out.shape[:2]
+    return qmatmul(params["wo"], out.reshape(b, s, nh * m.v_head_dim), quant,
+                   d, nh * m.v_head_dim)
+
+
+def _mla_forward(params, x, cfg, quant, positions):
+    """The full-window forward: (y (b,s,d), c, k_rope).  The latents are
+    computed once here; the JAX package's prefill computes them twice, to
+    the same numbers."""
+    q_nope, q_rope = _mla_q(params, x, cfg, quant, positions)
+    c, k_rope = _mla_latents(params, x, cfg, quant, positions)
+    k, v = _mla_up(params, c, k_rope, cfg, quant)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    out = chunked_causal_attention(q, k, v, logit_scale=_mla_scale(cfg),
+                                   positions=positions)
+    return _mla_out(params, out, cfg, quant), c, k_rope
+
+
+def mla_train(params, x, cfg, quant, positions):
+    """The MLA block's full-window forward: x (b, s, d) → (b, s, d)."""
+    return _mla_forward(params, x, cfg, quant, positions)[0]
+
+
+def _latent_init(cfg, lead, device):
+    """Latent storage of shape ``lead + (kv_lora,)`` and ``lead + (rope,)``:
+    bf16, or int8 latent codes plus f32 scales of shape ``lead``; k_rope is
+    bf16 in both (the MLA kernels read it so)."""
+    m = cfg.mla
+    out = {"k_rope": torch.zeros((*lead, m.qk_rope_dim), dtype=torch.bfloat16,
+                                 device=device)}
+    if cfg.kv_cache_dtype == "int8":
+        # the latent is the bulk of the cache; k_rope is rope values per
+        # token, not worth a scale of its own
+        out["c"] = torch.zeros((*lead, m.kv_lora_rank), dtype=torch.int8,
+                               device=device)
+        out["c_scale"] = torch.zeros(lead, device=device)
+    else:
+        out["c"] = torch.zeros((*lead, m.kv_lora_rank), dtype=torch.bfloat16,
+                               device=device)
+    return out
+
+
+def mla_cache_init(cfg, batch, capacity, *, device=None):
+    return _latent_init(cfg, (batch, capacity), device)
+
+
+def mla_prefill(params, x, cfg, quant, positions, cache):
+    """Full-window forward that also fills the latent cache; returns
+    (y, cache).  Attention reads the raw latents; the cache stores them in
+    its format."""
+    y, c, k_rope = _mla_forward(params, x, cfg, quant, positions)
+    _kv_store(cache, "c", c)
+    _kv_store(cache, "k_rope", k_rope)
+    return y, cache
+
+
+def _mla_absorb_q(params, q_nope, cfg, quant):
+    """q_lat (b,1,nh,kv_lora) f32 = q_nope · W_kup, W_kup dequantized (as the
+    JAX package does at every step) and cast to q_nope's dtype."""
+    m, nh = cfg.mla, cfg.num_heads
+    w_kup = dequantize_weight(params["k_up"], quant)
+    w_kup = w_kup.reshape(nh, m.qk_nope_dim, m.kv_lora_rank)
+    return _f32_dot("bthn,hnl->bthl", q_nope, w_kup.to(q_nope.dtype))
+
+
+def _mla_absorb_out(params, lat, x, cfg, quant):
+    """y (b,1,d) from the weighted latent lat (b,1,nh,kv_lora): · W_vupᵀ
+    per head, then the output projection."""
+    m, nh = cfg.mla, cfg.num_heads
+    w_vup = dequantize_weight(params["v_up"], quant)
+    w_vup = w_vup.reshape(nh, m.v_head_dim, m.kv_lora_rank)
+    out = _f32_dot("bthl,hvl->bthv", lat.to(w_vup.dtype), w_vup)
+    return _mla_out(params, out.to(x.dtype), cfg, quant)
+
+
+def mla_decode(params, x, cfg, quant, cache, pos):
+    """Absorbed-latent decode: x (b,1,d); pos (b,) (may be ragged).  The
+    new latents are written at ``pos`` before attending over slots <= pos.
+
+    ``fused`` streams the (possibly int8) latent cache once through
+    ``qattention("mla_decode")`` with an f32 q_lat.  ``ref`` runs the JAX
+    package's portable body: q_lat cast to the cache dtype, an int8 latent
+    dequantized to bf16 up front, f32 scores, bf16 probabilities.
+    """
+    q_nope, q_rope = _mla_q(params, x, cfg, quant, pos[:, None])
+    c_new, k_rope_new = _mla_latents(params, x, cfg, quant, pos[:, None])
+    _kv_store(cache, "c", c_new, pos)
+    _kv_store(cache, "k_rope", k_rope_new, pos)
+    r_cache = cache["k_rope"]
+    scale = _mla_scale(cfg)
+    q_lat = _mla_absorb_q(params, q_nope, cfg, quant)
+    if fused_backend_active(x):
+        lat = qattention("mla_decode", q_lat[:, 0], q_rope[:, 0], cache["c"],
+                         r_cache, pos, cache.get("c_scale"),
+                         logit_scale=scale)[:, None]
+    else:
+        if "c_scale" in cache:
+            c_cache = kv_dequantize(cache["c"], cache["c_scale"],
+                                    dtype=r_cache.dtype)
+        else:
+            c_cache = cache["c"]
+        cap = c_cache.shape[1]
+        scores = _f32_dot("bthl,bsl->bhts", q_lat.to(c_cache.dtype), c_cache)
+        scores = scores + _f32_dot("bthr,bsr->bhts", q_rope.to(r_cache.dtype),
+                                   r_cache)
+        scores = scores * scale
+        live = torch.arange(cap, device=x.device)[None, :] <= pos[:, None]
+        scores = torch.where(live[:, None, None], scores, NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(c_cache.dtype)
+        lat = _f32_dot("bhts,bsl->bthl", probs, c_cache)
+    return _mla_absorb_out(params, lat, x, cfg, quant), cache
+
+
+def mla_paged_cache_init(cfg, total_pages, page_size, *, device=None):
+    """Latent page pools: c (P, ps, kv_lora) and k_rope (P, ps, rope)
+    [int8 c + c_scale (P, ps)]."""
+    return _latent_init(cfg, (total_pages, page_size), device)
+
+
+def mla_decode_paged(params, x, cfg, quant, pool, pt, pos):
+    """Paged absorbed-latent decode (see :func:`mla_decode`): the new
+    latents are written into the pool, then ``qattention("paged_mla_decode")``
+    reads it through the page table on every backend (the paged kernel on
+    ``fused``, the gather oracle on ``ref``), as in the JAX package."""
+    q_nope, q_rope = _mla_q(params, x, cfg, quant, pos[:, None])
+    c_new, k_rope_new = _mla_latents(params, x, cfg, quant, pos[:, None])
+    _paged_store(pool, "c", c_new, pt, pos=pos)
+    _paged_store(pool, "k_rope", k_rope_new, pt, pos=pos)
+    q_lat = _mla_absorb_q(params, q_nope, cfg, quant)
+    lat = qattention("paged_mla_decode", q_lat[:, 0], q_rope[:, 0], pool["c"],
+                     pool["k_rope"], pt, pos, pool.get("c_scale"),
+                     logit_scale=_mla_scale(cfg))[:, None]
+    return _mla_absorb_out(params, lat, x, cfg, quant), pool
+
+
+def mla_prefill_chunk(params, x, cfg, quant, qpos, pos0, pool, pt):
+    """One chunk of paged MLA prefill: x (b, cs, d) at ``qpos`` (b, cs;
+    -1 = dead row), page-aligned chunk start ``pos0`` (b,).  The chunk's
+    latents are written into its pages; the queries attend, in the
+    up-projected (not absorbed) form, over [gathered prefix latents
+    (positions < pos0) ++ the chunk's raw latents]."""
+    b, cs, _ = x.shape
+    q_nope, q_rope = _mla_q(params, x, cfg, quant, qpos)
+    c, k_rope = _mla_latents(params, x, cfg, quant, qpos)
+    _paged_store(pool, "c", c, pt, pos0=pos0)
+    _paged_store(pool, "k_rope", k_rope, pt, pos0=pos0)
+    cap = pt.shape[1] * pool["c"].shape[1]
+    cw = _paged_window(pool, "c", pt, c.dtype)
+    rw = _paged_window(pool, "k_rope", pt, k_rope.dtype)
+    kcat, vcat = _mla_up(params, torch.cat([cw, c], dim=1),
+                         torch.cat([rw, k_rope], dim=1), cfg, quant)
+    prefix = torch.arange(cap, dtype=torch.int32, device=x.device)[None]
+    prefix = torch.where(prefix < pos0[:, None], prefix, -1)
+    out = qattention("chunk_prefill", torch.cat([q_nope, q_rope], dim=-1),
+                     kcat, vcat, qpos, torch.cat([prefix, qpos], dim=1),
+                     logit_scale=_mla_scale(cfg))
+    return _mla_out(params, out.to(x.dtype), cfg, quant), pool

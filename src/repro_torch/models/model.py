@@ -1,9 +1,12 @@
-"""Dense decoder LM: embed → layers (GQA + SwiGLU, quantized linears) → head.
+"""Dense decoder LM: embed → layers (GQA or MLA attention + SwiGLU, quantized
+linears) → head.
 
 Param layout: ``{"layers": [per-layer dict, ...], "final_norm", "embed",
 "head"}``, each layer ``{"ln1", "mixer": {wq, wk, wv, wo}, "ln2", "mlp":
-{w_gate, w_up, w_down}}``.  The JAX package stacks layers on a leading axis
-and scans over them; here a Python loop walks the list.
+{w_gate, w_up, w_down}}``; an MLA mixer (``cfg.attn_kind == "mla"``) is
+``{q_down, q_up, kv_down, k_up, v_up, wo, q_norm, kv_norm}``.  The JAX
+package stacks layers on a leading axis and scans over them; here a Python
+loop walks the list.
 
   * ``forward_train(params, cfg, batch)`` -> (mean next-token loss, metrics)
   * ``forward_prefill(params, cfg, batch, cache, positions)`` -> (last-live
@@ -48,6 +51,10 @@ def _check_dense(cfg):
             f"family {cfg.family!r}: only the dense family is ported")
 
 
+def _mla(cfg) -> bool:
+    return cfg.attn_kind == "mla"
+
+
 def model_init(cfg, seed: int = 0, *, device=None,
                generator: torch.Generator | None = None) -> dict:
     """Random-weight LoRDS model on ``device`` (``cuda`` unless named), drawn
@@ -61,7 +68,8 @@ def model_init(cfg, seed: int = 0, *, device=None,
     for _ in range(cfg.num_layers):
         layers.append({
             "ln1": rmsnorm_init(cfg.d_model, device),
-            "mixer": attn.gqa_init(cfg, cfg.quant, **kw),
+            "mixer": (attn.mla_init if _mla(cfg) else attn.gqa_init)(
+                cfg, cfg.quant, **kw),
             "ln2": rmsnorm_init(cfg.d_model, device),
             "mlp": moe_mod.dense_mlp_init(cfg.d_model, cfg.d_ff, cfg.quant,
                                           **kw),
@@ -80,7 +88,8 @@ def cache_init(cfg, batch, capacity, *, device=None) -> list:
     """Per-layer KV caches of ``capacity`` slots, in ``cfg.kv_cache_dtype``."""
     _check_dense(cfg)
     device = resolve_device(device)
-    return [attn.gqa_cache_init(cfg, batch, capacity, device=device)
+    init = attn.mla_cache_init if _mla(cfg) else attn.gqa_cache_init
+    return [init(cfg, batch, capacity, device=device)
             for _ in range(cfg.num_layers)]
 
 
@@ -89,8 +98,8 @@ def paged_cache_init(cfg, total_pages, page_size, *, device=None) -> list:
     tokens, in ``cfg.kv_cache_dtype``; page 0 is the dummy."""
     _check_dense(cfg)
     device = resolve_device(device)
-    return [attn.gqa_paged_cache_init(cfg, total_pages, page_size,
-                                      device=device)
+    init = attn.mla_paged_cache_init if _mla(cfg) else attn.gqa_paged_cache_init
+    return [init(cfg, total_pages, page_size, device=device)
             for _ in range(cfg.num_layers)]
 
 
@@ -143,6 +152,11 @@ def forward_train(params, cfg, batch, *, backend: str | None = None):
     it runs over chunks of 512 positions.  ``backend`` (default: resolved
     once here) holds for the forward, the backward and the recompute.
     """
+    if _mla(cfg):
+        raise NotImplementedError(
+            "training an MLA model is not ported yet: it comes with the "
+            "MLA training slice (ROADMAP queue 1); MLA serves through "
+            "forward_prefill / forward_decode and the paged steps")
     tokens, labels = batch["tokens"], batch["labels"]
     b, s = labels.shape
     backend = dispatch.resolve_backend(backend, tokens)
@@ -189,10 +203,10 @@ def forward_prefill(params, cfg, batch, cache, positions=None):
         positions = torch.arange(s, dtype=torch.int32,
                                  device=tokens.device)[None].expand(b, s)
     x = params["embed"][tokens]
+    prefill = attn.mla_prefill if _mla(cfg) else attn.gqa_prefill
     for blk, layer_cache in zip(params["layers"], cache):
         h = rmsnorm(blk["ln1"], x, cfg.norm_eps)
-        y, _ = attn.gqa_prefill(blk["mixer"], h, cfg, cfg.quant, positions,
-                                layer_cache)
+        y, _ = prefill(blk["mixer"], h, cfg, cfg.quant, positions, layer_cache)
         x = _mlp_residual(blk, x + y, cfg)
     return _last_live_logits(params, cfg, x, positions), cache
 
@@ -200,10 +214,10 @@ def forward_prefill(params, cfg, batch, cache, positions=None):
 def forward_decode(params, cfg, batch, cache, pos):
     """One decode step.  batch: {"tokens": (b,)}; pos (b,) int32."""
     x = params["embed"][batch["tokens"][:, None]]          # (b, 1, d)
+    decode = attn.mla_decode if _mla(cfg) else attn.gqa_decode
     for blk, layer_cache in zip(params["layers"], cache):
         h = rmsnorm(blk["ln1"], x, cfg.norm_eps)
-        y, _ = attn.gqa_decode(blk["mixer"], h, cfg, cfg.quant, layer_cache,
-                               pos)
+        y, _ = decode(blk["mixer"], h, cfg, cfg.quant, layer_cache, pos)
         x = _mlp_residual(blk, x + y, cfg)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return f32_matmul(x, _head_matrix(params)), cache
@@ -213,10 +227,10 @@ def forward_decode_paged(params, cfg, batch, pools, pt, pos):
     """One decode step against the page pools.  batch: {"tokens": (b,)};
     pt (b, np) page table; pos (b,) int32 current positions."""
     x = params["embed"][batch["tokens"][:, None]]          # (b, 1, d)
+    decode = attn.mla_decode_paged if _mla(cfg) else attn.gqa_decode_paged
     for blk, pool in zip(params["layers"], pools):
         h = rmsnorm(blk["ln1"], x, cfg.norm_eps)
-        y, _ = attn.gqa_decode_paged(blk["mixer"], h, cfg, cfg.quant, pool,
-                                     pt, pos)
+        y, _ = decode(blk["mixer"], h, cfg, cfg.quant, pool, pt, pos)
         x = _mlp_residual(blk, x + y, cfg)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return f32_matmul(x, _head_matrix(params)), pools
@@ -229,9 +243,9 @@ def forward_prefill_chunk(params, cfg, batch, pools, pt, qpos, pos0):
     ``argmax(qpos)`` column, pools): meaningful for rows whose prompt ends
     in this chunk."""
     x = params["embed"][batch["tokens"]]                   # (b, cs, d)
+    chunk = attn.mla_prefill_chunk if _mla(cfg) else attn.gqa_prefill_chunk
     for blk, pool in zip(params["layers"], pools):
         h = rmsnorm(blk["ln1"], x, cfg.norm_eps)
-        y, _ = attn.gqa_prefill_chunk(blk["mixer"], h, cfg, cfg.quant, qpos,
-                                      pos0, pool, pt)
+        y, _ = chunk(blk["mixer"], h, cfg, cfg.quant, qpos, pos0, pool, pt)
         x = _mlp_residual(blk, x + y, cfg)
     return _last_live_logits(params, cfg, x, qpos), pools

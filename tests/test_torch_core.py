@@ -143,8 +143,9 @@ def test_dequantize_weight_matches_jax():
 
 
 def test_unported_modes_raise():
-    # every QuantSpec method is ported (tests/test_torch_baselines.py); what
-    # is not yet: the non-dense model families (MLA, MoE) and the explicit
+    # every QuantSpec method is ported (tests/test_torch_baselines.py), and
+    # MLA attention within the dense family (tests/test_torch_mla.py); what
+    # is not yet: the non-dense model families (MoE, SSM) and the explicit
     # `dense` kernel backend
     from repro_torch.configs.archs import smoke_variant
     from repro_torch.configs.base import get_config
@@ -152,7 +153,7 @@ def test_unported_modes_raise():
     from repro_torch.kernels import dispatch
     from repro_torch.models.model import model_init
 
-    for family in ("mla", "moe"):
+    for family in ("moe", "ssm"):
         cfg = smoke_variant(get_config("llama3-8b")).with_(family=family)
         with pytest.raises(NotImplementedError):
             model_init(cfg, device="cpu")

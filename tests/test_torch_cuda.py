@@ -21,6 +21,8 @@ from repro_torch.core.quantize import quantize_blockwise, unpack_codes
 from repro_torch.data import SyntheticLM, synthetic_activations
 from repro_torch.kernels import dispatch, ref
 from repro_torch.kernels.attn_decode import attn_decode
+from repro_torch.kernels.attn_decode_mla import attn_decode_mla
+from repro_torch.kernels.attn_decode_mla_paged import attn_decode_mla_paged
 from repro_torch.kernels.attn_decode_paged import attn_decode_paged
 from repro_torch.kernels.attn_prefill import attn_prefill
 from repro_torch.kernels.block_matmul import block_matmul
@@ -35,7 +37,8 @@ from repro_torch.models.common import f32_matmul_train, kv_quantize
 
 KERNELS = (lords_matmul, lords_decode, attn_prefill, attn_decode,
            attn_decode_paged, lords_matmul_t, lords_grad, lut_quantize,
-           block_matmul, block_matmul_t, block_grad)
+           block_matmul, block_matmul_t, block_grad, attn_decode_mla,
+           attn_decode_mla_paged)
 
 
 @pytest.fixture
@@ -198,6 +201,124 @@ def test_chunk_prefill_kernel_matches_plain(dev):
     y = dispatch.qattention("chunk_prefill", q, k, v, qpos_t, kpos_t, logit_scale=hd**-0.5)
     assert attn_prefill.launches == before + 1
     y_ref = ref.attn_chunk_prefill_ref(q, k, v, qpos_t, kpos_t, hd**-0.5)
+    live = qpos_t >= 0
+    torch.testing.assert_close(y[live], y_ref[live], rtol=0, atol=1e-4)
+    assert not y[~live].any()
+
+
+# ---------------------------------------------------------------------------
+# MLA (minicpm3-4b's dims: 40 heads, latent 256, rope 32, hd 96 / hd_v 64)
+# ---------------------------------------------------------------------------
+
+MLA_NH, MLA_L, MLA_R = 40, 256, 32
+
+
+def _mla_cache(rng, dev, lead, kv):
+    """(c, c_scale or None): a bf16 latent, or its int8 codes and scales."""
+    c = _bf16(rng, dev, *lead, MLA_L)
+    if kv == "int8":
+        return kv_quantize(c)
+    return c, None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("cap", [544, 77])
+def test_mla_decode_matches_plain(dev, kv, cap):
+    """The contiguous MLA decode kernel at minicpm3's full dims, through the
+    wrapper and through qattention("mla_decode"): ragged pos (slot 0 only,
+    a 32-slot tile edge on both sides, the whole window), a ragged last
+    tile at S = 77.  f32 on both sides, the scale folded in another place,
+    another summation order: 1e-4 absolute on outputs of O(1)."""
+    rng = np.random.default_rng(cap)
+    b = 4
+    ql = torch.from_numpy(rng.standard_normal((b, MLA_NH, MLA_L)).astype(np.float32)).to(dev)
+    qr = _bf16(rng, dev, b, MLA_NH, MLA_R)
+    c, cs = _mla_cache(rng, dev, (b, cap), kv)
+    kr = _bf16(rng, dev, b, cap, MLA_R)
+    pos = torch.tensor([0, 31, 32, cap - 1], dtype=torch.int32, device=dev)
+    scales = () if cs is None else (cs,)
+    scale = 96**-0.5
+    y_ref = ref.attn_mla_decode_ref(ql, qr, c, kr, pos, cs, scale)
+    before = attn_decode_mla.launches
+    y = attn_decode_mla(ql, qr, c, kr, pos, *scales, logit_scale=scale)
+    assert attn_decode_mla.launches == before + 1
+    torch.testing.assert_close(y, y_ref, rtol=0, atol=1e-4)
+    y = dispatch.qattention("mla_decode", ql, qr, c, kr, pos, *scales, logit_scale=scale)
+    assert attn_decode_mla.launches == before + 2
+    torch.testing.assert_close(y, y_ref, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("ps", [8, 12, 16, 64])
+def test_mla_paged_decode_matches_plain(dev, kv, ps):
+    """The paged MLA decode kernel at any page size (12: no multiple of 8,
+    so a page edge falls inside a 32-slot tile): scattered page tables with
+    0 (dummy) entries past each row's last live page, pos on page boundaries (the
+    last slot of the table, the first slot of a page, the last of one).
+    1e-4 absolute."""
+    rng = np.random.default_rng(ps + 1)
+    b, npages, total = 3, 5, 13
+    ql = torch.from_numpy(rng.standard_normal((b, MLA_NH, MLA_L)).astype(np.float32)).to(dev)
+    qr = _bf16(rng, dev, b, MLA_NH, MLA_R)
+    c, cs = _mla_cache(rng, dev, (total, ps), kv)
+    kr = _bf16(rng, dev, total, ps, MLA_R)
+    pt = torch.from_numpy(np.stack([rng.permutation(np.arange(1, total))[:npages]
+                                    for _ in range(b)]).astype(np.int32)).to(dev)
+    pt[1, 2:] = 0
+    pt[2, 3:] = 0
+    pos = torch.tensor([npages * ps - 1, ps, 3 * ps - 1], dtype=torch.int32, device=dev)
+    scales = () if cs is None else (cs,)
+    scale = 96**-0.5
+    before = attn_decode_mla_paged.launches
+    y = dispatch.qattention("paged_mla_decode", ql, qr, c, kr, pt, pos, *scales,
+                            logit_scale=scale)
+    assert attn_decode_mla_paged.launches == before + 1
+    torch.testing.assert_close(
+        y, ref.attn_mla_decode_paged_ref(pt, ql, qr, c, kr, pos, cs, scale),
+        rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_mla_decode_rejects_unbuilt_latent_dims(dev):
+    """Latent dims the kernel is not built for raise on the card (the CPU
+    runs the plain version at any dims)."""
+    rng = np.random.default_rng(0)
+    ql = torch.zeros((1, 4, 16), device=dev)
+    qr = _bf16(rng, dev, 1, 4, 8)
+    c, kr = _bf16(rng, dev, 1, 8, 16), _bf16(rng, dev, 1, 8, 8)
+    pos = torch.zeros((1,), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match=r"\(256, 32\)"):
+        attn_decode_mla(ql, qr, c, kr, pos, logit_scale=1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["prefill", "chunk"])
+def test_prefill_kernel_mla_head_dims_matches_plain(dev, mode):
+    """attn_prefill at (hd, hd_v) = (96, 64), all 40 KV heads: a ragged
+    prefill window, and chunk mode (a prefix window live below pos0, then
+    the chunk) through qattention.  Live rows, 1e-4 absolute."""
+    rng = np.random.default_rng(96)
+    b, s, nh = 2, 128, MLA_NH
+    cap = s if mode == "prefill" else 192 + s
+    q = _bf16(rng, dev, b, s, nh, 96)
+    k, v = _bf16(rng, dev, b, cap, nh, 96), _bf16(rng, dev, b, cap, nh, 64)
+    qpos = np.full((b, s), -1, np.int32)
+    kpos = np.full((b, cap), -1, np.int32)
+    for i, (p0, n) in enumerate([(0, s), (128, 70)] if mode == "chunk"
+                                else [(0, s), (0, 70)]):
+        qpos[i, :n] = p0 + np.arange(n)
+        if mode == "chunk":
+            kpos[i, :p0] = np.arange(p0)
+            kpos[i, 192:192 + n] = p0 + np.arange(n)
+        else:
+            kpos[i] = qpos[i]
+    qpos_t, kpos_t = torch.from_numpy(qpos).to(dev), torch.from_numpy(kpos).to(dev)
+    before = attn_prefill.launches
+    y = dispatch.qattention("chunk_prefill", q, k, v, qpos_t, kpos_t, logit_scale=96**-0.5)
+    assert attn_prefill.launches == before + 1 and y.shape == (b, s, nh, 64)
+    y_ref = ref.attn_prefill_pos(q, k, v, qpos_t, kpos_t, 96**-0.5)
     live = qpos_t >= 0
     torch.testing.assert_close(y[live], y_ref[live], rtol=0, atol=1e-4)
     assert not y[~live].any()
