@@ -9,7 +9,10 @@ plain PyTorch version at the shapes llama3-8b's paths give it (the training
 kernels at a 4096-token step) and minicpm3-4b's MLA paths give it (the two
 MLA decode kernels, and the prefill kernel at hd 96 / hd_v 64), and times
 kernel, plain version, one library call (where one computes the same
-function) and the bytes/FLOP bound.
+function) and the bytes/FLOP bound; each line gives the share of the
+bound the kernel reached, and the two prefill kernels' lines their
+achieved TFLOP/s (``lords_matmul`` also at the 4096-row step of the engine
+chunk and training, ``attn_prefill`` also with a peaked softmax).
 Phase 3 serves llama3-8b at full width (batch 4, prompt 512, gen 32,
 random weights from a seeded ``torch.Generator``) through
 ``repro_torch.launch.serve.serve_batch`` with a bf16 and with an int8 KV
@@ -149,19 +152,22 @@ class KernelCheck:
         self.checks = []
 
     def add(self, label, err, tol, ms, plain_ms, library_ms, bound_ms, bound_by,
-            weight=1, primary=True):
+            weight=1, primary=True, flops=None):
+        """``flops``: the operations the line's achieved TFLOP/s counts."""
         ok = err <= tol
         lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+        rate = "" if flops is None else f", {flops / ms / 1e9:.1f} TFLOP/s"
         log(f"[kernel] {self.name} {label}: max_abs_err {err:.3e} (tol "
             f"{tol:.3e}) {'PASS' if ok else 'FAIL'} | kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, library {lib}, bound "
-            f"{bound_ms:.4f} ms ({bound_by}) x{weight}")
+            f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound{rate} x{weight}")
         if not ok:
             raise AssertionError(f"{self.name} {label}: error {err} > {tol}")
         self.checks.append({"label": label, "primary": primary, "weight": weight,
                             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                             "bound_ms": bound_ms, "bound_by": bound_by,
-                            "library_ms": library_ms})
+                            "library_ms": library_ms,
+                            "tflop_s": None if flops is None else flops / ms / 1e9})
 
     @property
     def err(self) -> float:
@@ -224,7 +230,9 @@ def check_kernels(cfg, torch, F):
         p = init_quantized_linear(n, k, spec, generator=gen, device=dev)
         r = p["b"].shape[1]
         w_hat = dequantize_weight(p, spec)  # bf16, for the library yardstick
+        # M = 4096: the engine chunk's and a training step's rows (not primary)
         for name, m, fn in (("lords_matmul", m_pre, lords_matmul),
+                            ("lords_matmul", TRAIN_SEQ * TRAIN_BATCH, lords_matmul),
                             ("lords_decode", BATCH, lords_decode)):
             x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
             args = (x, p["q"], p["b"], p["a"], spec.codebook)
@@ -244,7 +252,8 @@ def check_kernels(cfg, torch, F):
                 timed(lambda: fn(*args), reps, flush),
                 timed(lambda: ref.lords_matmul_ref(*args), 3, flush),
                 timed(lambda: torch.matmul(x, w_hat.t()), reps, flush),
-                b_ms, b_by, weight)
+                b_ms, b_by, weight, primary=m != TRAIN_SEQ * TRAIN_BATCH,
+                flops=2 * m * n * k)
         del p, w_hat
 
     check_attention(cfg, torch, F, results, gen, flush)
@@ -516,15 +525,27 @@ def check_prefill(torch, F, results, gen, flush, rng, *, nh, nkv, hd, hdv, tag,
               + 2 * positions.numel() * 4)
     b_ms, b_by = bound(nbytes, {"bf16": (2 * (hd + hdv) * nh * pairs, BF16_FLOP_S)})
     qt, kt, vt = (t[:, :PROMPT].transpose(1, 2).contiguous() for t in (q, k, v))
-    results["attn_prefill"].add(
-        f"{tag}serve_batch prefill b={BATCH} s=S={s_pad} {heads} live_pairs={pairs}",
-        err, 1e-4,
-        timed(lambda: attn_prefill(q, k, v, positions, positions, logit_scale=scale), 10,
-              flush),
-        timed(lambda: ref.attn_prefill_pos(q, k, v, positions, positions, scale), 3, flush),
-        timed(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=scale,
-                                                     enable_gqa=True), 10, flush),
-        b_ms, b_by, primary=False)
+    ops = 2 * (hd + hdv) * nh * pairs
+    for peak in (1.0, 30.0):
+        # x30: a peaked softmax, where the first rows (one or two live keys,
+        # p ~ 0.5) are the ones a bf16-only P misses by 30x
+        sc = peak * scale
+        if peak != 1.0:
+            out = attn_prefill(q, k, v, positions, positions, logit_scale=sc)
+            err = (out - ref.attn_prefill_pos(q, k, v, positions, positions, sc)
+                   ).abs().max().item()
+        results["attn_prefill"].add(
+            f"{tag}serve_batch prefill b={BATCH} s=S={s_pad} {heads} live_pairs={pairs}"
+            + ("" if peak == 1.0 else f" logits x{peak:g} (peaked)"),
+            err, 1e-4,
+            timed(lambda: attn_prefill(q, k, v, positions, positions, logit_scale=sc), 10,
+                  flush),
+            timed(lambda: ref.attn_prefill_pos(q, k, v, positions, positions, sc), 3, flush),
+            timed(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=sc,
+                                                         enable_gqa=True), 10, flush),
+            b_ms, b_by, primary=False, flops=ops)
+        if tag:  # the peaked check runs once, at the main path's head dims
+            break
     del q, k, v, qt, kt, vt, out
 
     slots, cs = ENGINE["slots"], ENGINE["chunk"]
@@ -565,7 +586,7 @@ def check_prefill(torch, F, results, gen, flush, rng, *, nh, nkv, hd, hdv, tag,
         timed(lambda: ref.attn_chunk_prefill_ref(q, k, v, qpos_t, kpos_t, scale), 3, flush),
         timed(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=scale,
                                                      enable_gqa=True), 10, flush),
-        b_ms, b_by, primary=chunk_primary)
+        b_ms, b_by, primary=chunk_primary, flops=2 * (hd + hdv) * nh * pairs)
     del q, k, v, qt, kt, vt, out, mask
 
 
@@ -1457,6 +1478,9 @@ def main() -> int:
     _build.build_all()
     log(f"[build] {len(_build.SOURCES)} sources built in {time.perf_counter() - t0:.1f} s "
         f"into {_build.BUILD_DIR.relative_to(ROOT)}")
+    for name in ("lords_matmul", "attn_prefill"):  # the Hopper designs' ptxas report
+        for kernel, regs, spill in _build.resource_usage(name):
+            log(f"[build] {name}.cu {kernel}: {regs} registers, {spill} bytes spilled")
 
     # phase 2: every kernel against its plain version
     cfg = get_config("llama3-8b")

@@ -13,20 +13,34 @@
 // the finite -1e30; p is zeroed through the liveness mask; the 1/l
 // normalization happens once at the end and rows with l == 0 are zero.
 //
-// What bounds it on an H100: at the main path's shapes (window 544,
-// hd 128) the function's least time is its bytes (q, k, v, out) at the
-// tensor-core rate; this first kernel does both products on the FP32 cores
-// (f32 scores and probabilities, as the plain version computes them), so it
-// is bound by FP32 operations instead.
+// What bounds it on an H100: at the main path's shapes (window 544 or a
+// 512-query chunk, hd 128) the function's least time is its bytes (q, k,
+// v, out); its products, on the tensor cores, are a few GFLOP.  With
+// `mma.sync` every warp reads the whole K and V tile from shared memory
+// (ldmatrix), so shared-memory bandwidth and the per-tile softmax bound
+// this kernel before either.
 //
-// What the design does about it: one block per (64-query tile, head,
-// batch row) gives b·nh·s/64 blocks; each thread holds a 4 x 4 score
-// micro-tile and a 4 x hd/16 output micro-tile in registers, K/V tiles sit
-// in shared memory as bf16 (odd word stride: conflict-free column reads),
-// and a KV tile with no key inside [0, max qpos of the query tile] is
-// skipped outright — exact, since such a tile leaves m, l and acc as they
-// were — which drops the causal upper triangle and the dead window tail.
-// Later work: bf16 tensor-core products (mma/wgmma) with an f32 softmax.
+// What the design does about it:
+//  * A CTA of four warps owns 64 query rows of one KV head, the rows being
+//    (position, head) pairs of that head's g query heads taken in storage
+//    order, so each K/V tile is staged once for all g heads that read it,
+//    for any g.
+//  * The CTA first marks, in a bit mask in shared memory, the KV tiles that
+//    hold a key inside [0, max qpos of its rows]; the others are skipped
+//    outright — exact, since such a tile leaves m, l and acc as they were —
+//    which drops the causal upper triangle, the dead window tail and a
+//    chunk's dead prefix pages (kpos need not be monotonic).
+//  * Live K/V tiles (and their kpos) arrive through a two-stage `cp.async`
+//    ring: the next live tile loads while this one is used.
+//  * Q·Kᵀ is `mma.sync` m16n8k16 in bf16 with f32 accumulators (products of
+//    bf16 values are exact in f32); the scale is applied in f32.
+//  * The softmax stays in f32 registers: running max and sum per row, quad
+//    shuffles, exp as 2^x on the MUFU unit (2 ulp), one 1/l at the end.
+//  * P·V is `mma.sync` too, with P at f32 accuracy: P = P_hi + P_lo, both
+//    bf16, two products into the same f32 accumulators (rounding P alone to
+//    bf16 errs by up to 2^-9 relative, 30x the 1e-4 bound on rows with one
+//    or two live keys).  The m16n8 accumulator of S is laid out like the A
+//    fragment of the next product, so P never leaves registers.
 //
 // Shapes: s % 64 == 0, S % 64 == 0 (the dispatch layer pads with -1
 // positions); (hd, hd_v) in {(16, 16), (32, 32), (64, 64), (128, 128),
@@ -38,27 +52,78 @@
 
 namespace {
 
-constexpr int BQ = 64, BKV = 64, THREADS = 256;
+constexpr int BQ = 64, BKV = 64, THREADS = 128;
 constexpr float kNegInf = -1e30f;
 
 template <int HD, int HDV>
 struct Smem {
-  static constexpr int QS = HD + 1;        // f32 row stride of the Q tile
-  static constexpr int KS = HD / 2 + 1;    // bf16x2 word stride of K rows (odd)
-  static constexpr int VS = HDV / 2 + 1;   // bf16x2 word stride of V rows (odd)
-  static constexpr int PS = BKV + 1;       // f32 row stride of the P tile
+  static constexpr int QS = HD + 8;   // bf16 row strides: 16 bytes of pad keep
+  static constexpr int KS = HD + 8;   // ldmatrix's eight row addresses on
+  static constexpr int VS = HDV + 8;  // distinct bank groups
   static constexpr size_t q = 0;
-  static constexpr size_t k = q + sizeof(float) * BQ * QS;
-  static constexpr size_t v = k + sizeof(uint32_t) * BKV * KS;
-  static constexpr size_t p = v + sizeof(uint32_t) * BKV * VS;
-  static constexpr size_t stats = p + sizeof(float) * BQ * PS;  // m, l, alpha
-  static constexpr size_t pos = stats + sizeof(float) * 3 * BQ;  // qpos, kpos
-  static constexpr size_t total = pos + sizeof(int) * (BQ + BKV + 1);
+  static constexpr size_t k = q + 2 * BQ * QS;                    // two stages each
+  static constexpr size_t v = k + 2 * 2 * BKV * KS;
+  static constexpr size_t kpos = v + 2 * 2 * BKV * VS;
+  static constexpr size_t qmax = kpos + 2 * 4 * BKV;
+  static constexpr size_t total = qmax + 16;
 };
 
-__device__ __forceinline__ float bf16_at(const uint32_t* row, int d) {
-  const uint32_t w = row[d >> 1];
-  return __uint_as_float((d & 1) ? (w & 0xffff0000u) : (w << 16));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d (16 x 8, f32) += a (16 x 16, bf16) · b (16 x 8, bf16)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x, to 2 ulp (the MUFU unit); 2^(-huge) is 0
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// (x0, x1) -> bf16 pairs hi and lo with x ≈ hi + lo to ~2^-17 relative
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
 }
 
 template <int HD, int HDV>
@@ -69,164 +134,217 @@ attn_prefill_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
                     int s, int S, int nh, int nkv) {
   using L = Smem<HD, HDV>;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem + L::q);
-  uint32_t* ks = reinterpret_cast<uint32_t*>(smem + L::k);
-  uint32_t* vs = reinterpret_cast<uint32_t*>(smem + L::v);
-  float* ps = reinterpret_cast<float*>(smem + L::p);
-  float* m_s = reinterpret_cast<float*>(smem + L::stats);
-  float* l_s = m_s + BQ;
-  float* alpha_s = l_s + BQ;
-  int* qpos_s = reinterpret_cast<int*>(smem + L::pos);
-  int* kpos_s = qpos_s + BQ;
-  int* qmax_s = kpos_s + BKV;
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem + L::q);
+  int* qmax_s = reinterpret_cast<int*>(smem + L::qmax);
+  uint32_t* live_s = reinterpret_cast<uint32_t*>(smem + L::total);  // a bit per KV tile
 
-  const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, bi = blockIdx.z;
-  const int hk = h / (nh / nkv);
-  constexpr int NC = HDV / 16;  // output columns per thread
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int G = nh / nkv, hk = blockIdx.y, bi = blockIdx.z;
+  const int row0 = blockIdx.x * BQ;  // first (position, head) row of the CTA
+  const int ntiles = S / BKV, nwords = (ntiles + 31) / 32;
 
-  // Q tile (scaled, f32), positions and running statistics
+  // Q tile: row ρ is position ρ / G, head hk·G + ρ % G
+  for (int i = tid; i < BQ * HD / 8; i += THREADS) {
+    const int row = i / (HD / 8), c = (i % (HD / 8)) * 8;
+    const int rho = row0 + row, pi = rho / G, hj = rho % G;
+    cp_async16(smem_u32(qs + row * L::QS + c),
+               q + (((size_t)bi * s + pi) * nh + hk * G + hj) * HD + c);
+  }
+  cp_async_commit();
+
+  // this thread's rows: ρ0 (fragment row g) and ρ1 = ρ0 + 8
+  const int rho0 = row0 + 16 * warp + g, rho1 = rho0 + 8;
+  const int qp0 = qpos[(size_t)bi * s + rho0 / G], qp1 = qpos[(size_t)bi * s + rho1 / G];
+  int mx = max(qp0, qp1);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, o));
   if (tid == 0) *qmax_s = -1;
-  for (int i = tid; i < BQ * HD / 2; i += THREADS) {
-    const int row = i / (HD / 2), c = (i % (HD / 2)) * 2;
-    const __nv_bfloat162 pr = *reinterpret_cast<const __nv_bfloat162*>(
-        q + (((size_t)bi * s + q0 + row) * nh + h) * HD + c);
-    qs[row * L::QS + c] = __bfloat162float(pr.x) * scale;
-    qs[row * L::QS + c + 1] = __bfloat162float(pr.y) * scale;
-  }
-  if (tid < BQ) {
-    qpos_s[tid] = qpos[(size_t)bi * s + q0 + tid];
-    m_s[tid] = kNegInf;
-    l_s[tid] = 0.f;
-  }
+  for (int i = tid; i < nwords; i += THREADS) live_s[i] = 0u;
   __syncthreads();
-  if (tid < BQ) atomicMax(qmax_s, qpos_s[tid]);
+  if (lane == 0) atomicMax(qmax_s, mx);
   __syncthreads();
   const int qmax = *qmax_s;
 
-  const int ty = tid / 16, tx = tid % 16;
-  float acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NC; ++j) acc[i][j] = 0.f;
-
-  for (int kv0 = 0; kv0 < S; kv0 += BKV) {
-    if (tid < BKV) kpos_s[tid] = kpos[(size_t)bi * S + kv0 + tid];
-    __syncthreads();
-    const bool any_live =
-        __syncthreads_or(tid < BKV && kpos_s[tid] >= 0 && kpos_s[tid] <= qmax);
-    if (!any_live) continue;
-
+  // the live KV tiles: those holding a key in [0, qmax] (a warp's 32 keys
+  // lie in one tile)
+  const int* kp_row = kpos + (size_t)bi * S;
+  for (int i = tid; i < S; i += THREADS) {
+    const int kp = kp_row[i];
+    if (__any_sync(0xffffffffu, kp >= 0 && kp <= qmax) && lane == 0)
+      atomicOr(live_s + (i >> 11), 1u << ((i >> 6) & 31));
+  }
+  __syncthreads();
+  auto next_live = [&](int from) {  // first live tile >= from, or ntiles
+    if (from >= ntiles) return ntiles;
+    int w = from >> 5;
+    uint32_t bits = live_s[w] & (~0u << (from & 31));
+    while (!bits && ++w < nwords) bits = live_s[w];
+    return bits ? 32 * w + __ffs(bits) - 1 : ntiles;
+  };
+  auto load_tile = [&](int tl, int slot) {
+    const int kv0 = tl * BKV;
+    __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem + L::k) + slot * BKV * L::KS;
+    __nv_bfloat16* vs = reinterpret_cast<__nv_bfloat16*>(smem + L::v) + slot * BKV * L::VS;
     for (int i = tid; i < BKV * HD / 8; i += THREADS) {
       const int row = i / (HD / 8), c = (i % (HD / 8)) * 8;
-      const size_t off = (((size_t)bi * S + kv0 + row) * nkv + hk) * HD + c;
-      const uint4 kq = *reinterpret_cast<const uint4*>(k + off);
-      uint32_t* kd = ks + row * L::KS + c / 2;
-      kd[0] = kq.x; kd[1] = kq.y; kd[2] = kq.z; kd[3] = kq.w;
+      cp_async16(smem_u32(ks + row * L::KS + c),
+                 k + (((size_t)bi * S + kv0 + row) * nkv + hk) * HD + c);
     }
     for (int i = tid; i < BKV * HDV / 8; i += THREADS) {
       const int row = i / (HDV / 8), c = (i % (HDV / 8)) * 8;
-      const size_t off = (((size_t)bi * S + kv0 + row) * nkv + hk) * HDV + c;
-      const uint4 vq = *reinterpret_cast<const uint4*>(v + off);
-      uint32_t* vd = vs + row * L::VS + c / 2;
-      vd[0] = vq.x; vd[1] = vq.y; vd[2] = vq.z; vd[3] = vq.w;
+      cp_async16(smem_u32(vs + row * L::VS + c),
+                 v + (((size_t)bi * S + kv0 + row) * nkv + hk) * HDV + c);
     }
-    __syncthreads();
+    if (tid < BKV / 4)
+      cp_async16(smem_u32(reinterpret_cast<int*>(smem + L::kpos) + slot * BKV + 4 * tid),
+                 kp_row + kv0 + 4 * tid);
+  };
 
-    // scores: rows ty + 16i, columns tx + 16j
-    {
-      float sc[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-      for (int d = 0; d < HD; ++d) {
-        float qv[4], kv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) qv[i] = qs[(ty + 16 * i) * L::QS + d];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) kv[j] = bf16_at(ks + (tx + 16 * j) * L::KS, d);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = ty + 16 * i, qp = qpos_s[row];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int col = tx + 16 * j, kp = kpos_s[col];
-          ps[row * L::PS + col] = (kp <= qp && kp >= 0) ? sc[i][j] : kNegInf;
-        }
-      }
-    }
-    __syncthreads();
+  int cur = next_live(0);
+  if (cur < ntiles) load_tile(cur, 0);
+  cp_async_commit();
+  int nxt = next_live(cur + 1);
+  if (nxt < ntiles) load_tile(nxt, 1);
+  cp_async_commit();
 
-    // online softmax: 4 threads per row, 16 columns each
-    {
-      const int row = tid / 4, part = tid % 4, qp = qpos_s[row];
-      float* prow = ps + row * L::PS + part * 16;
-      float mx = kNegInf;
+  // Q fragments stay in registers for the whole KV loop
+  cp_async_wait<2>();
+  __syncthreads();
+  uint32_t qf[HD / 16][4];
 #pragma unroll
-      for (int j = 0; j < 16; ++j) mx = fmaxf(mx, prow[j]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_prev = m_s[row];
-      const float m_next = fmaxf(m_prev, mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const int kp = kpos_s[part * 16 + j];
-        const float p = (kp <= qp && kp >= 0) ? expf(prow[j] - m_next) : 0.f;
-        prow[j] = p;
-        sum += p;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      __syncwarp();  // all four lanes have read m_s / l_s before lane 0 writes
-      if (part == 0) {
-        const float alpha = expf(m_prev - m_next);
-        alpha_s[row] = alpha;
-        l_s[row] = alpha * l_s[row] + sum;
-        m_s[row] = m_next;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc·alpha + P·V
-    {
-      float al[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) al[i] = alpha_s[ty + 16 * i];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < NC; ++j) acc[i][j] *= al[i];
-      for (int jj = 0; jj < BKV; ++jj) {
-        float pv[4], vv[NC];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) pv[i] = ps[(ty + 16 * i) * L::PS + jj];
-#pragma unroll
-        for (int j = 0; j < NC; ++j) vv[j] = bf16_at(vs + jj * L::VS, tx + 16 * j);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < NC; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
-      }
-    }
-    __syncthreads();
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const int row = 16 * warp + (lane & 7) + ((lane >> 3) & 1) * 8;
+    ldmatrix_x4(qf[kk], smem_u32(qs + row * L::QS + 16 * kk + (lane >> 4) * 8));
   }
 
+  float o[HDV / 8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = ty + 16 * i;
-    const float l = l_s[row];
-    const float inv = l == 0.f ? 0.f : 1.f / l;
-    float* orow = out + (((size_t)bi * s + q0 + row) * nh + h) * HDV;
+  for (int n = 0; n < HDV / 8; ++n)
 #pragma unroll
-    for (int j = 0; j < NC; ++j) orow[tx + 16 * j] = acc[i][j] * inv;
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  // running max (in log2 units) and per-thread partial sums of rows ρ0, ρ1
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+  const float scale2 = scale * 1.4426950408889634f;  // exp(x) = 2^(x·log2 e)
+
+  int slot = 0;
+  while (cur < ntiles) {
+    cp_async_wait<1>();
+    __syncthreads();
+    const __nv_bfloat16* ks =
+        reinterpret_cast<const __nv_bfloat16*>(smem + L::k) + slot * BKV * L::KS;
+    const __nv_bfloat16* vs =
+        reinterpret_cast<const __nv_bfloat16*>(smem + L::v) + slot * BKV * L::VS;
+    const int* kps = reinterpret_cast<const int*>(smem + L::kpos) + slot * BKV;
+
+    // scores: 16 rows x 64 keys per warp
+    float sc[BKV / 8][4];
+#pragma unroll
+    for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+#pragma unroll
+      for (int jp = 0; jp < BKV / 16; ++jp) {
+        uint32_t bfr[4];
+        const int key = 16 * jp + (lane & 7) + ((lane >> 4) << 3);
+        ldmatrix_x4(bfr, smem_u32(ks + key * L::KS + 16 * kk + ((lane >> 3) & 1) * 8));
+        mma_bf16(sc[2 * jp], qf[kk], bfr[0], bfr[1]);
+        mma_bf16(sc[2 * jp + 1], qf[kk], bfr[2], bfr[3]);
+      }
+
+    // liveness of the 16 (row, key) pairs of each row, bit 2j + e
+    uint32_t live0 = 0, live1 = 0;
+#pragma unroll
+    for (int j = 0; j < BKV / 8; ++j) {
+      const int2 kp = *reinterpret_cast<const int2*>(kps + 8 * j + 2 * t);
+      live0 |= (uint32_t)(kp.x >= 0 && kp.x <= qp0) << (2 * j);
+      live0 |= (uint32_t)(kp.y >= 0 && kp.y <= qp0) << (2 * j + 1);
+      live1 |= (uint32_t)(kp.x >= 0 && kp.x <= qp1) << (2 * j);
+      live1 |= (uint32_t)(kp.y >= 0 && kp.y <= qp1) << (2 * j + 1);
+    }
+    // scaled scores (log2 units), the running max over live pairs
+    float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+    for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        sc[j][e] = (live0 >> (2 * j + e)) & 1u ? sc[j][e] * scale2 : kNegInf;
+        sc[j][2 + e] = (live1 >> (2 * j + e)) & 1u ? sc[j][2 + e] * scale2 : kNegInf;
+        mx0 = fmaxf(mx0, sc[j][e]);
+        mx1 = fmaxf(mx1, sc[j][2 + e]);
+      }
+#pragma unroll
+    for (int o2 = 1; o2 <= 2; o2 <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o2));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float al0 = exp2_approx(m0 - mn0), al1 = exp2_approx(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        sc[j][e] = (live0 >> (2 * j + e)) & 1u ? exp2_approx(sc[j][e] - mn0) : 0.f;
+        sc[j][2 + e] = (live1 >> (2 * j + e)) & 1u ? exp2_approx(sc[j][2 + e] - mn1) : 0.f;
+        sum0 += sc[j][e];
+        sum1 += sc[j][2 + e];
+      }
+    l0 = al0 * l0 + sum0;  // per-thread partial sums; the quad adds them at the end
+    l1 = al1 * l1 + sum1;
+#pragma unroll
+    for (int n = 0; n < HDV / 8; ++n) {
+      o[n][0] *= al0;
+      o[n][1] *= al0;
+      o[n][2] *= al1;
+      o[n][3] *= al1;
+    }
+
+    // o += (P_hi + P_lo) · V
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk) {
+      uint32_t ph[4], pl[4];
+      split_bf16(sc[2 * kk][0], sc[2 * kk][1], ph[0], pl[0]);
+      split_bf16(sc[2 * kk][2], sc[2 * kk][3], ph[1], pl[1]);
+      split_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1], ph[2], pl[2]);
+      split_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3], ph[3], pl[3]);
+#pragma unroll
+      for (int np = 0; np < HDV / 16; ++np) {
+        uint32_t bfr[4];
+        const int key = 16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8;
+        ldmatrix_x4_trans(bfr, smem_u32(vs + key * L::VS + 16 * np + (lane >> 4) * 8));
+        mma_bf16(o[2 * np], pl, bfr[0], bfr[1]);
+        mma_bf16(o[2 * np + 1], pl, bfr[2], bfr[3]);
+        mma_bf16(o[2 * np], ph, bfr[0], bfr[1]);
+        mma_bf16(o[2 * np + 1], ph, bfr[2], bfr[3]);
+      }
+    }
+
+    __syncthreads();  // the slot is refilled below
+    cur = nxt;
+    nxt = next_live(cur + 1);
+    if (nxt < ntiles) load_tile(nxt, slot);
+    cp_async_commit();
+    slot ^= 1;
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int o2 = 1; o2 <= 2; o2 <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, o2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, o2);
+  }
+  const float inv0 = l0 == 0.f ? 0.f : 1.f / l0, inv1 = l1 == 0.f ? 0.f : 1.f / l1;
+  float* out0 = out + (((size_t)bi * s + rho0 / G) * nh + hk * G + rho0 % G) * HDV + 2 * t;
+  float* out1 = out + (((size_t)bi * s + rho1 / G) * nh + hk * G + rho1 % G) * HDV + 2 * t;
+#pragma unroll
+  for (int n = 0; n < HDV / 8; ++n) {
+    *reinterpret_cast<float2*>(out0 + 8 * n) = make_float2(o[n][0] * inv0, o[n][1] * inv0);
+    *reinterpret_cast<float2*>(out1 + 8 * n) = make_float2(o[n][2] * inv1, o[n][3] * inv1);
   }
 }
 
@@ -234,14 +352,14 @@ template <int HD, int HDV>
 int launch(const void* q, const void* k, const void* v, const void* qpos, const void* kpos,
            void* out, float scale, int b, int s, int S, int nh, int nkv,
            cudaStream_t stream) {
-  constexpr size_t smem = Smem<HD, HDV>::total;
+  const size_t smem = Smem<HD, HDV>::total + 4 * (size_t)((S / BKV + 31) / 32);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(attn_prefill_kernel<HD, HDV>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
     if (err != cudaSuccess) return err;
   }
-  dim3 grid(s / BQ, nh, b);
+  dim3 grid(s * (nh / nkv) / BQ, nkv, b);
   attn_prefill_kernel<HD, HDV><<<grid, THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(qpos),

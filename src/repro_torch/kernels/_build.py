@@ -19,13 +19,15 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
 
 __all__ = ["SOURCES", "CSRC", "BUILD_DIR", "NVCC_FLAGS", "nvcc_command",
-           "library", "bind", "build_all", "check", "on_card", "require_dtype"]
+           "library", "bind", "build_all", "check", "on_card", "require_dtype",
+           "resource_usage"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -33,10 +35,11 @@ SOURCES = ("lords_matmul", "lords_decode", "attn_prefill", "attn_decode",
            "attn_decode_mla", "lords_matmul_t", "lords_grad", "lut_quantize",
            "block_matmul", "block_matmul_t", "block_grad")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas=-v")
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
+_LOGS: dict[str, str] = {}  # nvcc's output of the sources built by this process
 
 
 def _nvcc() -> str:
@@ -88,6 +91,7 @@ def _finish(name: str, job) -> None:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
     os.replace(tmp, out)  # atomic: a reader never sees a partial library
+    _LOGS[name] = log
 
 
 def build_all() -> None:
@@ -155,3 +159,31 @@ def on_card(what: str, **tensors) -> bool:
 def require_dtype(what: str, t, dtype, name: str) -> None:
     if t.dtype != dtype:
         raise TypeError(f"{what}: {name} must be {dtype}, got {t.dtype}")
+
+
+def resource_usage(name: str, log: str | None = None) -> list[tuple[str, int, int]]:
+    """(kernel, registers per thread, spill-store bytes) of each entry
+    function of ``csrc/<name>.cu``, from ptxas's report (``-Xptxas=-v``)
+    of a build made by this process (or the given log); [] if none was."""
+    if log is None:
+        log = _LOGS.get(name, "")
+    out, kernel, spill = [], None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            kernel = m.group(1)
+            # a mangled template kernel: <length><name>I<args>E, args Li4E / Lb0E
+            for k in re.finditer(r"(?=(\d+)([A-Za-z_]\w*?_kernel)I((?:L[ib]\d+E)+)E)", kernel):
+                if int(k.group(1)) == len(k.group(2)):
+                    args = re.findall(r"L[ib](\d+)E", k.group(3))
+                    kernel = f"{k.group(2)}<{', '.join(args)}>"
+                    break
+            spill = 0
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel is not None:
+            out.append((kernel, int(m.group(1)), spill))
+            kernel = None
+    return out

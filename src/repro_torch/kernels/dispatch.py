@@ -163,12 +163,13 @@ def _lords_forward(x2d, q_packed, b, a, codebook, backend):
             _pad2(x2d, m, kp), _pad2(q_packed, np_, ps.packed_width(kp)),
             _pad2(b, np_, b.shape[1]), _pad2(a, a.shape[0], kp), codebook)
         return y[:, :n]
-    bm, bn, bk = lords_matmul_mod.BM, lords_matmul_mod.BN, lords_matmul_mod.BK
-    mp, np_, kp = _round_up(m, bm), _round_up(n, bn), _round_up(k, bk)
+    # the kernel masks the ragged M edge: only N and K are padded
+    bn, bk = lords_matmul_mod.BN, lords_matmul_mod.BK
+    np_, kp = _round_up(n, bn), _round_up(k, bk)
     y = lords_matmul_mod.lords_matmul(
-        _pad2(x2d, mp, kp), _pad2(q_packed, np_, ps.packed_width(kp)),
+        _pad2(x2d, m, kp), _pad2(q_packed, np_, ps.packed_width(kp)),
         _pad2(b, np_, b.shape[1]), _pad2(a, a.shape[0], kp), codebook)
-    return y[:m, :n]
+    return y[:, :n]
 
 
 def _needs_grad(*tensors) -> bool:

@@ -79,6 +79,28 @@ def test_lords_kernels_match_plain(dev, codebook, r):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("codebook", ["nf4", "nf3", "nf2", "int8"])
+@pytest.mark.parametrize("r", [1, 6, 8, 16, 24, 40, 72])
+def test_lords_matmul_prefill_tile_edges(dev, codebook, r):
+    """The prefill kernel at and around its tile: M below, at and above the
+    256-row x tile (the ragged edge masked in the kernel), narrow N (one or
+    two 128-row Ŵ tiles, K split over CTAs) and N = 1024, every codebook
+    width, ranks not a multiple of 8 (zero-padded 3xTF32 split), r = 40 (the
+    shallow ring) and r = 72 (S staged from memory).  One launch per call;
+    2e-3 of the output's scale."""
+    for m, n, k in ((9, 128, 256), (136, 256, 512), (264, 1024, 512), (2176, 1024, 1024)):
+        x, p = _linear(n, k, r, dev, codebook, seed=m + r)
+        x = torch.randn(m, k, device=dev, generator=torch.Generator(device=dev).manual_seed(m)
+                        ).to(torch.bfloat16)
+        args = (x, p["q"], p["b"], p["a"], codebook)
+        before = lords_matmul.launches
+        y = lords_matmul(*args)
+        assert lords_matmul.launches == before + 1 and y.shape == (m, n)
+        y_ref = ref.lords_matmul_ref(*args)
+        torch.testing.assert_close(y, y_ref, rtol=0, atol=_tol(y_ref))
+
+
+@pytest.mark.cuda
 def test_qmatmul_fused_launches_and_matches_ref(dev):
     x, p = _linear(200, 160, 24, dev)
     spec = QuantSpec(block_size=32, rank=24)
@@ -200,6 +222,57 @@ def test_chunk_prefill_kernel_matches_plain(dev):
     before = attn_prefill.launches
     y = dispatch.qattention("chunk_prefill", q, k, v, qpos_t, kpos_t, logit_scale=hd**-0.5)
     assert attn_prefill.launches == before + 1
+    y_ref = ref.attn_chunk_prefill_ref(q, k, v, qpos_t, kpos_t, hd**-0.5)
+    live = qpos_t >= 0
+    torch.testing.assert_close(y[live], y_ref[live], rtol=0, atol=1e-4)
+    assert not y[~live].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,nkv,hd,hd_v", [(1, 4, 128, 128), (4, 2, 128, 128), (7, 1, 64, 64),
+                                           (8, 2, 64, 64), (48, 1, 64, 64), (1, 8, 96, 64)])
+@pytest.mark.parametrize("peak", [1.0, 30.0])
+def test_attn_prefill_gqa_groups_and_peaked_softmax(dev, g, nkv, hd, hd_v, peak):
+    """attn_prefill for GQA groups g = 1..48 (a CTA's rows are (position,
+    head) pairs of one KV head) and MLA's (96, 64), at the model's scale and
+    with the logits x30: a peaked softmax, where rows with one or two live
+    keys (the first positions, p ~ 0.5) are the ones a bf16-only P fails.
+    1e-4 absolute."""
+    rng = np.random.default_rng(g * 1000 + hd)
+    b, s = 2, 192
+    q = _bf16(rng, dev, b, s, g * nkv, hd)
+    k, v = _bf16(rng, dev, b, s, nkv, hd), _bf16(rng, dev, b, s, nkv, hd_v)
+    col = torch.arange(s, dtype=torch.int32, device=dev)[None]
+    pos = torch.where(col < torch.tensor([[s], [70]], device=dev), col, -1).contiguous()
+    scale = peak * hd**-0.5
+    before = attn_prefill.launches
+    y = attn_prefill(q, k, v, pos, pos, logit_scale=scale)
+    assert attn_prefill.launches == before + 1
+    torch.testing.assert_close(y, ref.attn_prefill_pos(q, k, v, pos, pos, scale),
+                               rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_attn_prefill_chunk_skips_dead_tiles_out_of_order(dev):
+    """Chunk mode with a prefix window whose pages are out of order and hold
+    whole dead tiles between live ones (kpos neither monotonic nor dense):
+    the tile skip is exact and the dead rows stay zero.  1e-4 absolute."""
+    rng = np.random.default_rng(11)
+    b, cs, window, nh, nkv, hd = 2, 128, 512, 8, 2, 64
+    q = _bf16(rng, dev, b, cs, nh, hd)
+    k, v = _bf16(rng, dev, b, window + cs, nkv, hd), _bf16(rng, dev, b, window + cs, nkv, hd)
+    qpos = np.full((b, cs), -1, np.int32)
+    kpos = np.full((b, window + cs), -1, np.int32)
+    pages = [[5, 0, 7, 2], [3, 6]]  # page i of the window holds positions 64i..
+    for i, order in enumerate(pages):
+        p0 = 64 * len(order)
+        for slot, page in enumerate(order):
+            kpos[i, 64 * page:64 * page + 64] = 64 * slot + np.arange(64)
+        n = 100 - 40 * i
+        qpos[i, :n] = p0 + np.arange(n)
+        kpos[i, window:window + n] = p0 + np.arange(n)
+    qpos_t, kpos_t = torch.from_numpy(qpos).to(dev), torch.from_numpy(kpos).to(dev)
+    y = dispatch.qattention("chunk_prefill", q, k, v, qpos_t, kpos_t, logit_scale=hd**-0.5)
     y_ref = ref.attn_chunk_prefill_ref(q, k, v, qpos_t, kpos_t, hd**-0.5)
     live = qpos_t >= 0
     torch.testing.assert_close(y[live], y_ref[live], rtol=0, atol=1e-4)

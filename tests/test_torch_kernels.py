@@ -36,12 +36,12 @@ def _bf16(a):
     return t, jnp.asarray(t.float().numpy(), jnp.bfloat16)
 
 
-def _lords_operands(m, n, k, r, seed=0, codebook="nf4"):
+def _lords_operands(m, n, k, r, seed=0, codebook="nf4", block_size=32):
     """Packed codes and factors from the JAX package's own init."""
     rng = np.random.default_rng(seed)
     w = rng.standard_normal((n, k)).astype(np.float32) * 0.05
     p = jax_init_quantized_linear(None, n, k, JaxQuantSpec(
-        codebook=codebook, block_size=32, rank=r), w=jnp.asarray(w))
+        codebook=codebook, block_size=block_size, rank=r), w=jnp.asarray(w))
     tx, jx = _bf16(rng.standard_normal((m, k)))
     tp = {key: torch.from_numpy(np.array(v)) for key, v in p.items()}
     return (tx, tp["q"], tp["b"], tp["a"]), (jx, p["q"], p["b"], p["a"])
@@ -219,6 +219,61 @@ def test_qmatmul_padded_matches_jax_ref(m, n, k, r):
                                    atol=2**-8 * np.abs(want).max())
 
 
+@pytest.mark.parametrize("codebook", ["nf4", "nf3"])
+@pytest.mark.parametrize("m,n,k", [(9, 120, 56), (255, 136, 72), (257, 128, 64),
+                                   (264, 248, 120)])
+def test_qmatmul_fused_at_prefill_tiles_matches_jax_ref(m, n, k, codebook):
+    """The fused dispatch just below and above the prefill kernel's tile
+    (M 256, N 128, K 64): N and K padded (3-bit rows stay whole 3-byte code
+    groups), M passed as it is, the wrapper's plain version on CPU tensors,
+    against JAX qmatmul on its ref backend.  bf16 outputs: one bf16 ulp of
+    the output's scale (2^-8)."""
+    r = 6
+    t, j = _lords_operands(m, n, k, r, seed=m + n + k, codebook=codebook,
+                           block_size=8)
+    jspec = JaxQuantSpec(codebook=codebook, block_size=8, rank=r)
+    spec = QuantSpec(codebook=codebook, block_size=8, rank=r)
+    want = np.asarray(jax_dispatch.qmatmul(
+        {"q": j[1], "b": j[2], "a": j[3]}, j[0].reshape(1, m, k), jspec, n, k,
+        backend="ref"), np.float32)
+    got = dispatch.qmatmul({"q": t[1], "b": t[2], "a": t[3]}, t[0].reshape(1, m, k),
+                           spec, n, k, backend="fused")
+    assert got.dtype == torch.bfloat16 and got.shape == (1, m, n)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                               atol=2**-8 * np.abs(want).max())
+
+
+def test_lords_forward_pads_n_and_k_but_not_m(monkeypatch):
+    """The prefill wrapper's contract as the dispatch uses it: x keeps its M
+    rows (no copy of x at M = 2176), codes, B and A are padded to N % 128
+    and K % 64."""
+    from repro_torch.kernels import lords_matmul as lords_matmul_mod
+    seen = []
+    real = lords_matmul_mod.lords_matmul
+
+    def spy(x, q, b, a, codebook):
+        seen.append((tuple(x.shape), tuple(q.shape), tuple(b.shape), tuple(a.shape)))
+        return real(x, q, b, a, codebook)
+
+    monkeypatch.setattr(lords_matmul_mod, "lords_matmul", spy)
+    (x, q, b, a), _ = _lords_operands(300, 200, 96, 6)
+    y = dispatch._lords_forward(x, q, b, a, "nf4", "fused")
+    assert seen == [((300, 128), (256, 64), (256, 6), (6, 128))]
+    np.testing.assert_allclose(y.numpy(), ref.lords_matmul_ref(x, q, b, a).numpy(),
+                               rtol=0, atol=1e-5)
+
+
+def test_split_k_fills_the_card():
+    """Split K only where the output tiles leave SMs idle, never past one K
+    step per split."""
+    from repro_torch.kernels.lords_matmul import BK, MAX_SPLITS, split_k
+    assert split_k(2176, 14336, 4096, 132) == 1   # gate / up: 1008 tiles
+    assert split_k(4096, 1024, 4096, 132) == 1    # 128 tiles: one wave
+    s = split_k(2176, 1024, 4096, 132)            # wk / wv: 72 tiles
+    assert 1 < s <= MAX_SPLITS and -(-72 * s // 132) < s
+    assert split_k(40, 256, 128, 132) <= 128 // BK
+
+
 def test_qattention_matches_jax_ref():
     """qattention kinds prefill (s not a tile multiple: padded with dead
     positions) and decode on both backends against JAX qattention on its ref
@@ -266,8 +321,15 @@ def test_wrappers_check_operands_and_count_only_launches():
     wrappers = (lords_matmul, lords_decode, attn_prefill, attn_decode,
                 attn_decode_paged)
     counts = [fn.launches for fn in wrappers]
+    # the prefill kernel masks the ragged M edge: any M runs, while N and K
+    # must be tile multiples (the dispatch layer pads them)
+    np.testing.assert_array_equal(lords_matmul(x, q, b, a).numpy(),
+                                  ref.lords_matmul_ref(x, q, b, a).numpy())
+    (xk, qk, bk, ak), _ = _lords_operands(16, 128, 96, 6)
     with pytest.raises(ValueError, match="divisible"):
-        lords_matmul(x, q, b, a)  # M=16 is not a 128 multiple
+        lords_matmul(xk, qk, bk, ak)  # K=96 is not a 64 multiple
+    with pytest.raises(ValueError, match="divisible"):
+        lords_matmul(x[:0], q, b, a)  # M=0
     with pytest.raises(TypeError, match="bfloat16"):
         lords_decode(x[:4].float(), q, b, a)
     with pytest.raises(ValueError, match="M <= 8"):
@@ -298,6 +360,26 @@ def test_wrappers_check_operands_and_count_only_launches():
     attn_decode_paged(qd, *pools, pt, pos, cks.reshape(8, 8, 1),
                       cvs.reshape(8, 8, 1), logit_scale=0.25)
     assert counts == [fn.launches for fn in wrappers]
+
+
+def test_resource_usage_reads_ptxas_report():
+    """The registers and spills chip_smoke.py prints come from ptxas's
+    report, one entry per kernel instantiation."""
+    log = "\n".join([
+        "ptxas info    : Compiling entry function "
+        "'_ZN48_GLOBAL__N__1_lords_matmul_cu_1a19lords_matmul_kernelILi4ELb0EEEvPKfi' "
+        "for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN48_GLOBAL__N__x",
+        "    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads",
+        "ptxas info    : Used 255 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_Z13prepass_kernelPKfS0_Pfiiiii' "
+        "for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 40 registers, used 0 barriers"])
+    assert _build.resource_usage("lords_matmul", log) == [
+        ("lords_matmul_kernel<4, 0>", 255, 4),
+        ("_Z13prepass_kernelPKfS0_Pfiiiii", 40, 0)]
+    assert _build.resource_usage("no_such_source") == []
 
 
 def test_build_recipe(monkeypatch, tmp_path):
