@@ -10,9 +10,11 @@ kernels at a 4096-token step) and minicpm3-4b's MLA paths give it (the two
 MLA decode kernels, and the prefill kernel at hd 96 / hd_v 64), and times
 kernel, plain version, one library call (where one computes the same
 function) and the bytes/FLOP bound; each line gives the share of the
-bound the kernel reached, and the two prefill kernels' lines their
+bound the kernel reached, and the lines of the four Hopper designs (the
+two prefill kernels and the two activation-gradient kernels) their
 achieved TFLOP/s (``lords_matmul`` also at the 4096-row step of the engine
-chunk and training, ``attn_prefill`` also with a peaked softmax).
+chunk and training, ``attn_prefill`` also with a peaked softmax).  Phase 1
+prints those four sources' ptxas registers and spills.
 Phase 3 serves llama3-8b at full width (batch 4, prompt 512, gen 32,
 random weights from a seeded ``torch.Generator``) through
 ``repro_torch.launch.serve.serve_batch`` with a bf16 and with an int8 KV
@@ -317,7 +319,8 @@ def check_train_kernels(cfg, torch, results, gen, flush):
             shape, err, 5e-3 * dx_ref.abs().max().item(),
             timed(lambda: lords_matmul_t(g, q, b, a, spec.codebook), 5, flush),
             timed(lambda: ref.lords_matmul_t_ref(g, q, b, a, spec.codebook), 3, flush),
-            timed(lambda: torch.matmul(g, w_hat), 5, flush), b_ms, b_by, weight)
+            timed(lambda: torch.matmul(g, w_hat), 5, flush), b_ms, b_by, weight,
+            flops=2 * m * n * k)
         del dx, dx_ref
 
         # B: dB, dA (and the qat dW).  ∂L/∂Ŵ takes exact bf16 products
@@ -441,7 +444,8 @@ def check_block_kernels(cfg, torch, results, gen, flush):
             shape, err, tol,
             timed(fused_dx, 5, flush),
             timed(lambda: ref.block_matmul_t_ref(g, q, s_blk, bs, cb), 3, flush),
-            timed(lambda: torch.matmul(g, w_hat), 5, flush), b_ms, b_by, weight)
+            timed(lambda: torch.matmul(g, w_hat), 5, flush), b_ms, b_by, weight,
+            flops=2 * m_train * n * k)
 
         # ∂s_blk: exact bf16 products summed in f32 in another order, then
         # per block: 1e-4 of the gradient's scale (the error is relative)
@@ -1478,7 +1482,8 @@ def main() -> int:
     _build.build_all()
     log(f"[build] {len(_build.SOURCES)} sources built in {time.perf_counter() - t0:.1f} s "
         f"into {_build.BUILD_DIR.relative_to(ROOT)}")
-    for name in ("lords_matmul", "attn_prefill"):  # the Hopper designs' ptxas report
+    # the Hopper designs' ptxas report
+    for name in ("lords_matmul", "attn_prefill", "lords_matmul_t", "block_matmul_t"):
         for kernel, regs, spill in _build.resource_usage(name):
             log(f"[build] {name}.cu {kernel}: {regs} registers, {spill} bytes spilled")
 

@@ -49,9 +49,12 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
 #include "lords_common.cuh"
 
 namespace {
+
+using namespace hopper;
 
 constexpr int BM = 256;      // x rows of a CTA (the wgmma N side, two n128 halves)
 constexpr int BN = 128;      // Ŵ rows of a CTA (two warpgroups of 64)
@@ -119,115 +122,6 @@ inline Plan choose_plan(int r) {
   return make_plan<BITS>(r8, true, false);
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ uint32_t to_tf32(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-  return r;
-}
-
-// v = hi + lo, both tf32: the 3xTF32 split of an f32 operand
-__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(v);
-  lo = to_tf32(v - __uint_as_float(hi));
-}
-
-// Shared-memory matrix descriptor of a K-major bf16 tile with 128-byte rows
-// and the 128-byte swizzle: 8-row groups 1024 bytes apart.
-__device__ __forceinline__ uint64_t x_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) |
-         (1ull << 62);
-}
-
-// Descriptor of a K-major tf32 tile without swizzle: 8-row x 16-byte core
-// matrices, 8-row groups 128 bytes apart, K-adjacent ones `lbo` bytes apart.
-__device__ __forceinline__ uint64_t tf32_desc(uint32_t addr, uint32_t lbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(128 >> 4) << 32);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// d (64 x 64, f32) (+)= da (64 x 8 tf32) · db (64 x 8 tf32), both K-major in
-// shared memory; scale_d == 0 overwrites d.
-__device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32], uint64_t da, uint64_t db,
-                                                    int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// d (64 x 128, f32) += a (64 x 16 bf16, registers) · db (128 x 16, K-major)
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], const uint32_t* a,
-                                                 uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
-        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
-        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
-        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
-        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
 // Codes 8j .. 8j+7 of a staged row (code c at bit c·BITS), in the low bits
 template <int BITS>
 __device__ __forceinline__ uint64_t code_window(const uint32_t* row, int j) {
@@ -235,48 +129,6 @@ __device__ __forceinline__ uint64_t code_window(const uint32_t* row, int j) {
   uint64_t v = row[w];
   if (off + 8 * BITS > 32) v |= (uint64_t)row[w + 1] << 32;
   return v >> off;
-}
-
-// The pre-pass, once per call.  In-kernel mode: the 3xTF32 split of A and
-// B, rank padded to 8·r8 with zeros: A_hi / A_lo as one 64-column x 8·r8
-// tile per K step, B_hi / B_lo as one 128-row x 8·r8 tile per N tile.  A
-// tile of `rows` rows is K-major in the core-matrix order of `tf32_desc`:
-// element (row, rank) at float ((rank/4)·(rows/8) + row/8)·32 + (row%8)·4 +
-// rank%4, so rank groups of 4 lie rows·16 bytes apart.  Memory mode: S =
-// B·A, (N, K) f32.
-__global__ void prepass_kernel(const float* __restrict__ b, const float* __restrict__ a,
-                               float* __restrict__ ws, int N, int K, int r, int r8,
-                               int s_mem) {
-  const int rp = 8 * r8;
-  const size_t stride = (size_t)gridDim.x * blockDim.x;
-  const size_t i0 = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (s_mem) {
-    for (size_t i = i0; i < (size_t)N * K; i += stride) {
-      const size_t n = i / K, k = i % K;
-      float s = 0.f;
-      for (int rr = 0; rr < r; ++rr) s = fmaf(b[n * r + rr], a[(size_t)rr * K + k], s);
-      ws[i] = s;
-    }
-    return;
-  }
-  const size_t na = (size_t)rp * K, nb = (size_t)N * rp;
-  float *a_hi = ws, *a_lo = ws + na, *b_hi = a_lo + na, *b_lo = b_hi + nb;
-  for (size_t i = i0; i < na + nb; i += stride) {
-    const bool is_a = i < na;
-    const size_t j = is_a ? i : i - na;
-    const int rows = is_a ? BK : BN;
-    const size_t tile = j / ((size_t)rows * rp);
-    const int o = (int)(j % ((size_t)rows * rp));
-    const int rank = (o / (4 * rows)) * 4 + (o & 3);
-    const int row = ((o % (4 * rows)) >> 5) * 8 + ((o >> 2) & 7);
-    float v = 0.f;
-    if (rank < r)
-      v = is_a ? a[(size_t)rank * K + tile * BK + row] : b[(tile * BN + row) * r + rank];
-    uint32_t hi, lo;
-    split_tf32(v, hi, lo);
-    (is_a ? a_hi : b_hi)[j] = __uint_as_float(hi);
-    (is_a ? a_lo : b_lo)[j] = __uint_as_float(lo);
-  }
 }
 
 template <int BITS, bool S_MEM>
@@ -293,7 +145,7 @@ lords_matmul_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restri
   const Plan P = make_plan<BITS>(r8, S_MEM, deep);
   const int rp = 8 * r8;
   float* lut_s = reinterpret_cast<float*>(smem + P.lut);
-  // the pre-pass output (see prepass_kernel)
+  // the pre-pass output (see hopper::prepass_kernel)
   const float* a_hi = ws;
   const float* a_lo = ws + (size_t)rp * K;
   const float* b_hi = a_lo + (size_t)rp * K;
@@ -511,11 +363,9 @@ __global__ void splitk_sum_kernel(const float4* __restrict__ part, float4* __res
   }
 }
 
-inline int grid_for(size_t n) { return (int)((n + 255) / 256 < 1024 ? (n + 255) / 256 : 1024); }
-
 // f32 scratch of the pre-pass: split A and B, or S
 inline size_t prepass_floats(const Plan& p, int N, int K) {
-  return p.s_mem ? (size_t)N * K : (size_t)2 * 8 * p.r8 * ((size_t)K + N);
+  return hopper::prepass_floats(p.s_mem, p.r8, N, K);
 }
 
 template <int BITS>
@@ -542,18 +392,14 @@ int launch(const void* x, const void* q, const void* b, const void* a, const voi
   const Plan p = choose_plan<BITS>(r);
   float* pre = static_cast<float*>(ws);
   float* part = pre + prepass_floats(p, N, K);
-  const size_t items = p.s_mem ? (size_t)N * K : prepass_floats(p, N, K) / 2;
-  prepass_kernel<<<grid_for(items), 256, 0, stream>>>(static_cast<const float*>(b),
-                                                      static_cast<const float*>(a), pre, N, K,
-                                                      r, p.r8, p.s_mem);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = hopper::prepass<BK, BN>(b, a, pre, N, K, r, p.r8, p.s_mem, stream);
   if (err != cudaSuccess) return err;
   float* out = splits > 1 ? part : static_cast<float*>(y);
   err = p.s_mem ? run<BITS, true>(p, x, q, pre, lut, out, M, N, K, n_levels, splits, stream)
                 : run<BITS, false>(p, x, q, pre, lut, out, M, N, K, n_levels, splits, stream);
   if (err != cudaSuccess || splits == 1) return err;
   const size_t n4 = (size_t)M * N / 4;
-  splitk_sum_kernel<<<grid_for(n4), 256, 0, stream>>>(reinterpret_cast<const float4*>(part),
+  splitk_sum_kernel<<<hopper::grid_for(n4), 256, 0, stream>>>(reinterpret_cast<const float4*>(part),
                                                       static_cast<float4*>(y), n4, splits);
   return cudaGetLastError();
 }

@@ -198,8 +198,9 @@ def _lords_grads(g, x2d, q_packed, b, a, w, codebook, backend, *,
     m, k = x2d.shape
     n, r = b.shape
     ps = pack_spec(codebook)
-    # one padded geometry serves both kernels: M to 128 (dx tile), N and K
-    # to 128 (the grad tile); zero rows and columns add nothing
+    # one padded geometry serves both kernels: M to 128 (a multiple of the
+    # grad kernel's step; the dx kernel takes any M), N and K to 128 (the
+    # grad tile); zero rows and columns add nothing
     mp, np_, kp = _round_up(m, 128), _round_up(n, 128), _round_up(k, 128)
     g16 = _pad2(g.to(torch.bfloat16), mp, np_).contiguous()
     qp = _pad2(q_packed, np_, ps.packed_width(kp))

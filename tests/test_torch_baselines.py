@@ -146,6 +146,31 @@ def test_block_dispatch_padding_matches_pallas(codebook, mtok, n, k, bs):
         assert _rel_err(mine, theirs) <= KTOL
 
 
+
+# (M, N, K, block) below, at and above the dx kernel's tile (256 tokens, 64
+# n a step, 128 dx columns); K 192 pads to 256 (block 64), K 288 to 384 =
+# lcm(128, 96), a block that straddles the kernel's 128-column CTAs
+DX_TILE_EDGES = [(9, 56, 96, 32), (255, 64, 128, 64), (257, 72, 192, 64), (33, 130, 288, 96)]
+
+
+@pytest.mark.parametrize("codebook", ["nf4", "nf3", "nf2", "int8"])
+@pytest.mark.parametrize("mtok,n,k,bs", DX_TILE_EDGES)
+def test_block_dx_through_dispatch_at_tile_edges_matches_pallas(codebook, mtok, n, k, bs):
+    """dx of ``dispatch._block_grads`` on ``fused`` (padding around the
+    wrapper's plain version on CPU tensors; padded scales 1.0) against
+    ``block_matmul_t_pallas`` in interpret mode on the unpadded operands:
+    both dequantize Ŵ in f32 and sum the same products in another order
+    (KTOL, relative)."""
+    rng = np.random.default_rng(mtok + n + bs)
+    q, s_blk = jax_quantize.quantize_blockwise(jnp.asarray(_weight(n, k, k)), bs, codebook)
+    g = _bf16_values(rng, (mtok, n))
+    dx = block_matmul_t_pallas(jnp.asarray(g), q, s_blk, bs, codebook, bm=mtok, bn=n,
+                               bk=k, interpret=True)
+    mdx, ds = dispatch._block_grads(_t(g), torch.zeros(mtok, k), _t(q), _t(s_blk), bs,
+                                    codebook, "fused", want_ds=False)
+    assert mdx.shape == (mtok, k) and ds is None
+    assert _rel_err(mdx, dx) <= KTOL
+
 # ---------------------------------------------------------------------------
 # block-wise quantization and the baselines
 # ---------------------------------------------------------------------------

@@ -586,6 +586,74 @@ def test_block_kernels_match_plain(dev, codebook, bs):
     assert [a - b for a, b in zip(after, before)] == [4, 1, 1]
 
 
+# (M, N, K) around the transposed kernels' tile (256 tokens, 64 n a step,
+# 128 dx columns): M below, at and above the token tile, N of one step, two
+# steps and many, K of one CTA column and eight
+DX_SHAPES = ((9, 64, 128), (136, 128, 1024), (264, 1024, 128), (4096, 1024, 1024))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codebook", ["nf4", "nf3", "nf2", "int8"])
+@pytest.mark.parametrize("r", [1, 6, 8, 16, 24, 40, 72])
+def test_lords_matmul_t_tile_edges_through_dispatch(dev, codebook, r):
+    """dx of ``dispatch._lords_grads`` on ``fused`` (the wrapper's kernel
+    behind the dispatch's padding) against the plain version, at and around
+    the kernel's tile, every codebook width, ranks not a multiple of 8
+    (zero-padded 3xTF32 split), r = 40 (the shallow ring) and r = 72 (S
+    staged from memory).  One launch per call.  Ŵ is rounded to bf16 where
+    the plain version keeps f32 (2^-9 relative per weight, random in sign
+    over N): 5e-3 of max |dx|."""
+    for m, n, k in DX_SHAPES:
+        rng = np.random.default_rng(m + n + r)
+        _, p = _linear(n, k, r, dev, codebook, seed=m + r)
+        x = _bf16(rng, dev, m, k)
+        g = _bf16(rng, dev, m, n).float()
+        before = lords_matmul_t.launches
+        dx = dispatch._lords_grads(g, x, p["q"], p["b"], p["a"], None, codebook, "fused",
+                                   want_params=False)[0]
+        assert lords_matmul_t.launches == before + 1 and dx.shape == (m, k)
+        dx_ref = ref.lords_matmul_t_ref(g, p["q"], p["b"], p["a"], codebook)
+        assert _rel(dx, dx_ref, 5e-3), (m, n, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codebook", ["nf4", "nf3", "nf2", "int8"])
+@pytest.mark.parametrize("bs", [32, 64, 128, 256, 96])
+def test_block_matmul_t_tile_edges_through_dispatch(dev, codebook, bs):
+    """dx of ``dispatch._block_grads`` on ``fused`` against the plain version
+    at and around the kernel's tile, every codebook width, blocks that
+    divide the 128 dx columns of a CTA, span two CTAs (256), or straddle
+    them (96: K 480 padded to lcm(128, 96) = 384's multiple 768, two or
+    three scale columns a CTA).  One launch per call; 5e-3 of max |dx| (Ŵ
+    rounded to bf16, as above)."""
+    shapes = DX_SHAPES if bs <= 128 else tuple((m, n, 256 if k == 128 else k)
+                                               for m, n, k in DX_SHAPES)
+    if bs == 96:
+        shapes = ((9, 64, 480), (264, 1024, 480))
+    for m, n, k in shapes:
+        q, s_blk, rng = _block_linear(n, k, bs, dev, codebook, seed=m + bs)
+        x = _bf16(rng, dev, m, k)
+        g = _bf16(rng, dev, m, n).float()
+        before = block_matmul_t.launches
+        dx, _ = dispatch._block_grads(g, x, q, s_blk, bs, codebook, "fused", want_ds=False)
+        assert block_matmul_t.launches == before + 1 and dx.shape == (m, k)
+        assert _rel(dx, ref.block_matmul_t_ref(g, q, s_blk, bs, codebook), 5e-3), (m, n, k)
+
+
+@pytest.mark.cuda
+def test_lords_matmul_t_stages_s_from_memory_only_at_large_ranks(dev):
+    """The LoRDS dx kernel keeps 3xTF32 S in the kernel at every width up to
+    r = 40 and stages an f32 S from memory at r = 72: its scratch is the
+    split A and B (16·ceil(r/8)·(N + K) floats) or S (N·K floats).  (That
+    every plan fits one block shows in the launches above.)"""
+    from repro_torch.kernels.lords_matmul_t import _workspace
+    n, k = 1024, 4096
+    for bits in (2, 3, 4, 8):
+        for r in (1, 6, 8, 16, 24, 40, 72):
+            want = n * k if r == 72 else 16 * -(-r // 8) * (n + k)
+            assert _workspace(n, k, r, bits) == want, (bits, r)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("method", ["qlora", "blockwise"])
 def test_block_function_skips_block_grad_when_scales_frozen(dev, method):

@@ -20,13 +20,15 @@ from repro.kernels.attn_decode import attn_decode_gqa_pallas
 from repro.kernels.attn_prefill import attn_prefill_pallas
 from repro.kernels.lords_decode import lords_decode_pallas
 from repro.kernels.lords_matmul import lords_matmul_pallas
-from repro_torch.core import QuantSpec
+from repro_torch.core import QuantSpec, init_quantized_linear
+from repro_torch.core.quantize import quantize_blockwise
 from repro_torch.kernels import _build, dispatch, ref
 from repro_torch.kernels.attn_decode import attn_decode
 from repro_torch.kernels.attn_decode_paged import attn_decode_paged
 from repro_torch.kernels.attn_prefill import attn_prefill
 from repro_torch.kernels.lords_decode import lords_decode
 from repro_torch.kernels.lords_matmul import lords_matmul
+from repro_torch.kernels.lords_matmul_t import block_matmul_t, lords_matmul_t
 from repro_torch.models.common import kv_quantize
 
 
@@ -361,6 +363,40 @@ def test_wrappers_check_operands_and_count_only_launches():
                       cvs.reshape(8, 8, 1), logit_scale=0.25)
     assert counts == [fn.launches for fn in wrappers]
 
+
+
+def test_transposed_wrappers_take_any_m_and_refuse_off_tile_n_k():
+    """The dx wrappers' contract: any M >= 1 (the kernels mask the ragged
+    token edge), N a multiple of 64 and K of 128 (the dispatch pads them).
+    Off-tile N or K, and M = 0, are refused with "divisible"; CPU tensors
+    run the plain version, bit for bit, and count no launch."""
+    from repro_torch.kernels.lords_matmul_t import BK, BM, BN
+    assert (BM, BN, BK) == (256, 64, 128)
+    counts = (lords_matmul_t.launches, block_matmul_t.launches)
+    rng = np.random.default_rng(3)
+
+    def operands(m, n, k):
+        w = torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32) * 0.05)
+        p = init_quantized_linear(n, k, QuantSpec(block_size=32, rank=6), w=w)
+        qb, sb = quantize_blockwise(w, 32, "nf4")
+        g = torch.from_numpy(rng.standard_normal((m, n)).astype(np.float32))
+        return g.to(torch.bfloat16), p, qb, sb
+
+    for m, n, k in ((1, 64, 128), (9, 64, 256), (300, 192, 128)):
+        g, p, qb, sb = operands(m, n, k)
+        dx = lords_matmul_t(g, p["q"], p["b"], p["a"])
+        assert dx.shape == (m, k) and dx.dtype == torch.float32
+        np.testing.assert_array_equal(
+            dx.numpy(), ref.lords_matmul_t_ref(g, p["q"], p["b"], p["a"]).numpy())
+        np.testing.assert_array_equal(block_matmul_t(g, qb, sb).numpy(),
+                                      ref.block_matmul_t_ref(g, qb, sb, 32).numpy())
+    for m, n, k in ((8, 96, 128), (8, 32, 128), (8, 64, 192), (8, 64, 64), (0, 64, 128)):
+        g, p, qb, sb = operands(m, n, k)
+        with pytest.raises(ValueError, match="divisible"):
+            lords_matmul_t(g, p["q"], p["b"], p["a"])
+        with pytest.raises(ValueError, match="divisible"):
+            block_matmul_t(g, qb, sb)
+    assert counts == (lords_matmul_t.launches, block_matmul_t.launches)
 
 def test_resource_usage_reads_ptxas_report():
     """The registers and spills chip_smoke.py prints come from ptxas's

@@ -125,6 +125,33 @@ def test_lords_matmul_t_plain_matches_jax(r):
     np.testing.assert_array_equal(wrapped, dx)
 
 
+# (M, N, K) below, at and above the dx kernel's tile (256 tokens, 64 n a
+# step, 128 dx columns)
+DX_TILE_EDGES = [(9, 56, 120), (255, 64, 128), (257, 72, 136)]
+
+
+@pytest.mark.parametrize("codebook", ["nf4", "nf3", "nf2", "int8"])
+@pytest.mark.parametrize("m,n,k", DX_TILE_EDGES)
+def test_lords_dx_through_dispatch_at_tile_edges_matches_pallas(codebook, m, n, k):
+    """dx of ``dispatch._lords_grads`` on ``fused`` (M, N and K padded to
+    128 and sliced back around the wrapper, which runs its plain version on
+    CPU tensors) against ``lords_matmul_t_pallas`` in interpret mode on the
+    unpadded operands.  g holds bf16 values, so the dispatch's bf16 cast is
+    exact; both sides dequantize Ŵ in f32 and sum the same products in
+    another order (KTOL)."""
+    rng = np.random.default_rng(m + n + k)
+    spec = QuantSpec(method="lords", codebook=codebook, block_size=8, rank=6)
+    w = (rng.standard_normal((n, k)) * 0.02).astype(np.float32)
+    p = {key: v.numpy() for key, v in init_quantized_linear(
+        n, k, spec, w=torch.from_numpy(w)).items()}
+    g = _bf16_values(rng, (m, n))
+    dx = dispatch._lords_grads(_t(g), torch.zeros(m, k), _t(p["q"]), _t(p["b"]),
+                               _t(p["a"]), None, codebook, "fused", want_params=False)[0]
+    kernel = lords_matmul_t_pallas(jnp.asarray(g), p["q"], p["b"], p["a"], codebook,
+                                   bm=m, bn=n, bk=k, interpret=True)
+    assert dx.shape == (m, k) and dx.dtype == torch.float32
+    np.testing.assert_allclose(dx.numpy(), np.asarray(kernel), **KTOL)
+
 @pytest.mark.parametrize("mode", ["peft", "qat"])
 def test_lords_grad_plain_matches_jax(mode):
     m, n, k, r = 32, 128, 256, 3
