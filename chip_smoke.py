@@ -10,11 +10,12 @@ kernels at a 4096-token step) and minicpm3-4b's MLA paths give it (the two
 MLA decode kernels, and the prefill kernel at hd 96 / hd_v 64), and times
 kernel, plain version, one library call (where one computes the same
 function) and the bytes/FLOP bound; each line gives the share of the
-bound the kernel reached, and the lines of the four Hopper designs (the
-two prefill kernels and the two activation-gradient kernels) their
-achieved TFLOP/s (``lords_matmul`` also at the 4096-row step of the engine
-chunk and training, ``attn_prefill`` also with a peaked softmax).  Phase 1
-prints those four sources' ptxas registers and spills.
+bound the kernel reached, and the lines of the six Hopper designs (the
+LoRDS and block-wise prefill kernels, the attention prefill kernel, the
+two activation-gradient kernels and ``lords_grad``) their achieved
+TFLOP/s (``lords_matmul`` also at the 4096-row step of the engine chunk
+and training, ``attn_prefill`` also with a peaked softmax).  Phase 1
+prints those six sources' ptxas registers and spills.
 Phase 3 serves llama3-8b at full width (batch 4, prompt 512, gen 32,
 random weights from a seeded ``torch.Generator``) through
 ``repro_torch.launch.serve.serve_batch`` with a bf16 and with an int8 KV
@@ -344,7 +345,7 @@ def check_train_kernels(cfg, torch, results, gen, flush):
                 timed(lambda: ref.lords_grads_ref(g, x, q, b, a, spec.codebook, w=wq,
                                                   want_dx=False), 3, flush),
                 timed(lambda: torch.matmul(g.t(), x), 5, flush), b_ms, b_by, weight,
-                primary=variant == "peft")
+                primary=variant == "peft", flops=2 * m * n * k)
 
         # C: codes.  S = B·A summed in another order than b @ a may flip a
         # code whose ratio lies within a few ulps of a level midpoint: each
@@ -415,7 +416,7 @@ def check_block_kernels(cfg, torch, results, gen, flush):
                 1e-4 * y_ref.abs().max().item(), timed(fused, reps, flush),
                 timed(lambda: ref.block_matmul_ref(x, q, s_blk, bs, cb), 3, flush),
                 timed(lambda: torch.matmul(x, w_hat.t()), reps, flush),
-                b_ms, b_by, weight, primary=primary)
+                b_ms, b_by, weight, primary=primary, flops=2 * m * n * k if primary else None)
             del x, y, y_ref
 
         g = torch.randn(m_train, n, generator=gen, device=dev).to(torch.bfloat16)
@@ -1483,7 +1484,8 @@ def main() -> int:
     log(f"[build] {len(_build.SOURCES)} sources built in {time.perf_counter() - t0:.1f} s "
         f"into {_build.BUILD_DIR.relative_to(ROOT)}")
     # the Hopper designs' ptxas report
-    for name in ("lords_matmul", "attn_prefill", "lords_matmul_t", "block_matmul_t"):
+    for name in ("lords_matmul", "attn_prefill", "lords_matmul_t", "block_matmul_t",
+                 "block_matmul", "lords_grad"):
         for kernel, regs, spill in _build.resource_usage(name):
             log(f"[build] {name}.cu {kernel}: {regs} registers, {spill} bytes spilled")
 

@@ -261,18 +261,8 @@ dequant_t_kernel(const __grid_constant__ CUtensorMap g_map, const uint8_t* __res
   const uint32_t a_res = smem_u32(smem + P.res) + (uint32_t)((warp >> 2) * P.a_tile);
   auto issue_s = [&](int step, float (&sacc)[32]) {
     const uint32_t bh = smem_u32(q_stage(step)) + (uint32_t)P.codes;
-    const uint32_t bl = bh + (uint32_t)P.b_tile;
-    const uint32_t al = a_res + (uint32_t)(2 * P.a_tile);
-    constexpr uint32_t lbo = 64 * 16;
-    wgmma_fence();
-    for (int c = 0; c < r8; ++c) {
-      const uint32_t o = 2 * c * lbo;
-      wgmma_m64n64k8_tf32(sacc, tf32_desc(al + o, lbo), tf32_desc(bh + o, lbo),
-                          c > 0);  // c == 0 starts S at 0
-      wgmma_m64n64k8_tf32(sacc, tf32_desc(a_res + o, lbo), tf32_desc(bl + o, lbo), 1);
-      wgmma_m64n64k8_tf32(sacc, tf32_desc(a_res + o, lbo), tf32_desc(bh + o, lbo), 1);
-    }
-    wgmma_commit();
+    s_3xtf32(sacc, a_res, a_res + (uint32_t)(2 * P.a_tile), 64 * 16, bh,
+             bh + (uint32_t)P.b_tile, 64 * 16, r8);
   };
 
   // Ŵᵀ into the wgmma A fragments `fr`.  n8 tile j holds step rows 8j + 2t

@@ -31,6 +31,24 @@ __device__ __forceinline__ uint32_t unpack_code(const uint32_t* row, int k) {
   return (uint32_t)(pair >> (bit & 31)) & ((1u << BITS) - 1u);
 }
 
+// Words of a staged row of 64 codes: its 2·BITS words rounded up to whole
+// 16-byte copies, plus 4 where that makes the stride a multiple of 8 (the
+// eight rows of a wgmma fragment then fall on distinct banks).
+template <int BITS>
+__host__ __device__ constexpr int code_stride64() {
+  return ((2 * BITS + 3) / 4 * 4) % 8 == 0 ? (2 * BITS + 3) / 4 * 4 + 4 : (2 * BITS + 3) / 4 * 4;
+}
+
+// Codes 8j .. 8j+7 of a staged row of 64 (code c at bit c·BITS), in the low
+// bits
+template <int BITS>
+__device__ __forceinline__ uint64_t code_window(const uint32_t* row, int j) {
+  const int bit = 8 * j * BITS, w = bit >> 5, off = bit & 31;
+  uint64_t v = row[w];
+  if (off + 8 * BITS > 32) v |= (uint64_t)row[w + 1] << 32;
+  return v >> off;
+}
+
 // Codes k0 .. k0+7 of a row (k0 a multiple of 8) straight from device
 // memory: BITS bytes at byte k0·BITS/8, little-endian, code j in bits
 // [j·BITS, (j+1)·BITS) of the result.

@@ -6,10 +6,11 @@ the frozen base of QLoRA / LoftQ / QPiSSA): the wrapper of
 
 The block is K / (s_blk's columns).  Port of the JAX package's
 ``block_matmul_pallas``, which serves every block-wise linear at every M.
-M ≤ 8 launches the source's decode entry point (a weight-stream GEMV)
-instead of the 128-row tile; both count as ``block_matmul`` launches.
-On CUDA tensors the wrapper launches the hand-written kernel (or raises); on
-CPU tensors it runs the plain version
+M > 8 launches the source's prefill entry point, the core of
+``csrc/lords_matmul.cu`` in its block-scale mode (any M; split-K for narrow
+N); M ≤ 8 its decode entry point (a weight-stream GEMV).  Both count as
+``block_matmul`` launches.  On CUDA tensors the wrapper launches the
+hand-written kernel (or raises); on CPU tensors it runs the plain version
 :func:`repro_torch.kernels.ref.block_matmul_ref`.  ``block_matmul.launches``
 counts kernel launches.
 """
@@ -19,22 +20,24 @@ import torch
 
 from repro_torch.core.quantize import pack_spec
 from repro_torch.kernels import _build
-from repro_torch.kernels.lords_matmul import device_lut
+from repro_torch.kernels.lords_matmul import _sms, device_lut, split_k
 from repro_torch.kernels.ref import block_matmul_ref
 
 __all__ = ["block_matmul", "check_block_operands", "tile", "BM", "BN", "BK",
            "DECODE_M_MAX"]
 
-BM, BN, BK = 128, 128, 32  # the kernel's tile; shapes must divide it
+# the prefill kernel's tile: x rows, Ŵ rows, k per step.  N and K must
+# divide BN and BK; the kernel masks the ragged M edge.
+BM, BN, BK = 256, 128, 64
 DECODE_M_MAX, DECODE_BN, DECODE_BK = 8, 32, 256  # the decode entry point's
 
 
 def tile(m: int) -> tuple[int, int, int]:
     """The (M, N, K) multiples a call with ``m`` rows must meet: the decode
-    entry point's for m ≤ 8 (M free), else the 128-row tile's."""
+    entry point's for m ≤ 8, else the prefill kernel's (M free in both)."""
     if m <= DECODE_M_MAX:
         return 1, DECODE_BN, DECODE_BK
-    return BM, BN, BK
+    return 1, BN, BK
 
 
 def check_block_operands(what, m, k, q_packed, s_blk, codebook_name) -> tuple:
@@ -57,28 +60,37 @@ def check_block_operands(what, m, k, q_packed, s_blk, codebook_name) -> tuple:
 
 def block_matmul(x, q_packed, s_blk, codebook_name: str = "nf4") -> torch.Tensor:
     """x (M, K) bf16 · dequant(q (N, K·bits/8) u8, s_blk (N, K/bs) f32)ᵀ →
-    (M, N) f32.  M, N must divide 128 and K 32; for M ≤ 8, N must divide
-    32 and K 256 (the dispatch layer pads)."""
+    (M, N) f32.  Any M >= 1; N must divide BN and K BK, and for M ≤ 8 N
+    must divide 32 and K 256 (the dispatch layer pads them)."""
     what = "block_matmul"
     if x.dim() != 2:
         raise ValueError(f"{what}: x must be 2-D")
     m, k = x.shape
     n, bs, ps = check_block_operands(what, m, k, q_packed, s_blk, codebook_name)
     _build.require_dtype(what, x, torch.bfloat16, "x")
-    tm, tn, tk = tile(m)
-    if m % tm or n % tn or k % tk:
+    _, tn, tk = tile(m)
+    if m < 1 or n % tn or k % tk:
         raise ValueError(
             f"{what}: shape (M={m}, N={n}, K={k}) not divisible by the "
-            f"kernel tile ({tm}, {tn}, {tk})")
+            f"kernel tile (N: {tn}, K: {tk}), or M < 1")
     if not _build.on_card(what, x=x, q=q_packed, s_blk=s_blk):
         return block_matmul_ref(x, q_packed, s_blk, bs, codebook_name)
     lut = device_lut(codebook_name, str(x.device))
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    entry = "block_decode_launch" if m <= DECODE_M_MAX else "block_matmul_launch"
-    fn = _build.bind("block_matmul", entry, "pppppiiiiiip")
-    err = fn(x.data_ptr(), q_packed.data_ptr(), s_blk.data_ptr(), lut.data_ptr(),
-             y.data_ptr(), m, n, k, bs, ps.bits, lut.numel(),
-             torch.cuda.current_stream(x.device).cuda_stream)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if m <= DECODE_M_MAX:
+        fn = _build.bind("block_matmul", "block_decode_launch", "pppppiiiiiip")
+        err = fn(x.data_ptr(), q_packed.data_ptr(), s_blk.data_ptr(), lut.data_ptr(),
+                 y.data_ptr(), m, n, k, bs, ps.bits, lut.numel(), stream)
+    else:
+        splits = split_k(m, n, k, _sms(x.device))
+        # the split-K partials, unused at one split
+        ws = torch.empty(splits * m * n if splits > 1 else 0, dtype=torch.float32,
+                         device=x.device)
+        fn = _build.bind("block_matmul", "block_matmul_launch", "ppppppiiiiiiip")
+        err = fn(x.data_ptr(), q_packed.data_ptr(), s_blk.data_ptr(), lut.data_ptr(),
+                 y.data_ptr(), ws.data_ptr(), m, n, k, bs, ps.bits, lut.numel(), splits,
+                 stream)
     _build.check(err, what)
     block_matmul.launches += 1
     return y

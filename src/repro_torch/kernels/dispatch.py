@@ -46,9 +46,11 @@ padded attention positions are -1 (dead); the MLA decode kernels take
 every shape as it comes (no head padding).  Lords forwards with M ≤ 8
 flattened tokens route to the weight-stationary decode kernel; the
 block-wise wrapper serves every M, as the JAX package's kernel does (its
-source has a decode entry point for M ≤ 8).  Block-wise K pads to a
-multiple of lcm(128 or 256, block) so tiles and blocks stay commensurate,
-and padded scales are 1.0.
+source has a decode entry point for M ≤ 8).  The forwards (LoRDS and
+block-wise), the dx kernels and ``lords_grad`` take any M; ``block_grad``
+pads M to 128.  Block-wise K pads to a multiple of lcm(step, block) so
+tiles and blocks stay commensurate (step 64 for the prefill forward, 256
+for the decode forward, 128 for the backward), and padded scales are 1.0.
 """
 from __future__ import annotations
 
@@ -198,24 +200,25 @@ def _lords_grads(g, x2d, q_packed, b, a, w, codebook, backend, *,
     m, k = x2d.shape
     n, r = b.shape
     ps = pack_spec(codebook)
-    # one padded geometry serves both kernels: M to 128 (a multiple of the
-    # grad kernel's step; the dx kernel takes any M), N and K to 128 (the
-    # grad tile); zero rows and columns add nothing
-    mp, np_, kp = _round_up(m, 128), _round_up(n, 128), _round_up(k, 128)
-    g16 = _pad2(g.to(torch.bfloat16), mp, np_).contiguous()
+    # one padded geometry serves both kernels: N to the grad kernel's 128
+    # rows and K to its 256 columns (multiples of the dx kernel's 64 and
+    # 128); zero rows and columns add nothing.  Both kernels take any M.
+    np_ = _round_up(n, lords_grad_mod.GRAD_BN)
+    kp = _round_up(k, lords_grad_mod.GRAD_BK)
+    g16 = _pad2(g.to(torch.bfloat16), m, np_).contiguous()
     qp = _pad2(q_packed, np_, ps.packed_width(kp))
     bp, ap = _pad2(b, np_, r), _pad2(a, r, kp)
     dx = None
     if want_dx:
         dx = lords_matmul_t_mod.lords_matmul_t(g16, qp, bp, ap,
-                                               codebook)[:m, :k]
+                                               codebook)[:, :k]
     if not want_params:
         return (dx, None, None, *tail)
     wp = None if w is None else _pad2(w.to(torch.float32), np_, kp)
-    out = lords_grad_mod.lords_grad(_pad2(x2d.to(torch.bfloat16), mp, kp),
+    out = lords_grad_mod.lords_grad(_pad2(x2d.to(torch.bfloat16), m, kp),
                                     g16, qp, bp, ap, codebook, w=wp)
-    db = out[0].sum(0)[:n]                     # Σ over K tiles -> (N, r)
-    da = out[1].sum(0)[:, :k]                  # Σ over N tiles -> (r, K)
+    db = out[0].sum(0)[:n]                     # Σ over K slices -> (N, r)
+    da = out[1].sum(0)[:, :k]                  # Σ over N slices -> (r, K)
     return (dx, db, da) if w is None else (dx, db, da, out[2][:n, :k])
 
 
@@ -287,7 +290,8 @@ def _block_padded(q_packed, s_blk, m, n, k, block_size, ps, mmult=128,
     """The padded geometry of a block-wise call: M to ``mmult``, N to 128,
     K to lcm(``kstep``, block_size) so tiles and blocks stay commensurate;
     padded scales are 1.0 (padded x / g entries are zero, so they add
-    nothing).  The backward's two kernels share the defaults."""
+    nothing).  The backward's two kernels share the defaults; the forward
+    pads no M and K to its own step (64, or the decode entry's 256)."""
     kmult = kstep * block_size // math.gcd(kstep, block_size)
     mp, np_, kp = _round_up(m, mmult), _round_up(n, 128), _round_up(k, kmult)
     qp = _pad2(q_packed, np_, ps.packed_width(kp))
@@ -305,9 +309,10 @@ def _block_forward(x2d, q_packed, s_blk, block_size, codebook, backend):
         return ref.block_matmul_ref(x2d, q_packed, s_blk, block_size, codebook)
     m, k = x2d.shape
     n = q_packed.shape[0]
+    # both entry points take any M: only N and K are padded
     tm, _, tk = block_matmul_mod.tile(m)
     qp, s_pad, mp, _, kp = _block_padded(q_packed, s_blk, m, n, k, block_size,
-                                         pack_spec(codebook), tm, max(tk, 128))
+                                         pack_spec(codebook), tm, tk)
     y = block_matmul_mod.block_matmul(_pad2(x2d, mp, kp), qp, s_pad, codebook)
     return y[:m, :n]
 

@@ -3,10 +3,11 @@
 ``csrc/block_grad.cu`` (block-wise: ∂s_blk).
 
 ``lords_grad`` accumulates ∂L/∂Ŵ = gᵀ·x tile by tile (never written out)
-and reduces it to the rank-space gradients: per-K-tile partials of dB
-(K/128, N, r) and per-N-tile partials of dA (N/128, r, K), which the
+and reduces it to the rank-space gradients: per-128-column partials of dB
+(K/128, N, r) and per-128-row partials of dA (N/128, r, K), which the
 caller sums over their first axis; with the qat master weight ``w`` it
-also returns dW = ∂L/∂Ŵ (N, K) and uses the STE residual (Eq. 4/5).
+also returns dW = ∂L/∂Ŵ (N, K) and uses the STE residual (Eq. 4/5).  Its
+kernel takes any M; its (N, K) tile is ``GRAD_BN`` x ``GRAD_BK``.
 
 ``block_grad`` accumulates gᵀ·x the same way and returns per-tile
 partials of ∂s_blk (slots, N, K/bs), the per-block sums of (gᵀ·x) ⊙ lut[Q]
@@ -21,6 +22,8 @@ single partials).  ``<wrapper>.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.core.quantize import pack_spec
@@ -28,15 +31,31 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.lords_matmul import check_lords_operands, device_lut
 from repro_torch.kernels.ref import block_grads_ref, lords_grads_ref
 
-__all__ = ["lords_grad", "block_grad", "block_grad_slots", "BM", "BN", "BK"]
+__all__ = ["lords_grad", "block_grad", "block_grad_slots", "BM", "BN", "BK",
+           "GRAD_BN", "GRAD_BK", "PART"]
 
-BM, BN, BK = 32, 128, 128  # M step, and the (N, K) tile of one block
+BM, BN, BK = 32, 128, 128  # block_grad: M step, and the (N, K) tile of one block
+# lords_grad: the (N, K) tile of one CTA (any M: the kernel reads rows past
+# M as zeros), and the columns / rows of one dB / dA partial
+GRAD_BN, GRAD_BK = 128, 256
+PART = 128
+
+
+def _workspace(n, k, r, bits) -> int:
+    """f32 scratch of one ``lords_grad`` launch, in floats: the pre-pass
+    output, S (N·K) where the kernel reads S from memory, else split A and
+    B."""
+    fn = _build.library("lords_grad").lords_grad_workspace
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_longlong
+    return fn(n, k, r, bits)
 
 
 def lords_grad(x, g, q_packed, b, a, codebook_name: str = "nf4", *, w=None):
     """x (M, K) bf16, g (M, N) bf16, q (N, K·bits/8) u8, b (N, r), a (r, K)
     f32 [, w (N, K) f32] → (dB parts (P, N, r), dA parts (Q, r, K)
-    [, dW (N, K)]), all f32.  M must divide 32, N and K 128."""
+    [, dW (N, K)]), all f32.  Any M >= 1; N must divide GRAD_BN and K
+    GRAD_BK (the dispatch layer pads them)."""
     what = "lords_grad"
     m, n, k, r, ps = check_lords_operands(what, x, q_packed, b, a,
                                           codebook_name)
@@ -47,10 +66,10 @@ def lords_grad(x, g, q_packed, b, a, codebook_name: str = "nf4", *, w=None):
         if w.shape != (n, k):
             raise ValueError(f"{what}: w {tuple(w.shape)} is not ({n}, {k})")
         _build.require_dtype(what, w, torch.float32, "w")
-    if m % BM or n % BN or k % BK:
+    if m < 1 or n % GRAD_BN or k % GRAD_BK:
         raise ValueError(
             f"{what}: shape (M={m}, N={n}, K={k}) not divisible by the "
-            f"kernel tile ({BM}, {BN}, {BK})")
+            f"kernel tile (N: {GRAD_BN}, K: {GRAD_BK}), or M < 1")
     operands = dict(x=x, g=g, q=q_packed, b=b, a=a)
     if w is not None:
         operands["w"] = w
@@ -60,16 +79,18 @@ def lords_grad(x, g, q_packed, b, a, codebook_name: str = "nf4", *, w=None):
         return (out[0][None], out[1][None], *out[2:])
     dev = x.device
     lut = device_lut(codebook_name, str(dev))
-    db_part = torch.empty((k // BK, n, r), dtype=torch.float32, device=dev)
-    da_part = torch.empty((n // BN, r, k), dtype=torch.float32, device=dev)
+    db_part = torch.empty((k // PART, n, r), dtype=torch.float32, device=dev)
+    da_part = torch.empty((n // PART, r, k), dtype=torch.float32, device=dev)
     dw = (None if w is None
           else torch.empty((n, k), dtype=torch.float32, device=dev))
-    fn = _build.bind("lords_grad", "lords_grad_launch", "ppppppppppiiiiiip")
+    ws = torch.empty(_workspace(n, k, r, ps.bits), dtype=torch.float32,
+                     device=dev)
+    fn = _build.bind("lords_grad", "lords_grad_launch", "pppppppppppiiiiiip")
     err = fn(x.data_ptr(), g.data_ptr(), q_packed.data_ptr(), b.data_ptr(),
              a.data_ptr(), lut.data_ptr(), None if w is None else w.data_ptr(),
              db_part.data_ptr(), da_part.data_ptr(),
-             None if dw is None else dw.data_ptr(), m, n, k, r, ps.bits,
-             lut.numel(), torch.cuda.current_stream(dev).cuda_stream)
+             None if dw is None else dw.data_ptr(), ws.data_ptr(), m, n, k, r,
+             ps.bits, lut.numel(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, what)
     lords_grad.launches += 1
     return (db_part, da_part) if w is None else (db_part, da_part, dw)

@@ -147,6 +147,32 @@ def test_block_dispatch_padding_matches_pallas(codebook, mtok, n, k, bs):
 
 
 
+# (M, N, K, block) around the prefill kernel's tile (256 x rows, 128 Ŵ
+# rows, 64 k a step): ragged M, N off the tile, K a multiple of the block
+# but not of the step (96 pads to 128 at block 32; 288 to 384 =
+# lcm(64, 96)'s multiple at block 96)
+FORWARD_TILE_EDGES = [(9, 56, 96, 32), (70, 136, 192, 64), (257, 130, 288, 96),
+                      (300, 128, 256, 128)]
+
+
+@pytest.mark.parametrize("codebook", ["nf4", "nf3", "int8"])
+@pytest.mark.parametrize("mtok,n,k,bs", FORWARD_TILE_EDGES)
+def test_block_forward_through_dispatch_at_ragged_m_matches_pallas(codebook, mtok, n, k, bs):
+    """The block-wise forward of ``dispatch._block_forward`` on ``fused`` (M
+    passed as it is, N and K padded around the wrapper's plain version on
+    CPU tensors; padded scales 1.0) against ``block_matmul_pallas`` in
+    interpret mode on the unpadded operands: both round Ŵ to bf16 the same
+    way and sum the same products in f32 in another order (KTOL, relative)."""
+    rng = np.random.default_rng(mtok + n + bs)
+    q, s_blk = jax_quantize.quantize_blockwise(jnp.asarray(_weight(n, k, k)), bs, codebook)
+    x = _bf16_values(rng, (mtok, k))
+    y = block_matmul_pallas(jnp.asarray(x, jnp.bfloat16), q, s_blk, bs, codebook, bm=mtok,
+                            bn=n, bk=k, interpret=True)
+    my = dispatch._block_forward(_t(x).bfloat16(), _t(q), _t(s_blk), bs, codebook, "fused")
+    assert my.shape == (mtok, n) and my.dtype == torch.float32
+    assert _rel_err(my, y) <= KTOL
+
+
 # (M, N, K, block) below, at and above the dx kernel's tile (256 tokens, 64
 # n a step, 128 dx columns); K 192 pads to 256 (block 64), K 288 to 384 =
 # lcm(128, 96), a block that straddles the kernel's 128-column CTAs

@@ -641,6 +641,92 @@ def test_block_matmul_t_tile_edges_through_dispatch(dev, codebook, bs):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("codebook", ["nf4", "nf3", "nf2", "int8"])
+@pytest.mark.parametrize("bs", [32, 64, 96, 128, 256])
+def test_block_matmul_prefill_tile_edges_through_dispatch(dev, codebook, bs):
+    """The block-wise forward of ``dispatch._block_forward`` on ``fused`` at
+    and around the prefill kernel's tile (256 x rows, 128 Ŵ rows, 64 k a
+    step): M below, at and above the x tile (the ragged edge masked in the
+    kernel), N of one tile to 1024 with K split over CTAs at the largest
+    shape, K off the step (padded, scales 1.0), every codebook width, blocks
+    of one, two or (96) a straddling pair of scale columns a step.  One
+    launch per call; exact bf16 products summed in f32 in another order:
+    1e-4 of the output's scale."""
+    from repro_torch.kernels.lords_matmul import _sms, split_k
+    k_big = 4096 if 4096 % bs == 0 else 4032
+    assert split_k(2176, 1024, k_big, _sms(dev)) > 1
+    for m, n, k in ((9, 128, 5 * bs), (136, 256, 8 * bs), (264, 1024, 3 * bs),
+                    (2176, 1024, k_big)):
+        q, s_blk, rng = _block_linear(n, k, bs, dev, codebook, seed=m + bs)
+        x = _bf16(rng, dev, m, k)
+        before = block_matmul.launches
+        y = dispatch._block_forward(x, q, s_blk, bs, codebook, "fused")
+        assert block_matmul.launches == before + 1 and y.shape == (m, n)
+        assert _rel(y, ref.block_matmul_ref(x, q, s_blk, bs, codebook), 1e-4), (m, n, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codebook", ["nf4", "nf3", "nf2", "int8"])
+@pytest.mark.parametrize("r", [1, 6, 8, 16, 24, 40, 72])
+def test_lords_grad_tile_edges_through_dispatch(dev, codebook, r):
+    """dB, dA (and the qat dW) of ``dispatch._lords_grads`` on ``fused``
+    against the plain backward, at and around the grad kernel's tile (128 x
+    256 of (N, K), 64 tokens a step): M from 9 to 4096 with no padding (the
+    TMA reads rows past M as zeros), N and K off the tile, every codebook
+    width, ranks not a multiple of 8 (zero-padded 3xTF32 split), r = 40 (a
+    large split in shared memory) and r = 72 (S read from memory), peft and
+    qat.  One launch per call; exact bf16 products summed in f32 in another
+    order: 1e-4 of each gradient's scale."""
+    for m, n, k in DX_SHAPES:
+        rng = np.random.default_rng(m + n + r)
+        _, p = _linear(n, k, r, dev, codebook, seed=m + r)
+        x = _bf16(rng, dev, m, k)
+        g = _bf16(rng, dev, m, n).float()
+        w = torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32) * 0.05).to(dev)
+        for wq in (None, w):
+            before = lords_grad.launches
+            got = dispatch._lords_grads(g, x, p["q"], p["b"], p["a"], wq, codebook, "fused",
+                                        want_dx=False)[1:]
+            want = ref.lords_grads_ref(g, x, p["q"], p["b"], p["a"], codebook, w=wq,
+                                       want_dx=False)
+            assert lords_grad.launches == before + 1
+            for name, a, b in zip(("db", "da", "dw"), got, want):
+                assert a.shape == b.shape, (name, m, n, k)
+                assert _rel(a, b, 1e-4), (name, m, n, k, wq is None)
+
+
+@pytest.mark.cuda
+def test_lords_grad_transposed_operands_place_every_product(dev):
+    """The grad kernel's product with structured inputs: token m's rows of
+    g and x each hold one 1, at n(m) and k(m), so ∂L/∂Ŵ = gᵀ·x counts the
+    tokens of each (n, k) exactly and the qat dW must equal it bit for bit.
+    Both operands are transposed (MN-major) in shared memory; a wrong
+    descriptor moves a token's 1 elsewhere, and the message names where."""
+    m, n, k, r = 333, 256, 512, 6  # two N tiles, two K tiles, a ragged M step
+    tok = np.arange(m)
+    nm, km = (tok * 37) % n, (tok * 101 + tok // 7) % k
+    g = np.zeros((m, n), np.float32)
+    x = np.zeros((m, k), np.float32)
+    g[tok, nm] = 1.0
+    x[tok, km] = 1.0
+    want = np.zeros((n, k), np.float32)
+    np.add.at(want, (nm, km), 1.0)
+    _, p = _linear(n, k, r, dev, "nf4", seed=1)
+    gd = torch.from_numpy(g).to(dev, torch.bfloat16)
+    xd = torch.from_numpy(x).to(dev, torch.bfloat16)
+    w = torch.zeros(n, k, device=dev)
+    _, _, dw = lords_grad(xd, gd, p["q"], p["b"], p["a"], "nf4", w=w)
+    got = dw.cpu().numpy()
+    bad = np.argwhere(got != want)
+    if len(bad):
+        lost = [(int(t), int(nm[t]), int(km[t])) for t in tok if got[nm[t], km[t]] == 0][:4]
+        stray = [(int(i), int(j), float(got[i, j])) for i, j in np.argwhere((got != 0) & (want == 0))[:4]]
+        pytest.fail(f"dW = gᵀ·x differs at {len(bad)} of {n * k} (n, k): tokens (m, n, k) "
+                    f"lost {lost}; nonzeros where gᵀ·x is 0 at (n, k, value) {stray} — the "
+                    "MN-major descriptors (hopper::mn_desc) or the tile's layout are wrong")
+
+
+@pytest.mark.cuda
 def test_lords_matmul_t_stages_s_from_memory_only_at_large_ranks(dev):
     """The LoRDS dx kernel keeps 3xTF32 S in the kernel at every width up to
     r = 40 and stages an f32 S from memory at r = 72: its scratch is the

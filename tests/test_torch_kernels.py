@@ -265,6 +265,131 @@ def test_lords_forward_pads_n_and_k_but_not_m(monkeypatch):
                                rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("m,n,k,bs", [(300, 200, 96, 32), (20, 130, 96, 96),
+                                      (9, 128, 256, 128)])
+def test_block_forward_pads_n_and_k_but_not_m(monkeypatch, m, n, k, bs):
+    """The block-wise prefill wrapper's contract as the dispatch uses it
+    (M > 8): x keeps its M rows, codes and scales are padded to N % 128 and
+    K to lcm(64, block), padded scales are 1.0, and the output equals the
+    plain version on the unpadded operands."""
+    from repro_torch.kernels import block_matmul as block_matmul_mod
+    seen = []
+    real = block_matmul_mod.block_matmul
+
+    def spy(x, q, s_blk, codebook):
+        seen.append((tuple(x.shape), tuple(q.shape), s_blk.clone()))
+        return real(x, q, s_blk, codebook)
+
+    monkeypatch.setattr(block_matmul_mod, "block_matmul", spy)
+    rng = np.random.default_rng(m + bs)
+    q, s_blk = quantize_blockwise(torch.from_numpy(
+        rng.standard_normal((n, k)).astype(np.float32) * 0.05), bs, "nf4")
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(torch.bfloat16)
+    y = dispatch._block_forward(x, q, s_blk, bs, "nf4", "fused")
+    np_ = -(-n // 128) * 128
+    kp = -(-k // (64 * bs // np.gcd(64, bs))) * (64 * bs // np.gcd(64, bs))
+    (xs, qs, sp), = seen
+    assert xs == (m, kp) and qs == (np_, kp // 2) and tuple(sp.shape) == (np_, kp // bs)
+    torch.testing.assert_close(sp[:n, :k // bs], s_blk, rtol=0, atol=0)
+    assert (sp[n:] == 1.0).all() and (sp[:, k // bs:] == 1.0).all()
+    np.testing.assert_allclose(y.numpy(), ref.block_matmul_ref(x, q, s_blk, bs).numpy(),
+                               rtol=0, atol=1e-5)
+
+
+def test_lords_grads_pad_n_and_k_but_not_m(monkeypatch):
+    """The LoRDS backward as the dispatch runs it: x and g keep their M rows
+    in both kernels (no copy of either at M = 4096), N is padded to the grad
+    tile's 128 rows and K to its 256 columns, and the summed partials equal
+    the plain backward."""
+    from repro_torch.kernels import lords_grad as lords_grad_mod
+    from repro_torch.kernels import lords_matmul_t as lords_matmul_t_mod
+    seen = []
+    real_t, real_g = lords_matmul_t_mod.lords_matmul_t, lords_grad_mod.lords_grad
+
+    def spy_t(g, q, b, a, codebook):
+        seen.append(("dx", tuple(g.shape), tuple(q.shape)))
+        return real_t(g, q, b, a, codebook)
+
+    def spy_g(x, g, q, b, a, codebook, *, w=None):
+        seen.append(("grad", tuple(x.shape), tuple(g.shape), tuple(q.shape),
+                     None if w is None else tuple(w.shape)))
+        return real_g(x, g, q, b, a, codebook, w=w)
+
+    monkeypatch.setattr(lords_matmul_t_mod, "lords_matmul_t", spy_t)
+    monkeypatch.setattr(lords_grad_mod, "lords_grad", spy_g)
+    (x, q, b, a), _ = _lords_operands(300, 200, 96, 6)
+    g = torch.from_numpy(np.random.default_rng(1).standard_normal((300, 200)).astype(
+        np.float32)).to(torch.bfloat16).float()  # exact in the dispatch's bf16 cast
+    w = torch.from_numpy(np.random.default_rng(2).standard_normal((200, 96)).astype(np.float32))
+    for wq in (None, w):
+        seen.clear()
+        got = dispatch._lords_grads(g, x, q, b, a, wq, "nf4", "fused")
+        assert seen == [("dx", (300, 256), (256, 128)),
+                        ("grad", (300, 256), (300, 256), (256, 128),
+                         None if wq is None else (256, 256))]
+        want = ref.lords_grads_ref(g, x, q, b, a, "nf4", w=wq)
+        for mine, theirs in zip(got, want):  # f32 sums of the same products
+            assert mine.shape == theirs.shape
+            np.testing.assert_allclose(mine.numpy(), theirs.numpy(), rtol=0,
+                                       atol=1e-5 * theirs.abs().max().item())
+
+
+def test_block_and_grad_wrappers_take_any_m_and_refuse_off_tile_n_k():
+    """The wrappers' contracts: ``block_matmul`` takes any M (the prefill
+    kernel masks the ragged edge) with N % 128 and K % 64, its decode entry
+    (M <= 8) N % 32 and K % 256 as before; ``lords_grad`` takes any M with N
+    % 128 and K % 256; ``block_grad`` keeps its tile (M % 32, N and K %
+    128) and ``block_grad_slots``.  Off-tile shapes and M = 0 are refused
+    with "divisible"; CPU tensors run the plain version and count no
+    launch."""
+    from repro_torch.kernels import block_matmul as block_matmul_mod
+    from repro_torch.kernels import lords_grad as lords_grad_mod
+    from repro_torch.kernels.block_matmul import block_matmul
+    from repro_torch.kernels.lords_grad import block_grad, block_grad_slots, lords_grad
+    assert (block_matmul_mod.BM, block_matmul_mod.BN, block_matmul_mod.BK) == (256, 128, 64)
+    assert block_matmul_mod.tile(9) == (1, 128, 64) and block_matmul_mod.tile(8) == (1, 32, 256)
+    assert (lords_grad_mod.GRAD_BN, lords_grad_mod.GRAD_BK) == (128, 256)
+    assert (lords_grad_mod.BM, lords_grad_mod.BN, lords_grad_mod.BK) == (32, 128, 128)
+    assert [block_grad_slots(bs) for bs in (32, 96, 128, 256, 384)] == [1, 2, 1, 2, 3]
+    counts = (block_matmul.launches, lords_grad.launches, block_grad.launches)
+    rng = np.random.default_rng(4)
+
+    def bf16(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(torch.bfloat16)
+
+    def block_operands(n, k, bs=32):
+        return quantize_blockwise(torch.from_numpy(
+            rng.standard_normal((n, k)).astype(np.float32) * 0.05), bs, "nf4")
+
+    for m, n, k in ((9, 128, 64), (300, 256, 192), (1, 32, 256), (8, 96, 512)):
+        qb, sb = block_operands(n, k)
+        x = bf16(m, k)
+        np.testing.assert_array_equal(block_matmul(x, qb, sb).numpy(),
+                                      ref.block_matmul_ref(x, qb, sb, 32).numpy())
+    for m, n, k in ((9, 192, 64), (9, 128, 96), (8, 48, 256), (8, 32, 128), (0, 128, 64)):
+        qb, sb = block_operands(n, k)
+        with pytest.raises(ValueError, match="divisible"):
+            block_matmul(bf16(m, k), qb, sb)
+    for m, n, k in ((1, 128, 256), (70, 256, 512)):
+        (x, q, b, a), _ = _lords_operands(m, n, k, 6, seed=m)
+        g = bf16(m, n)
+        out = lords_grad(x, g, q, b, a)
+        want = ref.lords_grads_ref(g, x, q, b, a, want_dx=False)
+        assert [tuple(t.shape) for t in out] == [(1, n, 6), (1, 6, k)]
+        np.testing.assert_array_equal(out[0][0].numpy(), want[0].numpy())
+    for m, n, k in ((9, 192, 256), (9, 128, 384), (0, 128, 256)):
+        (x, q, b, a), _ = _lords_operands(max(m, 1), n, k, 6)
+        with pytest.raises(ValueError, match="divisible"):
+            lords_grad(x[:m], bf16(m, n), q, b, a)
+    qb, _ = block_operands(128, 128)
+    block_grad(bf16(64, 128), bf16(64, 128), qb, 32)
+    for m, n, k in ((33, 128, 128), (32, 128, 256 + 64)):
+        qb, _ = block_operands(n, k)
+        with pytest.raises(ValueError, match="divisible"):
+            block_grad(bf16(m, k), bf16(m, n), qb, 32)
+    assert counts == (block_matmul.launches, lords_grad.launches, block_grad.launches)
+
+
 def test_split_k_fills_the_card():
     """Split K only where the output tiles leave SMs idle, never past one K
     step per split."""

@@ -152,6 +152,42 @@ def test_lords_dx_through_dispatch_at_tile_edges_matches_pallas(codebook, m, n, 
     assert dx.shape == (m, k) and dx.dtype == torch.float32
     np.testing.assert_allclose(dx.numpy(), np.asarray(kernel), **KTOL)
 
+# (M, N, K) off the grad kernel's tile (128 x 256 of (N, K), 64 tokens a
+# step): M not a multiple of 64, N and K padded by the dispatch
+GRAD_TILE_EDGES = [(9, 56, 120), (70, 136, 264), (131, 200, 72)]
+
+
+@pytest.mark.parametrize("mode", ["peft", "qat"])
+@pytest.mark.parametrize("codebook", ["nf4", "nf3", "int8"])
+@pytest.mark.parametrize("m,n,k", GRAD_TILE_EDGES)
+def test_lords_grad_through_dispatch_at_tile_edges_matches_pallas(m, n, k, codebook, mode):
+    """dB, dA (and the qat dW) of ``dispatch._lords_grads`` on ``fused``
+    (N and K padded around the wrapper, M passed as it is, the partials
+    summed; the wrapper runs its plain version on CPU tensors) against
+    ``lords_grad_pallas`` in interpret mode on the unpadded operands.  x and
+    g hold bf16 values, so the dispatch's bf16 casts are exact; both sides
+    take the same products in f32, summed in another order (over 128-column
+    partials here, one block there): 3e-5 of each gradient's scale."""
+    rng = np.random.default_rng(m + n + k)
+    spec = QuantSpec(method="lords", codebook=codebook, block_size=8, rank=5)
+    w = (rng.standard_normal((n, k)) * 0.02).astype(np.float32)
+    p = {key: v.numpy() for key, v in init_quantized_linear(
+        n, k, spec, w=torch.from_numpy(w)).items()}
+    x, g = _bf16_values(rng, (m, k)), _bf16_values(rng, (m, n))
+    wq = w + (rng.standard_normal((n, k)) * 1e-3).astype(np.float32) if mode == "qat" else None
+    got = dispatch._lords_grads(_t(g), _t(x), _t(p["q"]), _t(p["b"]), _t(p["a"]),
+                                None if wq is None else _t(wq), codebook, "fused",
+                                want_dx=False)[1:]
+    kernel = lords_grad_pallas(jnp.asarray(x), jnp.asarray(g), p["q"], p["b"], p["a"],
+                               codebook, w=wq, bm=m, bn=n, bk=k, interpret=True)
+    want = [np.asarray(kernel[0]).T, np.asarray(kernel[1]).sum(0), *map(np.asarray, kernel[2:])]
+    assert len(got) == len(want) == (3 if wq is not None else 2)
+    for name, mine, theirs in zip(("db", "da", "dw"), got, want):
+        assert mine.shape == theirs.shape and mine.dtype == torch.float32, name
+        np.testing.assert_allclose(mine.numpy(), theirs, rtol=0,
+                                   atol=3e-5 * np.abs(theirs).max(), err_msg=name)
+
+
 @pytest.mark.parametrize("mode", ["peft", "qat"])
 def test_lords_grad_plain_matches_jax(mode):
     m, n, k, r = 32, 128, 256, 3
