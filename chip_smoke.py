@@ -10,12 +10,14 @@ kernels at a 4096-token step) and minicpm3-4b's MLA paths give it (the two
 MLA decode kernels, and the prefill kernel at hd 96 / hd_v 64), and times
 kernel, plain version, one library call (where one computes the same
 function) and the bytes/FLOP bound; each line gives the share of the
-bound the kernel reached, and the lines of the six Hopper designs (the
-LoRDS and block-wise prefill kernels, the attention prefill kernel, the
-two activation-gradient kernels and ``lords_grad``) their achieved
-TFLOP/s (``lords_matmul`` also at the 4096-row step of the engine chunk
-and training, ``attn_prefill`` also with a peaked softmax).  Phase 1
-prints those six sources' ptxas registers and spills.
+bound the kernel reached, and the lines of the product kernels among the
+eight Hopper designs (the LoRDS and block-wise prefill kernels, the
+attention prefill kernel, the two activation-gradient kernels,
+``lords_grad`` and ``block_grad``; the eighth is the split-KV GQA decode
+kernel) their achieved TFLOP/s (``lords_matmul`` also at the 4096-row step
+of the engine chunk and training, ``attn_prefill`` also with a peaked
+softmax).  Phase 1 prints those eight sources' ptxas registers and
+spills.
 Phase 3 serves llama3-8b at full width (batch 4, prompt 512, gen 32,
 random weights from a seeded ``torch.Generator``) through
 ``repro_torch.launch.serve.serve_batch`` with a bf16 and with an int8 KV
@@ -462,7 +464,8 @@ def check_block_kernels(cfg, torch, results, gen, flush):
             timed(fused_ds, 5, flush),
             timed(lambda: ref.block_grads_ref(g, x, q, None, bs, cb, want_dx=False), 3,
                   flush),
-            timed(lambda: torch.matmul(g.t(), x), 5, flush), b_ms, b_by, weight)
+            timed(lambda: torch.matmul(g.t(), x), 5, flush), b_ms, b_by, weight,
+            flops=2 * m_train * n * k)
         del q, s_blk, w_hat, g, x
 
 
@@ -1485,7 +1488,7 @@ def main() -> int:
         f"into {_build.BUILD_DIR.relative_to(ROOT)}")
     # the Hopper designs' ptxas report
     for name in ("lords_matmul", "attn_prefill", "lords_matmul_t", "block_matmul_t",
-                 "block_matmul", "lords_grad"):
+                 "block_matmul", "lords_grad", "block_grad", "attn_decode"):
         for kernel, regs, spill in _build.resource_usage(name):
             log(f"[build] {name}.cu {kernel}: {regs} registers, {spill} bytes spilled")
 

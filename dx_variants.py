@@ -1,26 +1,34 @@
 #!/usr/bin/env python3
-"""Time copies of four Hopper kernels side by side on one card.
+"""Time copies of six Hopper kernels side by side on one card.
 
     python3 dx_variants.py DIR [DIR ...]
 
 Each DIR holds a copy of ``src/repro_torch/csrc``, edited or not.  Each
 copy's ``lords_matmul_t.cu`` and ``block_matmul_t.cu`` (the two
-activation-gradient kernels), ``block_matmul.cu`` (its prefill entry) and
-``lords_grad.cu`` are built with the port's nvcc flags (one ``nvcc`` each,
-all at once, into ``build/dx_variants/``), held against the plain versions
-at small shapes (every codebook width, ragged M, odd tile counts, ranks up
-to 72, blocks that straddle a tile or a step), and timed on llama3-8b's
-seven linears at the main path's M (4096 tokens for the training kernels,
-serve_batch's 2176 for the prefill one), in the order given: name a
-directory twice (A B B A) to see the spread.  Times are CUDA events with
-the L2 flushed, the better of two medians of 7.  Prints one line per
-kernel, shape and directory, the ms a layer of each directory and kernel,
+activation-gradient kernels), ``block_matmul.cu`` (its prefill entry),
+``lords_grad.cu``, ``block_grad.cu`` and ``attn_decode.cu`` (the GQA
+decode kernel, both entry points) are built with the port's nvcc flags
+(one ``nvcc`` each, all at once, into ``build/dx_variants/``), held against
+the plain versions at small shapes (every codebook width, ragged M, odd
+tile counts, ranks up to 72, blocks that straddle a tile or a step; decode
+at ragged caches, bf16 and int8, contiguous and paged), and timed on
+llama3-8b's seven linears at the main path's M (4096 tokens for the
+training kernels, serve_batch's 2176 for the prefill one) and its decode
+attention at serve_batch's last step (b 4, 543 of 544 slots, bf16 and
+int8) and the engine's (8 slots, pages of 64, int8 pool), in the order
+given: name a directory twice (A B B A) to see the spread.  A copy whose
+decode kernel is split-KV (it takes a workspace and tickets) is timed at
+the wrapper's chunk and at half and twice it; one from before the split
+(one CTA per batch row and KV head) as it was.  Times are CUDA events with the L2 flushed, the
+better of two medians of 7 (decode: of 30).  Prints one line per kernel,
+shape and directory, the ms a layer of each directory and linear kernel,
 and the card's name and power limit.  Exits non-zero without a CUDA device
 or if a build or a check fails.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 import subprocess
 import sys
 from pathlib import Path
@@ -29,8 +37,9 @@ import chip_smoke
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "build" / "dx_variants"
-SOURCES = ("lords_matmul_t", "block_matmul_t", "block_matmul", "lords_grad")
-P, I = ctypes.c_void_p, ctypes.c_int
+LINEAR = ("lords_matmul_t", "block_matmul_t", "block_matmul", "lords_grad", "block_grad")
+SOURCES = LINEAR + ("attn_decode",)
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {  # entry point -> (argtypes, restype)
     "lords_matmul_t_workspace": ([I] * 4, ctypes.c_longlong),
     "lords_matmul_t_launch": ([P] * 7 + [I] * 6 + [P], I),
@@ -38,6 +47,15 @@ SIGNATURES = {  # entry point -> (argtypes, restype)
     "block_matmul_launch": ([P] * 6 + [I] * 7 + [P], I),
     "lords_grad_workspace": ([I] * 4, ctypes.c_longlong),
     "lords_grad_launch": ([P] * 11 + [I] * 6 + [P], I),
+    "block_grad_launch": ([P] * 5 + [I] * 6 + [P], I),
+}
+# the decode entry points: split-KV (a workspace, tickets and the chunk) or
+# one CTA per (batch row, KV head) as before
+DECODE_SIGNATURES = {
+    True: {"attn_decode_launch": ([P] * 9 + [F] + [I] * 7 + [P], I),
+           "attn_decode_paged_launch": ([P] * 10 + [F] + [I] * 8 + [P], I)},
+    False: {"attn_decode_launch": ([P] * 7 + [F] + [I] * 6 + [P], I),
+            "attn_decode_paged_launch": ([P] * 8 + [F] + [I] * 7 + [P], I)},
 }
 # (M, N, K, r, bs): dx kernels (N % 64, K % 128), the block forward (N %
 # 128, K % 64, K % bs) and lords_grad (N % 128, K % 256) each take the
@@ -66,10 +84,15 @@ def build(dirs):
         for kernel, regs, spill in _build.resource_usage(name, log):
             print(f"[build] {d} {name}.cu {kernel}: {regs} registers, {spill} bytes spilled")
         lib = libs[(d, name)] = ctypes.CDLL(str(so))
-        for entry, (args, res) in SIGNATURES.items():
+        for entry, (args, res) in (SIGNATURES | DECODE_SIGNATURES[split_kv(d)]).items():
             if hasattr(lib, entry):
                 getattr(lib, entry).argtypes, getattr(lib, entry).restype = args, res
     return libs
+
+
+def split_kv(d) -> bool:
+    """Whether DIR's decode kernel is the split-KV design."""
+    return "tickets" in (Path(d) / "attn_decode.cu").read_text()
 
 
 def launchers(torch, libs, d, lut, n_levels, bits):
@@ -109,6 +132,13 @@ def launchers(torch, libs, d, lut, n_levels, bits):
             ws.data_ptr(), m, n, k, k // s_blk.shape[1], bits, n_levels, splits, stream()),
             "block_matmul")
 
+    def run_block_grad(x, g, q, parts):
+        m, k = x.shape
+        n = g.shape[1]
+        check(libs[(d, "block_grad")].block_grad_launch(
+            x.data_ptr(), g.data_ptr(), q.data_ptr(), lut.data_ptr(), parts.data_ptr(), m, n, k,
+            k // parts.shape[2], bits, n_levels, stream()), "block_grad")
+
     def run_grad(x, g, q, b, a, w, db, da, dw):
         lib = libs[(d, "lords_grad")]
         m, k = x.shape
@@ -121,7 +151,49 @@ def launchers(torch, libs, d, lut, n_levels, bits):
             stream()), "lords_grad")
 
     return {"lords_matmul_t": run_lords_t, "block_matmul_t": run_block_t,
-            "block_matmul": run_block, "lords_grad": run_grad}
+            "block_matmul": run_block, "lords_grad": run_grad, "block_grad": run_block_grad}
+
+
+def decode_launcher(torch, libs, d):
+    """A callable running DIR's decode kernel: contiguous (``kmask``) or
+    paged (``pt``, ``pos``), at ``chunk`` slots a CTA (split-KV copies; None:
+    the wrapper's plan), into ``out``."""
+    from repro_torch.kernels.attn_decode import launch_buffers, split_plan
+    from repro_torch.kernels.lords_matmul import _sms
+
+    lib = libs[(d, "attn_decode")]
+    split = split_kv(d)
+
+    def run(q, k, v, scales, out, scale, *, kmask=None, pt=None, pos=None, chunk=None):
+        b, nkv, g, hd = q.shape
+        ps = None if pt is None else k.shape[1]
+        cap = k.shape[1] if pt is None else pt.shape[1] * ps
+        ks, vs = (s.data_ptr() for s in scales) if scales else (None, None)
+        int8 = int(bool(scales))
+        st = torch.cuda.current_stream().cuda_stream
+        head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), ks, vs)
+        if split:
+            chunk = chunk or split_plan(b, nkv, g, cap, _sms(q.device), ps)[0]
+            ws, tickets = launch_buffers(q.device, b, nkv, g, hd, -(-cap // chunk))
+            tail = (ws.data_ptr(), tickets.data_ptr(), scale)
+            if pt is None:
+                err = lib.attn_decode_launch(*head, kmask.data_ptr(), out.data_ptr(), *tail, b,
+                                             cap, nkv, g, hd, int8, chunk, st)
+            else:
+                err = lib.attn_decode_paged_launch(*head, pt.data_ptr(), pos.data_ptr(),
+                                                   out.data_ptr(), *tail, b, pt.shape[1], ps,
+                                                   nkv, g, hd, int8, chunk, st)
+        elif pt is None:
+            err = lib.attn_decode_launch(*head, kmask.data_ptr(), out.data_ptr(), scale, b, cap,
+                                         nkv, g, hd, int8, st)
+        else:
+            err = lib.attn_decode_paged_launch(*head, pt.data_ptr(), pos.data_ptr(),
+                                               out.data_ptr(), scale, b, pt.shape[1], ps, nkv, g,
+                                               hd, int8, st)
+        if err:
+            raise RuntimeError(f"{d}: attn_decode CUDA error {err}")
+
+    return run
 
 
 def rel_err(got, want):
@@ -143,9 +215,10 @@ def grad_parts(torch, n, k, r, dev):
 def check(torch, libs, dirs, gen) -> bool:
     """Each directory's kernels against the plain versions at small shapes:
     dx within 5e-3 of max |dx| (Ŵ rounded to bf16 where the plain version
-    keeps f32); the block forward within 1e-4 of max |y| and lords_grad's dB,
-    dA, dW within 1e-4 of each one's max (exact bf16 products summed in
-    another order).  A copy that fails is reported and still timed (a
+    keeps f32); the block forward within 1e-4 of max |y|, lords_grad's dB,
+    dA, dW and block_grad's ∂s_blk within 1e-4 of each one's max (exact bf16
+    products summed in another order); decode within 1e-4 absolute
+    (check_decode).  A copy that fails is reported and still timed (a
     diagnostic copy that drops part of the work on purpose fails); returns
     whether all passed."""
     from repro_torch.core import QuantSpec, init_quantized_linear
@@ -189,13 +262,136 @@ def check(torch, libs, dirs, gen) -> bool:
                     got = (db.sum(0), da.sum(0), dw)[:len(want)]
                     e = max(e, *(nan_inf(rel_err(u, v) / 1e-4) for u, v in zip(got, want)))
                 errs["lords_grad"] = e
+                # block_grad: rows padded with zeros to 64 (the earlier
+                # design takes M % 32 only); partials zeroed, summed over
+                # their slots
+                mp = -(-m // 64) * 64
+                xp = torch.zeros(mp, k, device=dev, dtype=torch.bfloat16)
+                gp = torch.zeros(mp, n, device=dev, dtype=torch.bfloat16)
+                xp[:m], gp[:m] = x, g
+                parts = torch.zeros(-(-bs // 128) + 1, n, k // bs, device=dev)
+                run["block_grad"](xp, gp, q, parts)
+                ds_ref, = ref.block_grads_ref(g, x, q, None, bs, cb, want_dx=False)
+                errs["block_grad"] = nan_inf(rel_err(parts.sum(0), ds_ref)) / 1e-4
                 for name, v in errs.items():
                     worst[name] = max(worst[name], nan_inf(v))
+        worst["attn_decode"] = check_decode(torch, libs, d, gen)
         for name, v in worst.items():
             ok = v <= 1.0
             passed &= ok
             print(f"[check] {d} {name}: worst error {v:.3f} of its bound {'PASS' if ok else 'FAIL'}")
     return passed
+
+
+def decode_operands(torch, gen, rng, b, nkv, g, hd, cap):
+    """serve_batch-style decode operands: q, a bf16 cache and its int8
+    codes and scales, and the kmask of rows live to cap - 1 and beyond."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.common import kv_quantize
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    q = torch.randn(b, nkv, g, hd, generator=gen, device=dev).to(bf)
+    kc = torch.randn(b, cap, nkv, hd, generator=gen, device=dev).to(bf)
+    vc = torch.randn(b, cap, nkv, hd, generator=gen, device=dev).to(bf)
+    pos = torch.from_numpy(rng.integers(0, cap, b).astype("int32")).to(dev)
+    pos[0] = cap - 2
+    return q, (kc, vc), kv_quantize(kc) + kv_quantize(vc), dispatch.decode_kmask(pos, cap)
+
+
+def paged_operands(torch, gen, rng, slots, nkv, g, hd, ps, npages, total):
+    """The engine's decode operands: pools of ``total`` pages, scattered
+    page tables with unmapped tails, positions from 64 to the window's end
+    less two pages."""
+    import numpy as np
+
+    from repro_torch.models.common import kv_quantize
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    q = torch.randn(slots, nkv, g, hd, generator=gen, device=dev).to(bf)
+    kp = torch.randn(total, ps, nkv, hd, generator=gen, device=dev).to(bf)
+    vp = torch.randn(total, ps, nkv, hd, generator=gen, device=dev).to(bf)
+    pos_np = rng.integers(64, npages * ps - 2 * ps - 1, slots).astype(np.int32)
+    pt_np = np.zeros((slots, npages), np.int32)
+    for i, p in enumerate(pos_np):
+        used = p // ps + 1
+        pt_np[i, :used] = rng.choice(np.arange(1, total), size=used, replace=False)
+    pt, pos = torch.from_numpy(pt_np).to(dev), torch.from_numpy(pos_np).to(dev)
+    return q, (kp, vp), kv_quantize(kp) + kv_quantize(vp), pt, pos
+
+
+def check_decode(torch, libs, d, gen) -> float:
+    """DIR's decode kernel against the plain versions, bf16 and int8:
+    contiguous at caches of 77 and 544 slots (g 4 and 16), paged at the
+    engine's geometry; the worst error over its bound (1e-4 absolute, f32 on
+    both sides)."""
+    import numpy as np
+
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(3)
+    run = decode_launcher(torch, libs, d)
+    worst = 0.0
+    for g, cap in ((4, 77), (16, 544)):
+        q, (kc, vc), (kq, ks, vq, vs), kmask = decode_operands(torch, gen, rng, 2, 2, g, 128, cap)
+        for k, v, sc in ((kc, vc, ()), (kq, vq, (ks, vs))):
+            out = torch.full(q.shape, float("nan"), device=q.device)
+            run(q, k, v, sc, out, 0.088, kmask=kmask)
+            want = ref.attn_decode_kmask(q, k, v, kmask, 0.088, *sc)
+            worst = max(worst, nan_inf((out - want).abs().max().item()) / 1e-4)
+    q, (kp, vp), (kq, ks, vq, vs), pt, pos = paged_operands(torch, gen, rng, 5, 2, 4, 128, 64,
+                                                            20, 49)
+    for k, v, sc in ((kp, vp, ()), (kq, vq, (ks, vs))):
+        out = torch.full(q.shape, float("nan"), device=q.device)
+        run(q, k, v, sc, out, 0.088, pt=pt, pos=pos)
+        want = ref.attn_decode_paged_ref(pt, q.reshape(5, 8, 128), k, v, pos, *sc,
+                                         logit_scale=0.088).reshape(q.shape)
+        worst = max(worst, nan_inf((out - want).abs().max().item()) / 1e-4)
+    return worst
+
+
+def time_decode(torch, libs, dirs, gen, flush):
+    """The decode kernel of each directory at serve_batch's last step (b 4,
+    543 of 544 slots, bf16 and int8 cache) and the engine's paged int8 pool
+    (chip_smoke's geometry); split-KV copies at the wrapper's chunk, half and
+    twice it."""
+    import numpy as np
+
+    from repro_torch.kernels.attn_decode import TILE, split_plan
+    from repro_torch.kernels.lords_matmul import _sms
+
+    cfg_b, cap = chip_smoke.BATCH, chip_smoke.PROMPT + chip_smoke.GEN
+    eng = chip_smoke.ENGINE
+    nkv, g, hd = 8, 4, 128
+    rng = np.random.default_rng(2)
+    q, (kc, vc), (kq, ks, vq, vs), kmask = decode_operands(torch, gen, rng, cfg_b, nkv, g, hd, cap)
+    kmask = kmask.clone()
+    kmask[:] = 0.0
+    kmask[:, -1] = -1e30  # 543 of 544 live in every row, as chip_smoke times it
+    pq, (kp, vp), (kpq, kps, vpq, vps), pt, pos = paged_operands(
+        torch, gen, rng, eng["slots"], nkv, g, hd, eng["page_size"], eng["max_pages"],
+        eng["total_pages"])
+    cases = (("serve bf16", q, kc, vc, (), dict(kmask=kmask), None),
+             ("serve int8", q, kq, vq, (ks, vs), dict(kmask=kmask), None),
+             ("engine paged int8", pq, kpq, vpq, (kps, vps), dict(pt=pt, pos=pos),
+              eng["page_size"]))
+    for i, d in enumerate(dirs):
+        run = decode_launcher(torch, libs, d)
+        for label, qq, k, v, sc, kw, ps in cases:
+            out = torch.empty(qq.shape, device=qq.device)
+            capx = k.shape[1] if ps is None else kw["pt"].shape[1] * ps
+            chunks = [None]
+            if split_kv(d):
+                plan = split_plan(qq.shape[0], nkv, g, capx, _sms(qq.device), ps)[0]
+                unit = TILE if ps is None else math.lcm(TILE, ps)
+                chunks = [c for c in (plan // 2, plan, 2 * plan) if c >= unit and c % unit == 0]
+            for chunk in chunks:
+                def fn():
+                    run(qq, k, v, sc, out, 0.088, chunk=chunk, **kw)
+                ms = min(chip_smoke.timed(fn, 30, flush), chip_smoke.timed(fn, 30, flush))
+                tag = "" if chunk is None else f" chunk={chunk}"
+                print(f"[time] {d} attn_decode {label}{tag}: {ms:.4f} ms")
 
 
 def main() -> int:
@@ -222,7 +418,7 @@ def main() -> int:
     m_pre = chip_smoke.BATCH * (chip_smoke.PROMPT + chip_smoke.GEN)
     cb = cfg.quant.codebook
     lut = device_lut(cb, str(dev))
-    layer = {(i, name): 0.0 for i in range(len(dirs)) for name in SOURCES}
+    layer = {(i, name): 0.0 for i in range(len(dirs)) for name in LINEAR}
     for (n, k), names in chip_smoke._layer_shapes(cfg).items():
         p = init_quantized_linear(n, k, cfg.quant, generator=gen, device=dev)
         r = p["b"].shape[1]
@@ -234,6 +430,7 @@ def main() -> int:
         dx = torch.empty(m_train, k, device=dev)
         y = torch.empty(m_pre, n, device=dev)
         db, da, _ = grad_parts(torch, n, k, r, dev)
+        parts = torch.zeros(2, n, k // chip_smoke.BASE_BLOCK, device=dev)
         for i, d in enumerate(dirs):
             run = launchers(torch, libs, d, lut, lut.numel(), pack_spec(cb).bits)
             calls = {
@@ -243,6 +440,7 @@ def main() -> int:
                 "block_matmul": (lambda: run["block_matmul"](x_pre, q, s_blk, y), m_pre),
                 "lords_grad": (lambda: run["lords_grad"](x, g, p["q"], p["b"], p["a"], None,
                                                          db, da, None), m_train),
+                "block_grad": (lambda: run["block_grad"](x, g, q, parts), m_train),
             }
             for name, (fn, m) in calls.items():
                 ms = min(chip_smoke.timed(fn, 7, flush), chip_smoke.timed(fn, 7, flush))
@@ -251,6 +449,7 @@ def main() -> int:
                       f"{ms:.4f} ms, {2 * m * n * k / ms / 1e9:.1f} TFLOP/s")
     for (i, name), ms in layer.items():
         print(f"[layer] {dirs[i]} {name}: {ms:.3f} ms a layer of seven linears")
+    time_decode(torch, libs, dirs, gen, flush)
     print(chip_smoke.nvidia_smi())
     return 0 if passed else 1
 

@@ -50,7 +50,11 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr int BQ = 64, BKV = 64, THREADS = 128;
 constexpr float kNegInf = -1e30f;
@@ -68,23 +72,6 @@ struct Smem {
   static constexpr size_t total = qmax + 16;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -95,35 +82,6 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t add
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
-}
-
-// d (16 x 8, f32) += a (16 x 16, bf16) · b (16 x 8, bf16)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 2^x, to 2 ulp (the MUFU unit); 2^(-huge) is 0
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&p);
-}
-
-// (x0, x1) -> bf16 pairs hi and lo with x ≈ hi + lo to ~2^-17 relative
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
 }
 
 template <int HD, int HDV>
@@ -149,7 +107,7 @@ attn_prefill_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
     const int row = i / (HD / 8), c = (i % (HD / 8)) * 8;
     const int rho = row0 + row, pi = rho / G, hj = rho % G;
     cp_async16(smem_u32(qs + row * L::QS + c),
-               q + (((size_t)bi * s + pi) * nh + hk * G + hj) * HD + c);
+               q + (((size_t)bi * s + pi) * nh + hk * G + hj) * HD + c, 16);
   }
   cp_async_commit();
 
@@ -189,16 +147,16 @@ attn_prefill_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
     for (int i = tid; i < BKV * HD / 8; i += THREADS) {
       const int row = i / (HD / 8), c = (i % (HD / 8)) * 8;
       cp_async16(smem_u32(ks + row * L::KS + c),
-                 k + (((size_t)bi * S + kv0 + row) * nkv + hk) * HD + c);
+                 k + (((size_t)bi * S + kv0 + row) * nkv + hk) * HD + c, 16);
     }
     for (int i = tid; i < BKV * HDV / 8; i += THREADS) {
       const int row = i / (HDV / 8), c = (i % (HDV / 8)) * 8;
       cp_async16(smem_u32(vs + row * L::VS + c),
-                 v + (((size_t)bi * S + kv0 + row) * nkv + hk) * HDV + c);
+                 v + (((size_t)bi * S + kv0 + row) * nkv + hk) * HDV + c, 16);
     }
     if (tid < BKV / 4)
       cp_async16(smem_u32(reinterpret_cast<int*>(smem + L::kpos) + slot * BKV + 4 * tid),
-                 kp_row + kv0 + 4 * tid);
+                 kp_row + kv0 + 4 * tid, 16);
   };
 
   int cur = next_live(0);

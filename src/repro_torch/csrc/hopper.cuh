@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the LoRDS dequant-matmul and
-// gradient kernels: cp.async copies, mbarriers and TMA tile loads, the tf32
-// split, shared-memory matrix descriptors (K-major and MN-major), wgmma
-// fences and the wgmma shapes they issue, 3xTF32 S, and the pre-pass that
-// splits B and A into tf32 hi / lo parts for it.
+// gradient kernels and the attention kernels: cp.async copies, the
+// `mma.sync` bf16 product with its split of f32 into bf16 hi / lo parts and
+// the MUFU 2^x, mbarriers and TMA tile loads, the tf32 split, shared-memory
+// matrix descriptors (K-major and MN-major), wgmma fences and the wgmma
+// shapes they issue, 3xTF32 S, and the pre-pass that splits B and A into
+// tf32 hi / lo parts for it.
 #pragma once
 
 #include <cstdint>
@@ -44,6 +46,35 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// d (16 x 8, f32) += a (16 x 16, bf16) · b (16 x 8, bf16): `mma.sync`
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x, to 2 ulp (the MUFU unit); 2^(-huge) and 2^(-inf) are 0
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// (x0, x1) -> bf16 pairs hi and lo with x ≈ hi + lo to ~2^-17 relative
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
 }
 
 __device__ __forceinline__ uint32_t to_tf32(float v) {

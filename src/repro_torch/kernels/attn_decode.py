@@ -8,17 +8,69 @@ online softmax.  An int8 cache comes with ``k_scale``/``v_scale``
 (b, S, nkv) f32, folded into the dot products inside the kernel.  On CUDA
 tensors the wrapper launches the kernel (or raises); on CPU tensors it runs
 the plain version :func:`repro_torch.kernels.ref.attn_decode_kmask`.
-``attn_decode.launches`` counts kernel launches.
+
+The kernel splits the slots into chunks (:func:`split_plan`), one CTA per
+chunk, (batch row, KV head) and group of 16 query rows; the partials go to
+an f32 workspace and the last CTA of each row merges them, counted by a
+ticket array kept zero between launches (:func:`launch_buffers`, shared
+with the paged wrapper).  ``attn_decode.launches`` counts kernel launches:
+one a call.
 """
 from __future__ import annotations
+
+import functools
+import math
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.attn_prefill import HEAD_DIMS
+from repro_torch.kernels.lords_matmul import _sms
 from repro_torch.kernels.ref import attn_decode_kmask
 
-__all__ = ["attn_decode", "check_kv"]
+__all__ = ["attn_decode", "check_kv", "split_plan", "launch_buffers", "TILE",
+           "ROWS", "CHUNK"]
+
+TILE = 64    # slots of one stage of the kernel's ring: a chunk is whole tiles
+ROWS = 16    # query rows of one CTA: g is taken in groups of 16
+CHUNK = 128  # slots a CTA takes at most: its ring's two stages, all in flight
+
+
+@functools.lru_cache(maxsize=None)
+def split_plan(b: int, nkv: int, g: int, cap: int, sms: int,
+               page_size: int | None = None) -> tuple[int, int]:
+    """(chunk, chunks): the slots [0, cap) of each (batch row, KV head) cut
+    into ``chunks`` chunks of ``chunk`` slots, in order, the last one
+    ragged.  A chunk is whole tiles (and whole pages of ``page_size`` on
+    the paged entry), at most CHUNK slots (or one page-and-tile unit), and
+    smaller where the CTAs, b·nkv·ceil(g / ROWS) a chunk, would otherwise
+    leave an SM idle.  Of chunks of 64, 128 and 256 slots, 128 was
+    the fastest at the engine's shape and within the spread of the fastest
+    at serve_batch's (PERF.md §6)."""
+    unit = TILE if page_size is None else math.lcm(TILE, page_size)
+    units, ctas = -(-cap // unit), b * nkv * -(-g // ROWS)
+    per = max(1, CHUNK // unit)
+    while per > 1 and ctas * -(-units // per) < sms:
+        per -= 1
+    return per * unit, -(-units // per)
+
+
+_TICKETS: dict[torch.device, torch.Tensor] = {}
+
+
+def launch_buffers(dev, b: int, nkv: int, g: int, hd: int, chunks: int):
+    """The f32 workspace of one launch (per chunk of each (batch row, KV
+    head, row group): ROWS rows of m, l and acc[hd]) and the device's int32
+    tickets, zero between launches (the kernel resets each one it uses),
+    grown when a launch needs more."""
+    units = b * nkv * -(-g // ROWS)
+    ws = torch.empty(units * chunks * ROWS * (hd + 2), dtype=torch.float32,
+                     device=dev)
+    tickets = _TICKETS.get(dev)
+    if tickets is None or tickets.numel() < units:
+        tickets = _TICKETS[dev] = torch.zeros(max(units, 1024), dtype=torch.int32,
+                                              device=dev)
+    return ws, tickets
 
 
 def check_kv(what, q, k, v, k_scale, v_scale, scale_shape) -> bool:
@@ -47,7 +99,7 @@ def check_kv(what, q, k, v, k_scale, v_scale, scale_shape) -> bool:
 def attn_decode(q, k, v, kmask, k_scale=None, v_scale=None, *,
                 logit_scale: float) -> torch.Tensor:
     """q (b, nkv, g, hd) vs cache k/v (b, S, nkv, hd) [+ int8 scales
-    (b, S, nkv)] → (b, nkv, g, hd) f32."""
+    (b, S, nkv)] → (b, nkv, g, hd) f32; one kernel launch."""
     what = "attn_decode"
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"{what}: q, k, v must be 4-D with k.shape == v.shape")
@@ -64,14 +116,17 @@ def attn_decode(q, k, v, kmask, k_scale=None, v_scale=None, *,
         return attn_decode_kmask(q, k, v, kmask, logit_scale, k_scale, v_scale)
     if hd not in HEAD_DIMS:
         raise ValueError(f"{what}: head dim {hd} not in {HEAD_DIMS}")
-    out = torch.empty((b, nkv, g, hd), dtype=torch.float32, device=q.device)
-    fn = _build.bind("attn_decode", "attn_decode_launch", "pppppppfiiiiiip")
+    dev = q.device
+    out = torch.empty((b, nkv, g, hd), dtype=torch.float32, device=dev)
+    chunk, chunks = split_plan(b, nkv, g, cap, _sms(dev))
+    ws, tickets = launch_buffers(dev, b, nkv, g, hd, chunks)
+    fn = _build.bind("attn_decode", "attn_decode_launch", "pppppppppfiiiiiiip")
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
              k_scale.data_ptr() if quantized else None,
              v_scale.data_ptr() if quantized else None,
-             kmask.data_ptr(), out.data_ptr(), float(logit_scale), b, cap, nkv,
-             g, hd, int(quantized),
-             torch.cuda.current_stream(q.device).cuda_stream)
+             kmask.data_ptr(), out.data_ptr(), ws.data_ptr(), tickets.data_ptr(),
+             float(logit_scale), b, cap, nkv, g, hd, int(quantized), chunk,
+             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, what)
     attn_decode.launches += 1
     return out

@@ -6,18 +6,21 @@ Port of the JAX package's ``attn_decode_gqa_paged_pallas``: q
 scale pools (P, ps, nkv) f32, read through the page table ``pt`` (b, np)
 int32: logical slot j of row b is pool row ``pt[b, j // ps] * ps + j % ps``
 and is live when ``j <= pos[b]``.  The kernel reads no page past
-``pos[b] // ps``.  On CUDA tensors the wrapper launches the kernel (or
-raises); on CPU tensors it runs the plain version, the gather oracle
+``pos[b] // ps``; it is the contiguous wrapper's split-KV kernel, its
+chunks whole pages (:func:`repro_torch.kernels.attn_decode.split_plan`).
+On CUDA tensors the wrapper launches the kernel (or raises); on CPU tensors
+it runs the plain version, the gather oracle
 :func:`repro_torch.kernels.ref.attn_decode_paged_ref`.
-``attn_decode_paged.launches`` counts kernel launches.
+``attn_decode_paged.launches`` counts kernel launches: one a call.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.attn_decode import check_kv
+from repro_torch.kernels.attn_decode import check_kv, launch_buffers, split_plan
 from repro_torch.kernels.attn_prefill import HEAD_DIMS
+from repro_torch.kernels.lords_matmul import _sms
 from repro_torch.kernels.ref import attn_decode_paged_ref
 
 __all__ = ["attn_decode_paged", "PAGE_MULTIPLE"]
@@ -54,15 +57,19 @@ def attn_decode_paged(q, k_pool, v_pool, pt, pos, k_scale=None, v_scale=None,
         return y.reshape(b, nkv, g, hd)
     if hd not in HEAD_DIMS:
         raise ValueError(f"{what}: head dim {hd} not in {HEAD_DIMS}")
-    out = torch.empty((b, nkv, g, hd), dtype=torch.float32, device=q.device)
+    dev = q.device
+    npages = pt.shape[1]
+    out = torch.empty((b, nkv, g, hd), dtype=torch.float32, device=dev)
+    chunk, chunks = split_plan(b, nkv, g, npages * ps, _sms(dev), ps)
+    ws, tickets = launch_buffers(dev, b, nkv, g, hd, chunks)
     fn = _build.bind("attn_decode", "attn_decode_paged_launch",
-                     "ppppppppfiiiiiiip")
+                     "ppppppppppfiiiiiiiip")
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
              k_scale.data_ptr() if quantized else None,
              v_scale.data_ptr() if quantized else None,
-             pt.data_ptr(), pos.data_ptr(), out.data_ptr(), float(logit_scale),
-             b, pt.shape[1], ps, nkv, g, hd, int(quantized),
-             torch.cuda.current_stream(q.device).cuda_stream)
+             pt.data_ptr(), pos.data_ptr(), out.data_ptr(), ws.data_ptr(),
+             tickets.data_ptr(), float(logit_scale), b, npages, ps, nkv, g, hd,
+             int(quantized), chunk, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, what)
     attn_decode_paged.launches += 1
     return out

@@ -46,11 +46,12 @@ padded attention positions are -1 (dead); the MLA decode kernels take
 every shape as it comes (no head padding).  Lords forwards with M ≤ 8
 flattened tokens route to the weight-stationary decode kernel; the
 block-wise wrapper serves every M, as the JAX package's kernel does (its
-source has a decode entry point for M ≤ 8).  The forwards (LoRDS and
-block-wise), the dx kernels and ``lords_grad`` take any M; ``block_grad``
-pads M to 128.  Block-wise K pads to a multiple of lcm(step, block) so
+source has a decode entry point for M ≤ 8).  Every kernel takes any M, so
+no M is padded.  Block-wise K pads to a multiple of lcm(step, block) so
 tiles and blocks stay commensurate (step 64 for the prefill forward, 256
-for the decode forward, 128 for the backward), and padded scales are 1.0.
+for the decode forward and for the backward, whose ``block_grad`` tile is
+256 columns wide and whose ``block_matmul_t`` needs K % 128), and padded
+scales are 1.0.
 """
 from __future__ import annotations
 
@@ -285,21 +286,21 @@ class _LordsQatQMatmul(torch.autograd.Function):
 # ---------------------------------------------------------------------------
 
 
-def _block_padded(q_packed, s_blk, m, n, k, block_size, ps, mmult=128,
-                  kstep=128):
-    """The padded geometry of a block-wise call: M to ``mmult``, N to 128,
-    K to lcm(``kstep``, block_size) so tiles and blocks stay commensurate;
-    padded scales are 1.0 (padded x / g entries are zero, so they add
-    nothing).  The backward's two kernels share the defaults; the forward
-    pads no M and K to its own step (64, or the decode entry's 256)."""
+def _block_padded(q_packed, s_blk, n, k, block_size, ps, kstep=256):
+    """The padded geometry of a block-wise call: N to 128, K to
+    lcm(``kstep``, block_size) so tiles and blocks stay commensurate (M is
+    not padded: every kernel takes any M); padded scales are 1.0 (padded x
+    / g entries are zero, so they add nothing).  The backward's two kernels
+    share the default; the forward pads K to its own step (64, or the
+    decode entry's 256)."""
     kmult = kstep * block_size // math.gcd(kstep, block_size)
-    mp, np_, kp = _round_up(m, mmult), _round_up(n, 128), _round_up(k, kmult)
+    np_, kp = _round_up(n, 128), _round_up(k, kmult)
     qp = _pad2(q_packed, np_, ps.packed_width(kp))
     pc, pr = kp // block_size - s_blk.shape[1], np_ - n
     s_pad = s_blk.to(torch.float32)
     if pc or pr:
         s_pad = F.pad(s_pad, (0, pc, 0, pr), value=1.0)
-    return qp, s_pad.contiguous(), mp, np_, kp
+    return qp, s_pad.contiguous(), np_, kp
 
 
 def _block_forward(x2d, q_packed, s_blk, block_size, codebook, backend):
@@ -309,11 +310,10 @@ def _block_forward(x2d, q_packed, s_blk, block_size, codebook, backend):
         return ref.block_matmul_ref(x2d, q_packed, s_blk, block_size, codebook)
     m, k = x2d.shape
     n = q_packed.shape[0]
-    # both entry points take any M: only N and K are padded
-    tm, _, tk = block_matmul_mod.tile(m)
-    qp, s_pad, mp, _, kp = _block_padded(q_packed, s_blk, m, n, k, block_size,
-                                         pack_spec(codebook), tm, tk)
-    y = block_matmul_mod.block_matmul(_pad2(x2d, mp, kp), qp, s_pad, codebook)
+    _, _, tk = block_matmul_mod.tile(m)
+    qp, s_pad, _, kp = _block_padded(q_packed, s_blk, n, k, block_size,
+                                     pack_spec(codebook), tk)
+    y = block_matmul_mod.block_matmul(_pad2(x2d, m, kp), qp, s_pad, codebook)
     return y[:m, :n]
 
 
@@ -331,15 +331,15 @@ def _block_grads(g, x2d, q_packed, s_blk, block_size, codebook, backend, *,
                                        codebook), None)
     m, k = x2d.shape
     n = q_packed.shape[0]
-    qp, s_pad, mp, np_, kp = _block_padded(q_packed, s_blk, m, n, k,
-                                           block_size, pack_spec(codebook))
-    g16 = _pad2(g.to(torch.bfloat16), mp, np_).contiguous()
+    qp, s_pad, np_, kp = _block_padded(q_packed, s_blk, n, k, block_size,
+                                       pack_spec(codebook))
+    g16 = _pad2(g.to(torch.bfloat16), m, np_).contiguous()
     dx = ds = None
     if want_dx:
         dx = lords_matmul_t_mod.block_matmul_t(g16, qp, s_pad, codebook)[:m, :k]
     if want_ds:
         parts = lords_grad_mod.block_grad(
-            _pad2(x2d.to(torch.bfloat16), mp, kp).contiguous(), g16, qp,
+            _pad2(x2d.to(torch.bfloat16), m, kp).contiguous(), g16, qp,
             block_size, codebook)
         ds = parts.sum(0)[:n, :s_blk.shape[1]]
     return dx, ds

@@ -6,12 +6,13 @@
 and reduces it to the rank-space gradients: per-128-column partials of dB
 (K/128, N, r) and per-128-row partials of dA (N/128, r, K), which the
 caller sums over their first axis; with the qat master weight ``w`` it
-also returns dW = ∂L/∂Ŵ (N, K) and uses the STE residual (Eq. 4/5).  Its
-kernel takes any M; its (N, K) tile is ``GRAD_BN`` x ``GRAD_BK``.
+also returns dW = ∂L/∂Ŵ (N, K) and uses the STE residual (Eq. 4/5).
 
-``block_grad`` accumulates gᵀ·x the same way and returns per-tile
-partials of ∂s_blk (slots, N, K/bs), the per-block sums of (gᵀ·x) ⊙ lut[Q]
-(no clamp mask), which the caller sums over their first axis.
+``block_grad`` accumulates gᵀ·x on the same product core and returns
+per-tile partials of ∂s_blk (slots, N, K/bs), the per-block sums of
+(gᵀ·x) ⊙ lut[Q] (no clamp mask), which the caller sums over their first
+axis.  Both kernels take any M; their (N, K) tile is ``GRAD_BN`` x
+``GRAD_BK``.
 
 Ports of the JAX package's ``lords_grad_pallas`` and ``block_grad_pallas``.
 On CUDA tensors each wrapper launches its hand-written kernel (or raises);
@@ -31,12 +32,11 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.lords_matmul import check_lords_operands, device_lut
 from repro_torch.kernels.ref import block_grads_ref, lords_grads_ref
 
-__all__ = ["lords_grad", "block_grad", "block_grad_slots", "BM", "BN", "BK",
-           "GRAD_BN", "GRAD_BK", "PART"]
+__all__ = ["lords_grad", "block_grad", "block_grad_slots", "GRAD_BN",
+           "GRAD_BK", "PART"]
 
-BM, BN, BK = 32, 128, 128  # block_grad: M step, and the (N, K) tile of one block
-# lords_grad: the (N, K) tile of one CTA (any M: the kernel reads rows past
-# M as zeros), and the columns / rows of one dB / dA partial
+# the (N, K) tile of one CTA of either kernel (any M: the kernels read rows
+# past M as zeros), and the columns / rows of one dB / dA partial
 GRAD_BN, GRAD_BK = 128, 256
 PART = 128
 
@@ -100,21 +100,22 @@ lords_grad.launches = 0
 
 
 def block_grad_slots(block_size: int) -> int:
-    """An upper bound on the K tiles of ``BK`` columns that one block of
-    ``block_size`` columns touches: the first axis of :func:`block_grad`'s
+    """An upper bound on the K tiles of ``GRAD_BK`` columns that one block
+    of ``block_size`` columns touches: the first axis of :func:`block_grad`'s
     partials (zeroed, so a slot no block writes adds nothing).  Exact when
     one of the two divides the other."""
-    if block_size % BK == 0:
-        return block_size // BK
-    if BK % block_size == 0:
+    if block_size % GRAD_BK == 0:
+        return block_size // GRAD_BK
+    if GRAD_BK % block_size == 0:
         return 1
-    return (block_size + BK - 2) // BK + 1
+    return (block_size + GRAD_BK - 2) // GRAD_BK + 1
 
 
 def block_grad(x, g, q_packed, block_size: int, codebook_name: str = "nf4"):
     """x (M, K) bf16, g (M, N) bf16, q (N, K·bits/8) u8 → per-tile partials
     of ∂s_blk (slots, N, K/block_size) f32, summed over the first axis by
-    the caller.  M must divide 32, N and K 128, and block_size K."""
+    the caller.  Any M >= 1; N must divide GRAD_BN, K GRAD_BK, and
+    block_size K (the dispatch layer pads N and K)."""
     what = "block_grad"
     if x.dim() != 2 or g.dim() != 2 or q_packed.dim() != 2:
         raise ValueError(f"{what}: x, g, q must be 2-D")
@@ -129,10 +130,10 @@ def block_grad(x, g, q_packed, block_size: int, codebook_name: str = "nf4"):
     _build.require_dtype(what, x, torch.bfloat16, "x")
     _build.require_dtype(what, g, torch.bfloat16, "g")
     _build.require_dtype(what, q_packed, torch.uint8, "q")
-    if m % BM or n % BN or k % BK:
+    if m < 1 or n % GRAD_BN or k % GRAD_BK:
         raise ValueError(
             f"{what}: shape (M={m}, N={n}, K={k}) not divisible by the "
-            f"kernel tile ({BM}, {BN}, {BK})")
+            f"kernel tile (N: {GRAD_BN}, K: {GRAD_BK}), or M < 1")
     if not _build.on_card(what, x=x, g=g, q=q_packed):
         ds, = block_grads_ref(g, x, q_packed, None, block_size, codebook_name,
                               want_dx=False)

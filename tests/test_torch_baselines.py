@@ -147,6 +147,38 @@ def test_block_dispatch_padding_matches_pallas(codebook, mtok, n, k, bs):
 
 
 
+@pytest.mark.parametrize("codebook", ["nf4", "nf3", "nf2"])
+@pytest.mark.parametrize("bs,k", [(32, 160), (64, 192), (128, 384), (256, 512)])
+def test_block_grads_fused_dispatch_pads_no_m_and_matches_pallas(codebook, bs, k):
+    """∂s_blk of ``dispatch._block_grads(..., "fused")`` at M = 1, 70 and 300
+    rows, unpadded (``block_grad`` takes any M), N = 200 and K padded to
+    lcm(256, bs) by the dispatch, against ``block_grad_pallas`` in interpret
+    mode run as the plain-version test runs it, on the same operands
+    zero-padded to its tiles (zero rows and columns add nothing).  f32 sums
+    of the same products in another order: 1e-4 of the gradient's scale."""
+    n = 200
+    ps = quantize.pack_spec(codebook)
+    w = _weight(n, k, bs + k)
+    q, s_blk = jax_quantize.quantize_blockwise(jnp.asarray(w), bs, codebook)
+    for m in (1, 70, 300):
+        rng = np.random.default_rng(m + bs)
+        x, g = _bf16_values(rng, (m, k)), _bf16_values(rng, (m, n))
+        _, ds = dispatch._block_grads(_t(g), _t(x).bfloat16(), _t(q), _t(s_blk), bs,
+                                      codebook, "fused", want_dx=False)
+        mp, np_ = -(-m // 64) * 64, 256
+        kp = -(-k // max(bs, 128)) * max(bs, 128)
+        xp = np.zeros((mp, kp), np.float32)
+        gp = np.zeros((mp, np_), np.float32)
+        xp[:m, :k], gp[:m, :n] = x, g
+        qp = np.pad(np.asarray(q), ((0, np_ - n), (0, ps.packed_width(kp) - q.shape[1])))
+        want = block_grad_pallas(jnp.asarray(xp, jnp.bfloat16), jnp.asarray(gp, jnp.bfloat16),
+                                 jnp.asarray(qp), bs, codebook, bm=min(64, mp), bn=128,
+                                 bk=128, interpret=True)
+        want = np.asarray(want)[:n, :k // bs]
+        assert ds.shape == (n, k // bs)
+        assert _rel_err(ds, want) <= KTOL, m
+
+
 # (M, N, K, block) around the prefill kernel's tile (256 x rows, 128 Ŵ
 # rows, 64 k a step): ragged M, N off the tile, K a multiple of the block
 # but not of the step (96 pads to 128 at block 32; 288 to 384 =

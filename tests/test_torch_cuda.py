@@ -10,6 +10,8 @@ package, so it also runs on a machine without them:
 covers the main path's full-width shapes; these are small shapes with
 ragged rows inside the tiles and non-power-of-two ranks.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -724,6 +726,145 @@ def test_lords_grad_transposed_operands_place_every_product(dev):
         pytest.fail(f"dW = gᵀ·x differs at {len(bad)} of {n * k} (n, k): tokens (m, n, k) "
                     f"lost {lost}; nonzeros where gᵀ·x is 0 at (n, k, value) {stray} — the "
                     "MN-major descriptors (hopper::mn_desc) or the tile's layout are wrong")
+
+
+# (N, K) of block_grad's tile edges: one (N, K) tile, two N tiles by three K
+# tiles, many N tiles (N padded to 128) by two K tiles; K rounded up to
+# whole blocks, which the dispatch then pads to lcm(256, block)
+BLOCK_GRAD_NK = ((128, 256), (256, 768), (1000, 512))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codebook", ["nf4", "nf3", "nf2", "int8"])
+@pytest.mark.parametrize("bs", [32, 64, 128, 256, 96, 12])
+def test_block_grad_tile_edges_through_dispatch(dev, codebook, bs):
+    """∂s_blk of ``dispatch._block_grads`` on ``fused`` against the plain
+    backward at and around ``block_grad``'s tile (128 x 256 of (N, K), 64
+    tokens a step): M from 1 to 4096 with no padding (the TMA reads rows past
+    M as zeros), N and K of one and several tiles, every codebook width;
+    blocks of 32-256 columns (whole 8-column groups: the register
+    epilogue), 96 (blocks straddling two K tiles: two partial slots) and 12
+    (not whole 8-column groups: the staged epilogue).  One launch per call;
+    exact bf16 products summed in f32 in another order: 1e-4 of the
+    gradient's scale."""
+    step = math.lcm(bs, 8)  # whole blocks, whole 3-bit pack groups
+    for n, k in BLOCK_GRAD_NK:
+        k = -(-k // step) * step
+        q, s_blk, rng = _block_linear(n, k, bs, dev, codebook, seed=n + k + bs)
+        for m in (1, 9, 64, 65, 4096):
+            x = _bf16(rng, dev, m, k)
+            g = _bf16(rng, dev, m, n).float()
+            before = block_grad.launches
+            _, ds = dispatch._block_grads(g, x, q, s_blk, bs, codebook, "fused", want_dx=False)
+            assert block_grad.launches == before + 1
+            ds_ref, = ref.block_grads_ref(g, x, q, None, bs, codebook, want_dx=False)
+            assert ds.shape == ds_ref.shape == s_blk.shape
+            assert _rel(ds, ds_ref, 1e-4), (m, n, k)
+
+
+@pytest.mark.cuda
+def test_block_grad_places_every_product(dev):
+    """``block_grad`` with structured inputs: token m's rows of g and x each
+    hold one 1, at n = m % N and in block m // N, so every (n, block) takes
+    at most one token and ∂s_blk[n, c] is exactly lut[Q] at that token's
+    (n, k), or 0: the kernel must match the plain version bit for bit.  The
+    operands are MN-major in shared memory and the block sums run in the
+    accumulators' layout; a wrong descriptor or layout moves a token's
+    product, and the message names where."""
+    n, k, bs, m = 256, 1024, 64, 1531  # two N tiles, four K tiles, a ragged M step
+    tok = np.arange(m)
+    nm, km = tok % n, (tok // n) * bs + (tok * 7) % bs
+    g = np.zeros((m, n), np.float32)
+    x = np.zeros((m, k), np.float32)
+    g[tok, nm] = 1.0
+    x[tok, km] = 1.0
+    q, _, _ = _block_linear(n, k, bs, dev, "nf4", seed=2)
+    gd = torch.from_numpy(g).to(dev, torch.bfloat16)
+    xd = torch.from_numpy(x).to(dev, torch.bfloat16)
+    got = block_grad(xd, gd, q, bs).sum(0).cpu().numpy()
+    want = ref.block_grads_ref(gd, xd, q, None, bs, want_dx=False)[0].cpu().numpy()
+    bad = np.argwhere(got != want)
+    if len(bad):
+        lost = [(int(t), int(nm[t]), int(km[t])) for t in tok
+                if got[nm[t], km[t] // bs] != want[nm[t], km[t] // bs]][:4]
+        stray = [(int(i), int(j), float(got[i, j]))
+                 for i, j in np.argwhere((got != 0) & (want == 0))[:4]]
+        pytest.fail(f"∂s_blk differs at {len(bad)} of {got.size} (n, block): tokens (m, n, k) "
+                    f"wrong {lost}; nonzeros where no token lands at (n, block, value) {stray} "
+                    "— the MN-major descriptors or the epilogue's layout are wrong")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("g", [1, 3, 4, 16, 48])
+def test_attn_decode_split_kv_matches_plain(dev, hd, g):
+    """The split-KV decode kernel against its plain version, bf16 and int8,
+    at caches of one slot, around the chunk C the wrapper picks at the
+    longest cache (C - 1, C, C + 1), serve_batch's 543 / 544 and 4096; row
+    0 fully live, row 1 with a dead tail of at least one whole chunk where
+    the cache has one (the dead chunk's p = 1 inside it must get merge
+    weight 0); logits at the model's scale and x30 (peaked); g in the
+    registry's group sizes (48: three groups of 16 query rows).  One launch
+    per call; f32 on both sides: 1e-4 absolute on O(1) outputs."""
+    from repro_torch.kernels.attn_decode import split_plan
+    from repro_torch.kernels.lords_matmul import _sms
+    rng = np.random.default_rng(hd + g)
+    b, nkv = 2, 2
+    qd = _bf16(rng, dev, b, nkv, g, hd)
+    c_max = split_plan(b, nkv, g, 4096, _sms(dev))[0]
+    for cap in (1, c_max - 1, c_max, c_max + 1, 543, 544, 4096):
+        chunk = split_plan(b, nkv, g, cap, _sms(dev))[0]
+        dead_from = cap - 2 * chunk if cap > 2 * chunk else max(1, cap // 3)
+        pos = torch.tensor([cap - 1, dead_from - 1 if cap > 1 else 0], device=dev)
+        kmask = dispatch.decode_kmask(pos, cap)
+        kc, vc = _bf16(rng, dev, b, cap, nkv, hd), _bf16(rng, dev, b, cap, nkv, hd)
+        (kq, ks), (vq, vs) = kv_quantize(kc), kv_quantize(vc)
+        for kv, ops in (("bf16", (kc, vc)), ("int8", (kq, vq, ks, vs))):
+            for peak in (1.0, 30.0):
+                scale = peak * hd**-0.5
+                before = attn_decode.launches
+                y = attn_decode(qd, ops[0], ops[1], kmask, *ops[2:], logit_scale=scale)
+                assert attn_decode.launches == before + 1
+                y_ref = ref.attn_decode_kmask(qd, ops[0], ops[1], kmask, scale, *ops[2:])
+                err = (y - y_ref).abs().max().item()
+                assert err <= 1e-4, (cap, chunk, kv, peak, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("ps,g", [(64, 4), (16, 4), (24, 16), (64, 48)])
+def test_paged_split_kv_reads_no_page_past_pos(dev, kv, ps, g):
+    """The paged entry's chunks are whole pages: 20-page tables, pos on and
+    off page boundaries (0, ps - 1, ps, mid-page, the last slot), unmapped
+    entries past pos // ps pointing at the dummy page 0, whose K / V (bf16)
+    or scales (int8) are NaN here: a read past pos would poison the row.
+    The plain version reads a clean copy.  One launch per call; f32 on both
+    sides: 1e-4 absolute."""
+    rng = np.random.default_rng(ps + g)
+    nkv, hd, npages, total = 2, 128, 20, 110
+    pos_np = np.array([0, ps - 1, ps, 11 * ps + ps // 3, npages * ps - 1], np.int32)
+    b = len(pos_np)
+    q = _bf16(rng, dev, b, nkv, g, hd)
+    k, v = _bf16(rng, dev, total, ps, nkv, hd), _bf16(rng, dev, total, ps, nkv, hd)
+    scales = ()
+    if kv == "int8":
+        (k, ks), (v, vs) = kv_quantize(k), kv_quantize(v)
+        scales = (ks, vs)
+    pt_np = np.zeros((b, npages), np.int32)
+    for i, p in enumerate(pos_np):
+        used = p // ps + 1
+        pt_np[i, :used] = rng.choice(np.arange(1, total), size=used, replace=False)
+    pt, pos = torch.from_numpy(pt_np).to(dev), torch.from_numpy(pos_np).to(dev)
+    poisoned = [t.clone() for t in (k, v, *scales)]
+    for t in (poisoned[2:] if scales else poisoned):
+        t[0] = float("nan")
+    before = attn_decode_paged.launches
+    y = attn_decode_paged(q, *poisoned[:2], pt, pos, *poisoned[2:], logit_scale=hd**-0.5)
+    assert attn_decode_paged.launches == before + 1
+    y_ref = ref.attn_decode_paged_ref(pt, q.reshape(b, nkv * g, hd), k, v, pos, *scales,
+                                      logit_scale=hd**-0.5)
+    assert torch.isfinite(y).all()
+    torch.testing.assert_close(y, y_ref.reshape(b, nkv, g, hd), rtol=0, atol=1e-4)
 
 
 @pytest.mark.cuda

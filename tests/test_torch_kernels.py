@@ -7,6 +7,8 @@ The CUDA kernels themselves run only on the card: ``test_torch_cuda.py``
 (marked ``cuda``) and ``chip_smoke.py`` hold them against these plain
 versions there.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -337,11 +339,11 @@ def test_lords_grads_pad_n_and_k_but_not_m(monkeypatch):
 def test_block_and_grad_wrappers_take_any_m_and_refuse_off_tile_n_k():
     """The wrappers' contracts: ``block_matmul`` takes any M (the prefill
     kernel masks the ragged edge) with N % 128 and K % 64, its decode entry
-    (M <= 8) N % 32 and K % 256 as before; ``lords_grad`` takes any M with N
-    % 128 and K % 256; ``block_grad`` keeps its tile (M % 32, N and K %
-    128) and ``block_grad_slots``.  Off-tile shapes and M = 0 are refused
-    with "divisible"; CPU tensors run the plain version and count no
-    launch."""
+    (M <= 8) N % 32 and K % 256 as before; ``lords_grad`` and ``block_grad``
+    (one product core) take any M with N % 128 and K % 256, and
+    ``block_grad_slots`` counts 256-column K tiles.  Off-tile shapes and M
+    = 0 are refused with "divisible"; CPU tensors run the plain version and
+    count no launch."""
     from repro_torch.kernels import block_matmul as block_matmul_mod
     from repro_torch.kernels import lords_grad as lords_grad_mod
     from repro_torch.kernels.block_matmul import block_matmul
@@ -349,8 +351,8 @@ def test_block_and_grad_wrappers_take_any_m_and_refuse_off_tile_n_k():
     assert (block_matmul_mod.BM, block_matmul_mod.BN, block_matmul_mod.BK) == (256, 128, 64)
     assert block_matmul_mod.tile(9) == (1, 128, 64) and block_matmul_mod.tile(8) == (1, 32, 256)
     assert (lords_grad_mod.GRAD_BN, lords_grad_mod.GRAD_BK) == (128, 256)
-    assert (lords_grad_mod.BM, lords_grad_mod.BN, lords_grad_mod.BK) == (32, 128, 128)
-    assert [block_grad_slots(bs) for bs in (32, 96, 128, 256, 384)] == [1, 2, 1, 2, 3]
+    assert not hasattr(lords_grad_mod, "BM")  # no M tile: block_grad takes any M
+    assert [block_grad_slots(bs) for bs in (32, 96, 128, 256, 384, 512)] == [1, 2, 1, 1, 3, 2]
     counts = (block_matmul.launches, lords_grad.launches, block_grad.launches)
     rng = np.random.default_rng(4)
 
@@ -381,9 +383,14 @@ def test_block_and_grad_wrappers_take_any_m_and_refuse_off_tile_n_k():
         (x, q, b, a), _ = _lords_operands(max(m, 1), n, k, 6)
         with pytest.raises(ValueError, match="divisible"):
             lords_grad(x[:m], bf16(m, n), q, b, a)
-    qb, _ = block_operands(128, 128)
-    block_grad(bf16(64, 128), bf16(64, 128), qb, 32)
-    for m, n, k in ((33, 128, 128), (32, 128, 256 + 64)):
+    for m, n, k in ((1, 128, 256), (33, 256, 512)):
+        qb, _ = block_operands(n, k)
+        x, g = bf16(m, k), bf16(m, n)
+        parts = block_grad(x, g, qb, 32)
+        assert tuple(parts.shape) == (1, n, k // 32)
+        np.testing.assert_array_equal(parts[0].numpy(), ref.block_grads_ref(
+            g, x, qb, None, 32, want_dx=False)[0].numpy())
+    for m, n, k in ((9, 192, 256), (9, 128, 384), (9, 128, 128), (0, 128, 256)):
         qb, _ = block_operands(n, k)
         with pytest.raises(ValueError, match="divisible"):
             block_grad(bf16(m, k), bf16(m, n), qb, 32)
@@ -399,6 +406,37 @@ def test_split_k_fills_the_card():
     s = split_k(2176, 1024, 4096, 132)            # wk / wv: 72 tiles
     assert 1 < s <= MAX_SPLITS and -(-72 * s // 132) < s
     assert split_k(40, 256, 128, 132) <= 128 // BK
+
+
+@pytest.mark.parametrize("b,nkv,g,cap,page", [
+    (4, 8, 4, 544, None),    # serve_batch's decode: llama3-8b, b 4, 544 slots
+    (8, 8, 4, 1280, 64),     # the engine's: 8 slots, pages of 64, 20-page tables
+    (2, 2, 48, 77, None),    # granite's MQA group, a ragged short cache
+    (1, 1, 1, 4096, None),   # 64 tiles: one CTA each, half the card
+    (1, 1, 48, 4096, None),  # three row groups: chunks of one tile fill the card
+    (64, 8, 4, 4096, None),  # a large batch: chunks at their cap
+    (3, 2, 3, 5 * 24, 24),   # pages that do not divide a tile
+    (1, 4, 16, 1, 8),
+])
+def test_attn_decode_split_plan_covers_the_slots_and_fills_the_card(b, nkv, g, cap, page):
+    """The decode kernel's split over the slot axis: ``chunks`` chunks of
+    ``chunk`` slots cover [0, cap) once, in order, the last one ragged; a
+    chunk is whole 64-slot tiles and, on the paged entry, whole pages, at
+    most CHUNK slots (or one tile-and-page unit); it is smaller only to
+    give every SM a CTA (b·nkv·ceil(g / 16) a chunk), which the CTAs do at
+    serve_batch's and the engine's shapes on the 132 SMs of an H100."""
+    from repro_torch.kernels.attn_decode import CHUNK, ROWS, TILE, split_plan
+    chunk, chunks = split_plan(b, nkv, g, cap, 132, page)
+    unit = TILE if page is None else math.lcm(TILE, page)
+    assert chunk % unit == 0 and chunk <= max(unit, CHUNK)
+    bounds = [(c * chunk, min(cap, (c + 1) * chunk)) for c in range(chunks)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == cap
+    assert all(lo < hi for lo, hi in bounds)
+    assert all(a[1] == b_[0] for a, b_ in zip(bounds, bounds[1:]))
+    ctas = b * nkv * -(-g // ROWS) * chunks
+    assert ctas >= 132 or chunk == unit, (chunk, chunks, ctas)
+    if (b, nkv) in ((4, 8), (8, 8)):
+        assert ctas >= 132 and chunk == CHUNK
 
 
 def test_qattention_matches_jax_ref():
