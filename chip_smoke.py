@@ -7,21 +7,23 @@ Phase 1 builds the CUDA sources of ``src/repro_torch/csrc`` (one ``nvcc``
 each, all at once).  Phase 2 holds each of the thirteen kernels against its
 plain PyTorch version at the shapes llama3-8b's paths give it (the training
 kernels at a 4096-token step) and minicpm3-4b's MLA paths give it (the two
-MLA decode kernels, and the prefill kernel at hd 96 / hd_v 64), and times
-kernel, plain version, one library call (where one computes the same
-function) and the bytes/FLOP bound; each line gives the share of the
-bound the kernel reached, and the lines of the product kernels among the
-eight Hopper designs (the LoRDS and block-wise prefill kernels, the
-attention prefill kernel, the two activation-gradient kernels,
-``lords_grad`` and ``block_grad``; the eighth is the split-KV GQA decode
-kernel) their achieved TFLOP/s (``lords_matmul`` also at the 4096-row step
-of the engine chunk and training, ``attn_prefill`` also with a peaked
-softmax).  Phase 1 prints those eight sources' ptxas registers and
-spills.
+MLA decode kernels, the prefill kernel at hd 96 / hd_v 64, and the two
+decode GEMVs at its seven decode linears, which also run at llama3-8b's
+at M = 8), and times kernel, plain version, one library call (where one
+computes the same function) and the bytes/FLOP bound; each line gives the
+share of the bound the kernel reached, and the lines of the product
+kernels among the ten Hopper designs (the LoRDS and block-wise prefill
+kernels, the attention prefill kernel, the two activation-gradient
+kernels, ``lords_grad`` and ``block_grad``; the others are the split-KV
+GQA decode kernel and the two decode GEMVs) their achieved TFLOP/s
+(``lords_matmul`` also at the 4096-row step of the engine chunk and
+training, ``attn_prefill`` also with a peaked softmax).  Phase 1 prints
+those sources' ptxas registers and spills.
 Phase 3 serves llama3-8b at full width (batch 4, prompt 512, gen 32,
 random weights from a seeded ``torch.Generator``) through
 ``repro_torch.launch.serve.serve_batch`` with a bf16 and with an int8 KV
-cache.  Phase 4 runs the paged continuous-batching engine (int8 pool, 8
+cache, and profiles one bf16 decode step (device busy ms and share of
+wall; phase 7 does the same for block-wise NF4).  Phase 4 runs the paged continuous-batching engine (int8 pool, 8
 slots, a 16-request trace that forces an eviction).  Phase 5 trains the
 same model in PEFT mode through ``repro_torch.launch.train.run_training``
 (a warm-up step and 3 steps of 4096 tokens); phase 6 trains llama3-8b at
@@ -57,6 +59,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_S = 3.35e12    # H100 SXM HBM3
 BF16_FLOP_S = 989e12     # dense bf16 tensor cores
 FP32_FLOP_S = 67e12      # FP32 outside the tensor cores
+TF32_FLOP_S = 495e12     # dense TF32 tensor cores: LoRDS's S = B·A, three passes (3xTF32)
 BATCH, PROMPT, GEN = 4, 512, 32
 # the engine of phase 4: its geometry, pool and trace
 ENGINE = dict(slots=8, page_size=64, chunk=512, max_pages=20, burst=8,
@@ -248,9 +251,7 @@ def check_kernels(cfg, torch, F):
             # ulp of S can flip: relative 2e-3 of the output's scale
             err = (y - y_ref).abs().max().item()
             tol = 2e-3 * y_ref.abs().max().item()
-            nbytes = m * k * 2 + p["q"].numel() + (n * r + r * k) * 4 + m * n * 4
-            b_ms, b_by = bound(nbytes, {"bf16": (2 * m * n * k, BF16_FLOP_S),
-                                        "f32": (2 * r * n * k, FP32_FLOP_S)})
+            b_ms, b_by = lords_bound(m, n, k, r, p["q"].numel())
             reps = 10 if name == "lords_matmul" else 30
             results[name].add(
                 f"{label} M={m} N={n} K={k} r={r}", err, tol,
@@ -261,12 +262,82 @@ def check_kernels(cfg, torch, F):
                 flops=2 * m * n * k)
         del p, w_hat
 
+    check_decode_gemvs(cfg, torch, results, gen, flush)
     check_attention(cfg, torch, F, results, gen, flush)
     check_mla_attention(torch, F, results, gen, flush)
     check_train_kernels(cfg, torch, results, gen, flush)
     check_block_kernels(cfg, torch, results, gen, flush)
     del scratch
     return results
+
+
+def lords_bound(m, n, k, r, q_bytes):
+    """The LoRDS forward's bound: x, the codes, B, A and y once; the bf16
+    product, and S = B·A at three TF32 passes (the 3xTF32 the kernels run on
+    the tensor cores)."""
+    nbytes = m * k * 2 + q_bytes + (n * r + r * k) * 4 + m * n * 4
+    return bound(nbytes, {"bf16": (2 * m * n * k, BF16_FLOP_S),
+                          "tf32": (3 * 2 * r * n * k, TF32_FLOP_S)})
+
+
+def check_decode_gemvs(cfg, torch, results, gen, flush):
+    """Phase 2, the two decode GEMVs beyond their primary checks (not
+    primary): llama3-8b's seven linears at M = 8 (the engines' slots) and
+    minicpm3-4b's seven MLA decode linears at M = 4 and 8, through the
+    dispatch as the main path calls them (minicpm3-4b's kv_down N 288 is
+    padded to 32 rows); LoRDS at the config's ranks, block-wise at block
+    128, with the primary checks' tolerances."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import init_quantized_linear
+    from repro_torch.core.lords import dequantize_weight
+    from repro_torch.core.quantize import dequantize_blockwise, quantize_blockwise
+    from repro_torch.kernels import dispatch, ref
+
+    dev = torch.device("cuda")
+    for arch_cfg, ms in ((cfg, (8,)), (get_config(MLA_ARCH), (BATCH, 8))):
+        spec, cb = arch_cfg.quant, arch_cfg.quant.codebook
+        for (n, k), names in _decode_shapes(arch_cfg).items():
+            label, weight = f"{arch_cfg.name} {'/'.join(names)}", len(names)
+            p = init_quantized_linear(n, k, spec, generator=gen, device=dev)
+            r = p["b"].shape[1]
+            w_hat = dequantize_weight(p, spec)
+            w = torch.randn(n, k, generator=gen, device=dev) / math.sqrt(k)
+            q, s_blk = quantize_blockwise(w, BASE_BLOCK, cb)
+            del w
+            wb_hat = dequantize_blockwise(q, s_blk, BASE_BLOCK, cb, dtype=torch.bfloat16)
+            for m in ms:
+                x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+                args = (x, p["q"], p["b"], p["a"], cb)
+
+                def lords():
+                    return dispatch._lords_forward(*args, "fused")
+
+                y, y_ref = lords(), ref.lords_matmul_ref(*args)
+                torch.cuda.synchronize()
+                b_ms, b_by = lords_bound(m, n, k, r, p["q"].numel())
+                results["lords_decode"].add(
+                    f"{label} M={m} N={n} K={k} r={r}", (y - y_ref).abs().max().item(),
+                    2e-3 * y_ref.abs().max().item(), timed(lords, 30, flush),
+                    timed(lambda: ref.lords_matmul_ref(*args), 3, flush),
+                    timed(lambda: torch.matmul(x, w_hat.t()), 30, flush), b_ms, b_by, weight,
+                    primary=False)
+
+                def block():
+                    return dispatch._block_forward(x, q, s_blk, BASE_BLOCK, cb, "fused")
+
+                y, y_ref = block(), ref.block_matmul_ref(x, q, s_blk, BASE_BLOCK, cb)
+                torch.cuda.synchronize()
+                b_ms, b_by = bound(m * k * 2 + q.numel() + s_blk.numel() * 4 + m * n * 4,
+                                   {"bf16": (2 * m * n * k, BF16_FLOP_S)})
+                results["block_matmul"].add(
+                    f"decode {label} M={m} N={n} K={k} bs={BASE_BLOCK}",
+                    (y - y_ref).abs().max().item(), 1e-4 * y_ref.abs().max().item(),
+                    timed(block, 30, flush),
+                    timed(lambda: ref.block_matmul_ref(x, q, s_blk, BASE_BLOCK, cb), 3, flush),
+                    timed(lambda: torch.matmul(x, wb_hat.t()), 30, flush), b_ms, b_by, weight,
+                    primary=False)
+                del x, y, y_ref
+            del p, w_hat, q, s_blk, wb_hat
 
 
 def _layer_shapes(cfg):
@@ -276,6 +347,22 @@ def _layer_shapes(cfg):
     shapes = {}
     for label, n, k in (("wq", nh * hd, d), ("wk", nkv * hd, d), ("wv", nkv * hd, d),
                         ("wo", d, nh * hd), ("gate", dff, d), ("up", dff, d),
+                        ("down", d, dff)):
+        shapes.setdefault((n, k), []).append(label)
+    return shapes
+
+
+def _decode_shapes(cfg):
+    """A layer's seven decode linears (GQA, or MLA's absorbed-latent ones)
+    grouped by (N, K) -> their names."""
+    if cfg.attn_kind != "mla":
+        return _layer_shapes(cfg)
+    d, nh, dff, mla = cfg.d_model, cfg.num_heads, cfg.d_ff, cfg.mla
+    shapes = {}
+    for label, n, k in (("q_down", mla.q_lora_rank, d),
+                        ("q_up", nh * (mla.qk_nope_dim + mla.qk_rope_dim), mla.q_lora_rank),
+                        ("kv_down", mla.kv_lora_rank + mla.qk_rope_dim, d),
+                        ("wo", d, nh * mla.v_head_dim), ("gate", dff, d), ("up", dff, d),
                         ("down", d, dff)):
         shapes.setdefault((n, k), []).append(label)
     return shapes
@@ -979,6 +1066,52 @@ def serve_checks(cfg, params, torch, kv, what=None, used=LORDS_SERVE, unused=BLO
     return launches
 
 
+def profile_decode(cfg, params, torch, what):
+    """One fused serve_batch decode step (batch BATCH, after a PROMPT-token
+    prefill and a warm-up step, through ``launch.steps.generate`` as
+    serve_batch runs it): its wall time on the host clock, then the next
+    step under torch.profiler for the device's busy ms (its share of that
+    wall) and the largest kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.steps import generate
+    from repro_torch.models import cache_init, forward_prefill
+
+    dev = torch.device("cuda")
+    cap = PROMPT + GEN
+    cache = cache_init(cfg, BATCH, cap, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (BATCH, cap), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(5))
+    col = torch.arange(cap, dtype=torch.int32, device=dev)[None]
+    positions = torch.where(col < PROMPT, col, -1).expand(BATCH, cap)
+    with torch.inference_mode():
+        _, cache = forward_prefill(params, cfg, {"tokens": tokens}, cache, positions)
+        tok = tokens[:, PROMPT - 1]
+
+        def step(i):
+            pos = torch.full((BATCH,), PROMPT + i, dtype=torch.int32, device=dev)
+            out, _ = generate(params, cfg, tok, cache, pos, gen=1)
+            torch.cuda.synchronize()
+            return out
+
+        step(0)
+        t0 = time.perf_counter()
+        step(1)
+        wall = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step(2)
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                  reverse=True)
+    busy = sum(r[0] for r in rows)
+    log(f"[{what}] profile, one decode step at {cfg.num_layers} layers: wall {wall:.1f} ms "
+        f"(unprofiled), device busy {busy:.2f} ms ({100 * busy / wall:.1f}%); by kernel: "
+        + "; ".join(f"{name[:60]} {ms:.2f} ms x{n}" for ms, n, name in rows[:8]))
+    return busy, wall
+
+
 def engine_trace(cfg, n: int):
     """The phase-4 trace: ``n`` requests from default_rng(0), prompts
     uniform in [64, 1024], max_new uniform in [16, 128], all arriving at 0
@@ -1488,7 +1621,7 @@ def main() -> int:
         f"into {_build.BUILD_DIR.relative_to(ROOT)}")
     # the Hopper designs' ptxas report
     for name in ("lords_matmul", "attn_prefill", "lords_matmul_t", "block_matmul_t",
-                 "block_matmul", "lords_grad", "block_grad", "attn_decode"):
+                 "block_matmul", "lords_grad", "block_grad", "attn_decode", "lords_decode"):
         for kernel, regs, spill in _build.resource_usage(name):
             log(f"[build] {name}.cu {kernel}: {regs} registers, {spill} bytes spilled")
 
@@ -1508,6 +1641,8 @@ def main() -> int:
         t0 = time.perf_counter()
         paths[f"serve_batch {kv}"] = serve_checks(cfg, params, torch, kv)
         depths[f"serve_batch {kv}"] = cfg.num_layers
+        if kv == "bf16":
+            profile_decode(cfg.with_(kv_cache_dtype=kv), params, torch, f"serve {kv}")
         log(f"[serve {kv}] phase time {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     paths["engine int8"] = engine_checks(cfg, params, torch)
@@ -1543,6 +1678,8 @@ def main() -> int:
             unused=LORDS_LINEAR + ("block_matmul_t", "block_grad"),
             expect={"block_matmul": n_linear})
         depths[f"serve_batch {method}"] = cfg.num_layers
+        if method == "blockwise":
+            profile_decode(qcfg, params, torch, what)
         log(f"[{what}] phase time {time.perf_counter() - t0:.1f} s")
         if method == "qlora":
             t0 = time.perf_counter()

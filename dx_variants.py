@@ -1,7 +1,15 @@
 #!/usr/bin/env python3
-"""Time copies of six Hopper kernels side by side on one card.
+"""Time copies of eight Hopper kernels side by side on one card.
 
-    python3 dx_variants.py DIR [DIR ...]
+    python3 dx_variants.py [--gemv] DIR [DIR ...]
+
+The two decode GEMVs (``lords_decode.cu`` and ``block_matmul.cu``'s decode
+entry, on the core ``gemv.cuh`` or as before it) of each copy are held
+against the plain versions (every codebook width, ranks up to 72, blocks
+of 32-128, a split-K shape; y NaN-filled first) and timed over llama3-8b's
+and minicpm3-4b's seven decode linears at M = 4 and 8, operands padded to
+each design's own tile, a core copy also at half and twice its split plan;
+``--gemv`` times only these two.
 
 Each DIR holds a copy of ``src/repro_torch/csrc``, edited or not.  Each
 copy's ``lords_matmul_t.cu`` and ``block_matmul_t.cu`` (the two
@@ -38,7 +46,8 @@ import chip_smoke
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "build" / "dx_variants"
 LINEAR = ("lords_matmul_t", "block_matmul_t", "block_matmul", "lords_grad", "block_grad")
-SOURCES = LINEAR + ("attn_decode",)
+SOURCES = LINEAR + ("attn_decode", "lords_decode")
+GEMV = ("lords_decode", "block_decode")  # the two decode GEMVs (M <= 8)
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {  # entry point -> (argtypes, restype)
     "lords_matmul_t_workspace": ([I] * 4, ctypes.c_longlong),
@@ -48,6 +57,14 @@ SIGNATURES = {  # entry point -> (argtypes, restype)
     "lords_grad_workspace": ([I] * 4, ctypes.c_longlong),
     "lords_grad_launch": ([P] * 11 + [I] * 6 + [P], I),
     "block_grad_launch": ([P] * 5 + [I] * 6 + [P], I),
+}
+# the decode GEMVs: on the GEMV core (a workspace, tickets and the split
+# count) or as before it (lords_decode adds into a zeroed y)
+GEMV_SIGNATURES = {
+    True: {"lords_decode_launch": ([P] * 8 + [I] * 7 + [P], I),
+           "block_decode_launch": ([P] * 7 + [I] * 7 + [P], I)},
+    False: {"lords_decode_launch": ([P] * 6 + [I] * 6 + [P], I),
+            "block_decode_launch": ([P] * 5 + [I] * 6 + [P], I)},
 }
 # the decode entry points: split-KV (a workspace, tickets and the chunk) or
 # one CTA per (batch row, KV head) as before
@@ -64,14 +81,14 @@ CHECKS = ((9, 128, 256, 6, 32), (136, 128, 1024, 24, 128), (264, 1024, 768, 72, 
           (300, 256, 256, 40, 256), (513, 256, 768, 1, 64))
 
 
-def build(dirs):
+def build(dirs, sources=SOURCES):
     """{(dir, source): loaded library}, every nvcc started at once."""
     from repro_torch.kernels import _build
 
     OUT.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for i, d in enumerate(dict.fromkeys(dirs)):
-        for name in SOURCES:
+        for name in sources:
             so = OUT / f"{i}_{Path(d).name}_{name}.so"
             cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", d, "-o", str(so), f"{d}/{name}.cu"]
             jobs[(d, name)] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -84,7 +101,8 @@ def build(dirs):
         for kernel, regs, spill in _build.resource_usage(name, log):
             print(f"[build] {d} {name}.cu {kernel}: {regs} registers, {spill} bytes spilled")
         lib = libs[(d, name)] = ctypes.CDLL(str(so))
-        for entry, (args, res) in (SIGNATURES | DECODE_SIGNATURES[split_kv(d)]).items():
+        for entry, (args, res) in (SIGNATURES | DECODE_SIGNATURES[split_kv(d)]
+                                   | GEMV_SIGNATURES[gemv_core(d)]).items():
             if hasattr(lib, entry):
                 getattr(lib, entry).argtypes, getattr(lib, entry).restype = args, res
     return libs
@@ -93,6 +111,75 @@ def build(dirs):
 def split_kv(d) -> bool:
     """Whether DIR's decode kernel is the split-KV design."""
     return "tickets" in (Path(d) / "attn_decode.cu").read_text()
+
+
+def gemv_core(d) -> bool:
+    """Whether DIR's decode GEMVs run on the shared core (csrc/gemv.cuh)."""
+    return (Path(d) / "gemv.cuh").exists()
+
+
+def gemv_wg(d) -> bool:
+    """Whether DIR's lords_decode runs S on wgmma (one 512-thread CTA an
+    SM), which the split plan counts by rank."""
+    return gemv_core(d) and "gemv_wg_kernel" in (Path(d) / "gemv.cuh").read_text()
+
+
+def gemv_tile(d, name) -> tuple[int, int]:
+    """The (N, K) multiples DIR's decode GEMV ``name`` takes."""
+    if gemv_core(d):
+        return 32, 128
+    return (128, 256) if name == "lords_decode" else (32, 256)
+
+
+def gemv_launcher(torch, libs, d, lut, n_levels, bits):
+    """{name: callable} of DIR's two decode GEMVs, each writing y (M, N) in
+    place; a copy from before the core zeroes y first, as its wrapper did."""
+    from repro_torch.kernels import gemv
+    from repro_torch.kernels.lords_matmul import _sms
+
+    core, wg = gemv_core(d), gemv_wg(d)
+    st = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+
+    def check(err, name):
+        if err:
+            raise RuntimeError(f"{d}: {name} CUDA error {err}")
+
+    def run_lords(x, q, b, a, y, s=None):
+        m, k = x.shape
+        n, r = b.shape
+        lib = libs[(d, "lords_decode")]
+        if core:
+            s = s or gemv.splits(m, n, k, _sms(x.device), r if wg else None)
+            ws, tickets = gemv.launch_buffers(x.device, m, n, s)
+            err = lib.lords_decode_launch(x.data_ptr(), q.data_ptr(), b.data_ptr(), a.data_ptr(),
+                                          lut.data_ptr(), y.data_ptr(), ws.data_ptr(),
+                                          tickets.data_ptr(), m, n, k, r, bits, n_levels, s, st())
+        else:
+            y.zero_()
+            err = lib.lords_decode_launch(x.data_ptr(), q.data_ptr(), b.data_ptr(), a.data_ptr(),
+                                          lut.data_ptr(), y.data_ptr(), m, n, k, r, bits,
+                                          n_levels, st())
+        check(err, "lords_decode")
+
+    def run_block(x, q, s_blk, y, s=None):
+        m, k = x.shape
+        n = q.shape[0]
+        bs = k // s_blk.shape[1]
+        lib = libs[(d, "block_matmul")]
+        if core:
+            s = s or gemv.splits(m, n, k, _sms(x.device))
+            ws, tickets = gemv.launch_buffers(x.device, m, n, s)
+            err = lib.block_decode_launch(x.data_ptr(), q.data_ptr(), s_blk.data_ptr(),
+                                          lut.data_ptr(), y.data_ptr(), ws.data_ptr(),
+                                          tickets.data_ptr(), m, n, k, bs, bits, n_levels, s,
+                                          st())
+        else:
+            err = lib.block_decode_launch(x.data_ptr(), q.data_ptr(), s_blk.data_ptr(),
+                                          lut.data_ptr(), y.data_ptr(), m, n, k, bs, bits,
+                                          n_levels, st())
+        check(err, "block_decode")
+
+    return {"lords_decode": run_lords, "block_decode": run_block}
 
 
 def launchers(torch, libs, d, lut, n_levels, bits):
@@ -229,7 +316,7 @@ def check(torch, libs, dirs, gen) -> bool:
     dev = torch.device("cuda")
     passed = True
     for d in dict.fromkeys(dirs):
-        worst = dict.fromkeys(SOURCES, 0.0)
+        worst = dict.fromkeys(LINEAR + ("attn_decode",), 0.0)
         for cb in ("nf4", "nf3", "nf2", "int8"):
             lut = device_lut(cb, str(dev))
             run = launchers(torch, libs, d, lut, lut.numel(), pack_spec(cb).bits)
@@ -351,6 +438,106 @@ def check_decode(torch, libs, d, gen) -> float:
     return worst
 
 
+# (M, N, K, rank, block) of the GEMV checks: every shape on both designs'
+# tiles; the last splits K over CTAs
+GEMV_CHECKS = ((1, 128, 256, 6, 32), (4, 384, 512, 24, 128), (8, 256, 768, 72, 96),
+               (5, 1024, 4096, 16, 128))
+
+
+def check_gemv(torch, libs, d, gen) -> float:
+    """DIR's decode GEMVs against the plain versions at every codebook
+    width (y NaN-filled first); the worst error over its bound (2e-3 of max
+    |y| LoRDS, 1e-4 block-wise)."""
+    from repro_torch.core import QuantSpec, init_quantized_linear
+    from repro_torch.core.quantize import pack_spec, quantize_blockwise
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.lords_matmul import device_lut
+
+    dev = torch.device("cuda")
+    worst = 0.0
+    for cb in ("nf4", "nf3", "nf2", "int8"):
+        lut = device_lut(cb, str(dev))
+        run = gemv_launcher(torch, libs, d, lut, lut.numel(), pack_spec(cb).bits)
+        for m, n, k, r, bs in GEMV_CHECKS:
+            p = init_quantized_linear(n, k, QuantSpec(codebook=cb, block_size=128, rank=r),
+                                      generator=gen, device=dev)
+            x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+            q, s_blk = quantize_blockwise(torch.randn(n, k, generator=gen, device=dev), bs, cb)
+            y = torch.full((m, n), float("nan"), device=dev)
+            run["lords_decode"](x, p["q"], p["b"], p["a"], y)
+            worst = max(worst, nan_inf(rel_err(y, ref.lords_matmul_ref(
+                x, p["q"], p["b"], p["a"], cb))) / 2e-3)
+            y.fill_(float("nan"))
+            run["block_decode"](x, q, s_blk, y)
+            worst = max(worst, nan_inf(rel_err(y, ref.block_matmul_ref(x, q, s_blk, bs, cb)))
+                        / 1e-4)
+    return worst
+
+
+def time_gemv(torch, libs, dirs, gen, flush):
+    """Each directory's two decode GEMVs over llama3-8b's and minicpm3-4b's
+    seven decode linears at M = 4 (serve_batch) and 8 (the engines), nf4,
+    block 128, operands zero-padded to each design's own tile as the
+    dispatch pads them; ms a layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import init_quantized_linear
+    from repro_torch.core.quantize import pack_spec, quantize_blockwise
+    from repro_torch.kernels import gemv
+    from repro_torch.kernels.lords_matmul import _sms, device_lut
+
+    dev = torch.device("cuda")
+    for arch in ("llama3-8b", "minicpm3-4b"):
+        cfg = get_config(arch)
+        cb = cfg.quant.codebook
+        lut = device_lut(cb, str(dev))
+        layer = {}
+        for (n, k), names in chip_smoke._decode_shapes(cfg).items():
+            p = init_quantized_linear(n, k, cfg.quant, generator=gen, device=dev)
+            q, s_blk = quantize_blockwise(torch.randn(n, k, generator=gen, device=dev) / k**0.5,
+                                          chip_smoke.BASE_BLOCK, cb)
+            for m in (4, 8):
+                x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+                for i, d in enumerate(dirs):
+                    run = gemv_launcher(torch, libs, d, lut, lut.numel(), pack_spec(cb).bits)
+                    for name in GEMV:
+                        tn, tk = gemv_tile(d, name)
+                        if name == "block_decode":
+                            tk = math.lcm(tk, chip_smoke.BASE_BLOCK)
+                        np_, kp = -(-n // tn) * tn, -(-k // tk) * tk
+                        pad = torch.nn.functional.pad
+                        xp = pad(x, (0, kp - k))
+                        y = torch.empty(m, np_, device=dev)
+                        qpad = pack_spec(cb).packed_width(kp) - pack_spec(cb).packed_width(k)
+                        if name == "lords_decode":
+                            ops = (pad(p["q"], (0, qpad, 0, np_ - n)),
+                                   pad(p["b"], (0, 0, 0, np_ - n)), pad(p["a"], (0, kp - k)))
+                        else:
+                            ops = (pad(q, (0, qpad, 0, np_ - n)),
+                                   pad(s_blk, (0, (kp - k) // chip_smoke.BASE_BLOCK, 0, np_ - n),
+                                       value=1.0))
+                        ops = tuple(o.contiguous() for o in ops)
+                        # a core copy also at half and twice the plan's splits
+                        rank = p["b"].shape[1] if name == "lords_decode" and gemv_wg(d) else None
+                        plan = gemv.splits(m, np_, kp, _sms(dev), rank) if gemv_core(d) else None
+                        sweep = {"": None}
+                        if plan is not None:
+                            for f, tag in ((0.5, " splits/2"), (2, " splits*2")):
+                                sf = min(max(1, int(plan * f)), kp // gemv.KSTEP)
+                                if sf != plan:
+                                    sweep[tag] = sf
+                        for tag, sf in sweep.items():
+                            def fn():
+                                run[name](xp, *ops, y, sf) if sf else run[name](xp, *ops, y)
+                            ms = min(chip_smoke.timed(fn, 30, flush),
+                                     chip_smoke.timed(fn, 30, flush))
+                            key = (i, name + tag, m)
+                            layer[key] = layer.get(key, 0.0) + len(names) * ms
+                            print(f"[time] {d} {name}{tag} {arch} M={m} {'/'.join(names)} N={n} "
+                                  f"K={k} r={p['b'].shape[1]} splits={sf or plan}: {ms:.4f} ms")
+        for (i, name, m), ms in layer.items():
+            print(f"[layer] {dirs[i]} {name} {arch} M={m}: {ms:.4f} ms a layer of seven linears")
+
+
 def time_decode(torch, libs, dirs, gen, flush):
     """The decode kernel of each directory at serve_batch's last step (b 4,
     543 of 544 slots, bf16 and int8 cache) and the engine's paged int8 pool
@@ -398,6 +585,9 @@ def main() -> int:
     import torch
 
     dirs = sys.argv[1:]
+    only_gemv = bool(dirs) and dirs[0] == "--gemv"
+    if only_gemv:
+        dirs = dirs[1:]
     if not dirs or not torch.cuda.is_available():
         print(__doc__ if not dirs else "dx_variants: no CUDA device visible", file=sys.stderr)
         return 2
@@ -408,11 +598,21 @@ def main() -> int:
     from repro_torch.core.quantize import pack_spec, quantize_blockwise
     from repro_torch.kernels.lords_matmul import device_lut
 
-    libs = build(dirs)
+    libs = build(dirs, ("lords_decode", "block_matmul") if only_gemv else SOURCES)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1234)
-    passed = check(torch, libs, dirs, gen)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev).zero_
+    passed = True
+    for d in dict.fromkeys(dirs):
+        v = check_gemv(torch, libs, d, gen)
+        passed &= v <= 1.0
+        print(f"[check] {d} decode GEMVs: worst error {v:.3f} of its bound "
+              f"{'PASS' if v <= 1.0 else 'FAIL'}")
+    time_gemv(torch, libs, dirs, gen, flush)
+    if only_gemv:
+        print(chip_smoke.nvidia_smi())
+        return 0 if passed else 1
+    passed &= check(torch, libs, dirs, gen)
     cfg = get_config("llama3-8b")
     m_train = chip_smoke.TRAIN_SEQ * chip_smoke.TRAIN_BATCH
     m_pre = chip_smoke.BATCH * (chip_smoke.PROMPT + chip_smoke.GEN)

@@ -1,10 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the LoRDS dequant-matmul and
-// gradient kernels and the attention kernels: cp.async copies, the
-// `mma.sync` bf16 product with its split of f32 into bf16 hi / lo parts and
-// the MUFU 2^x, mbarriers and TMA tile loads, the tf32 split, shared-memory
-// matrix descriptors (K-major and MN-major), wgmma fences and the wgmma
-// shapes they issue, 3xTF32 S, and the pre-pass that splits B and A into
-// tf32 hi / lo parts for it.
+// gradient kernels, the decode GEMVs and the attention kernels: cp.async
+// copies, the `mma.sync` bf16 and tf32 products, the split of f32 into bf16
+// hi / lo parts and the MUFU 2^x, mbarriers and TMA tile loads, the tf32
+// split, shared-memory matrix descriptors (K-major and MN-major), wgmma
+// fences and the wgmma shapes they issue, 3xTF32 S (64 x 64 and 64 x 32),
+// and the pre-pass that splits B and A into tf32 hi / lo parts for it.
 #pragma once
 
 #include <cstdint>
@@ -53,6 +53,18 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
                                          uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d (16 x 8, f32) += a (16 x 8, tf32) · b (8 x 8, tf32): `mma.sync`; the
+// operands are tf32 bit patterns (see split_tf32).  Not volatile: the
+// compiler may interleave it with independent work.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
@@ -133,6 +145,24 @@ __device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32], uint64_t da,
         "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
         "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 32, f32) (+)= da (64 x 8 tf32) · db (32 x 8 tf32), both K-major in
+// shared memory; scale_d == 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n32k8_tf32(float (&d)[16], uint64_t da, uint64_t db,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
@@ -237,6 +267,21 @@ __device__ __forceinline__ void s_3xtf32(float (&sacc)[32], uint32_t uh, uint32_
                         c > 0);  // c == 0 starts S at 0
     wgmma_m64n64k8_tf32(sacc, tf32_desc(uh + uo, ulbo), tf32_desc(vl + vo, vlbo), 1);
     wgmma_m64n64k8_tf32(sacc, tf32_desc(uh + uo, ulbo), tf32_desc(vh + vo, vlbo), 1);
+  }
+  wgmma_commit();
+}
+
+// S (64 x 32) = U·V as s_3xtf32, on m64n32k8: V's 32 columns, rank groups
+// `vlbo` bytes apart.
+__device__ __forceinline__ void s_3xtf32(float (&sacc)[16], uint32_t uh, uint32_t ul,
+                                         uint32_t ulbo, uint32_t vh, uint32_t vl, uint32_t vlbo,
+                                         int r8) {
+  wgmma_fence();
+  for (int c = 0; c < r8; ++c) {
+    const uint32_t uo = 2 * c * ulbo, vo = 2 * c * vlbo;
+    wgmma_m64n32k8_tf32(sacc, tf32_desc(ul + uo, ulbo), tf32_desc(vh + vo, vlbo), c > 0);
+    wgmma_m64n32k8_tf32(sacc, tf32_desc(uh + uo, ulbo), tf32_desc(vl + vo, vlbo), 1);
+    wgmma_m64n32k8_tf32(sacc, tf32_desc(uh + uo, ulbo), tf32_desc(vh + vo, vlbo), 1);
   }
   wgmma_commit();
 }

@@ -14,12 +14,6 @@ __device__ __forceinline__ float clamp_scale(float s) {
   return fabsf(s) < kScaleEps ? (s >= 0.f ? kScaleEps : -kScaleEps) : s;
 }
 
-// Ŵ element exactly as the plain version computes it: lut[code] * S in f32,
-// rounded to bf16 (the activation dtype) before the product.
-__device__ __forceinline__ float dequant_bf16(float level, float s) {
-  return __bfloat162float(__float2bfloat16_rn(level * clamp_scale(s)));
-}
-
 // Code k of a row whose packed 32-bit words are staged in shared memory
 // with one guard word after them: code k sits at bit k·BITS of the row's
 // little-endian bit stream, which covers the 2-, 3- (8 codes per 3 bytes),
@@ -47,26 +41,6 @@ __device__ __forceinline__ uint64_t code_window(const uint32_t* row, int j) {
   uint64_t v = row[w];
   if (off + 8 * BITS > 32) v |= (uint64_t)row[w + 1] << 32;
   return v >> off;
-}
-
-// Codes k0 .. k0+7 of a row (k0 a multiple of 8) straight from device
-// memory: BITS bytes at byte k0·BITS/8, little-endian, code j in bits
-// [j·BITS, (j+1)·BITS) of the result.
-template <int BITS>
-__device__ __forceinline__ uint64_t load_codes8(const uint8_t* row, int k0) {
-  const uint8_t* p = row + (size_t)k0 * BITS / 8;
-  if constexpr (BITS == 4) {
-    return *reinterpret_cast<const uint32_t*>(p);
-  } else if constexpr (BITS == 8) {
-    return *reinterpret_cast<const uint64_t*>(p);
-  } else if constexpr (BITS == 2) {
-    return *reinterpret_cast<const uint16_t*>(p);
-  } else {
-    uint64_t w = 0;
-#pragma unroll
-    for (int i = 0; i < BITS; ++i) w |= (uint64_t)p[i] << (8 * i);
-    return w;
-  }
 }
 
 // Set the dynamic shared-memory ceiling of a kernel when it needs more than

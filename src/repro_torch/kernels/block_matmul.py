@@ -8,7 +8,8 @@ The block is K / (s_blk's columns).  Port of the JAX package's
 ``block_matmul_pallas``, which serves every block-wise linear at every M.
 M > 8 launches the source's prefill entry point, the core of
 ``csrc/lords_matmul.cu`` in its block-scale mode (any M; split-K for narrow
-N); M ≤ 8 its decode entry point (a weight-stream GEMV).  Both count as
+N); M ≤ 8 its decode entry point, the GEMV core ``csrc/gemv.cuh`` that
+``lords_decode`` shares, in its block-scale mode.  Both count as
 ``block_matmul`` launches.  On CUDA tensors the wrapper launches the
 hand-written kernel (or raises); on CPU tensors it runs the plain version
 :func:`repro_torch.kernels.ref.block_matmul_ref`.  ``block_matmul.launches``
@@ -19,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.quantize import pack_spec
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, gemv
 from repro_torch.kernels.lords_matmul import _sms, device_lut, split_k
 from repro_torch.kernels.ref import block_matmul_ref
 
@@ -29,7 +30,7 @@ __all__ = ["block_matmul", "check_block_operands", "tile", "BM", "BN", "BK",
 # the prefill kernel's tile: x rows, Ŵ rows, k per step.  N and K must
 # divide BN and BK; the kernel masks the ragged M edge.
 BM, BN, BK = 256, 128, 64
-DECODE_M_MAX, DECODE_BN, DECODE_BK = 8, 32, 256  # the decode entry point's
+DECODE_M_MAX, DECODE_BN, DECODE_BK = 8, gemv.N_MULT, gemv.KSTEP  # the decode entry's
 
 
 def tile(m: int) -> tuple[int, int, int]:
@@ -61,7 +62,7 @@ def check_block_operands(what, m, k, q_packed, s_blk, codebook_name) -> tuple:
 def block_matmul(x, q_packed, s_blk, codebook_name: str = "nf4") -> torch.Tensor:
     """x (M, K) bf16 · dequant(q (N, K·bits/8) u8, s_blk (N, K/bs) f32)ᵀ →
     (M, N) f32.  Any M >= 1; N must divide BN and K BK, and for M ≤ 8 N
-    must divide 32 and K 256 (the dispatch layer pads them)."""
+    must divide 32 and K 128 (the dispatch layer pads them)."""
     what = "block_matmul"
     if x.dim() != 2:
         raise ValueError(f"{what}: x must be 2-D")
@@ -79,9 +80,12 @@ def block_matmul(x, q_packed, s_blk, codebook_name: str = "nf4") -> torch.Tensor
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if m <= DECODE_M_MAX:
-        fn = _build.bind("block_matmul", "block_decode_launch", "pppppiiiiiip")
+        splits = gemv.splits(m, n, k, _sms(x.device))
+        ws, tickets = gemv.launch_buffers(x.device, m, n, splits)
+        fn = _build.bind("block_matmul", "block_decode_launch", "pppppppiiiiiiip")
         err = fn(x.data_ptr(), q_packed.data_ptr(), s_blk.data_ptr(), lut.data_ptr(),
-                 y.data_ptr(), m, n, k, bs, ps.bits, lut.numel(), stream)
+                 y.data_ptr(), ws.data_ptr(), tickets.data_ptr(), m, n, k, bs, ps.bits,
+                 lut.numel(), splits, stream)
     else:
         splits = split_k(m, n, k, _sms(x.device))
         # the split-K partials, unused at one split

@@ -44,14 +44,15 @@ Padding: the kernels take tile-divisible shapes.  K is zero-padded (exact:
 padded x columns are zero), padded N rows and M rows are sliced off, and
 padded attention positions are -1 (dead); the MLA decode kernels take
 every shape as it comes (no head padding).  Lords forwards with M ≤ 8
-flattened tokens route to the weight-stationary decode kernel; the
-block-wise wrapper serves every M, as the JAX package's kernel does (its
-source has a decode entry point for M ≤ 8).  Every kernel takes any M, so
-no M is padded.  Block-wise K pads to a multiple of lcm(step, block) so
-tiles and blocks stay commensurate (step 64 for the prefill forward, 256
-for the decode forward and for the backward, whose ``block_grad`` tile is
-256 columns wide and whose ``block_matmul_t`` needs K % 128), and padded
-scales are 1.0.
+flattened tokens route to the decode GEMV kernel; the block-wise wrapper
+serves every M, as the JAX package's kernel does (its source has a decode
+entry point for M ≤ 8, on the same GEMV core).  Every kernel takes any M,
+so no M is padded.  The decode forwards pad N to 32 and K to 128.
+Block-wise K pads to a multiple of lcm(step, block) so tiles and blocks
+stay commensurate (step 64 for the prefill forward, 128 for the decode
+forward, 256 for the backward, whose ``block_grad`` tile is 256 columns
+wide and whose ``block_matmul_t`` needs K % 128), and padded scales are
+1.0.
 """
 from __future__ import annotations
 
@@ -286,15 +287,15 @@ class _LordsQatQMatmul(torch.autograd.Function):
 # ---------------------------------------------------------------------------
 
 
-def _block_padded(q_packed, s_blk, n, k, block_size, ps, kstep=256):
-    """The padded geometry of a block-wise call: N to 128, K to
+def _block_padded(q_packed, s_blk, n, k, block_size, ps, kstep=256, nstep=128):
+    """The padded geometry of a block-wise call: N to ``nstep``, K to
     lcm(``kstep``, block_size) so tiles and blocks stay commensurate (M is
     not padded: every kernel takes any M); padded scales are 1.0 (padded x
     / g entries are zero, so they add nothing).  The backward's two kernels
-    share the default; the forward pads K to its own step (64, or the
-    decode entry's 256)."""
+    share the defaults; the forward pads to its own tile (N 128, K 64, or
+    the decode entry's N 32, K 128)."""
     kmult = kstep * block_size // math.gcd(kstep, block_size)
-    np_, kp = _round_up(n, 128), _round_up(k, kmult)
+    np_, kp = _round_up(n, nstep), _round_up(k, kmult)
     qp = _pad2(q_packed, np_, ps.packed_width(kp))
     pc, pr = kp // block_size - s_blk.shape[1], np_ - n
     s_pad = s_blk.to(torch.float32)
@@ -310,9 +311,9 @@ def _block_forward(x2d, q_packed, s_blk, block_size, codebook, backend):
         return ref.block_matmul_ref(x2d, q_packed, s_blk, block_size, codebook)
     m, k = x2d.shape
     n = q_packed.shape[0]
-    _, _, tk = block_matmul_mod.tile(m)
+    _, tn, tk = block_matmul_mod.tile(m)
     qp, s_pad, _, kp = _block_padded(q_packed, s_blk, n, k, block_size,
-                                     pack_spec(codebook), tk)
+                                     pack_spec(codebook), tk, tn)
     y = block_matmul_mod.block_matmul(_pad2(x2d, m, kp), qp, s_pad, codebook)
     return y[:m, :n]
 

@@ -1,8 +1,9 @@
 """Decode-shaped (M ≤ 8) fused LoRDS dequant-GEMV: the wrapper of
-``csrc/lords_decode.cu``.
+``csrc/lords_decode.cu`` (the GEMV core ``csrc/gemv.cuh`` in its LoRDS
+mode).
 
 Same math as :mod:`repro_torch.kernels.lords_matmul`, organized around
-streaming each weight once per call.  Port of the JAX package's
+building each weight once per call.  Port of the JAX package's
 ``lords_decode_pallas``.  On CUDA tensors the wrapper launches the kernel
 (or raises); on CPU tensors it runs the plain version
 :func:`repro_torch.kernels.ref.lords_matmul_ref`.  ``lords_decode.launches``
@@ -12,19 +13,19 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
-from repro_torch.kernels.lords_matmul import check_lords_operands, device_lut
+from repro_torch.kernels import _build, gemv
+from repro_torch.kernels.lords_matmul import _sms, check_lords_operands, device_lut
 from repro_torch.kernels.ref import lords_matmul_ref
 
 __all__ = ["lords_decode", "DECODE_M_MAX", "BN", "BK"]
 
 DECODE_M_MAX = 8  # the M-bucket this kernel serves
-BN, BK = 128, 256  # weight rows and K slice of one block; shapes must divide
+BN, BK = gemv.N_MULT, gemv.KSTEP  # N and K must divide these (the dispatch pads)
 
 
 def lords_decode(x, q_packed, b, a, codebook_name: str = "nf4") -> torch.Tensor:
     """x (M ≤ 8, K) bf16 · dequant(q, b, a)ᵀ → (M, N) f32.  N must divide
-    128 and K 256 (the dispatch layer pads)."""
+    32 and K 128 (the dispatch layer pads)."""
     what = "lords_decode"
     m, n, k, r, ps = check_lords_operands(what, x, q_packed, b, a,
                                           codebook_name)
@@ -36,11 +37,14 @@ def lords_decode(x, q_packed, b, a, codebook_name: str = "nf4") -> torch.Tensor:
     if not _build.on_card(what, x=x, q=q_packed, b=b, a=a):
         return lords_matmul_ref(x, q_packed, b, a, codebook_name)
     lut = device_lut(codebook_name, str(x.device))
-    # K slices meet in y through atomicAdd, so it starts at zero
-    y = torch.zeros((m, n), dtype=torch.float32, device=x.device)
-    fn = _build.bind("lords_decode", "lords_decode_launch", "ppppppiiiiiip")
+    # every element of y is written once (split partials meet in ws)
+    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    splits = gemv.splits(m, n, k, _sms(x.device), r)
+    ws, tickets = gemv.launch_buffers(x.device, m, n, splits)
+    fn = _build.bind("lords_decode", "lords_decode_launch", "ppppppppiiiiiiip")
     err = fn(x.data_ptr(), q_packed.data_ptr(), b.data_ptr(), a.data_ptr(),
-             lut.data_ptr(), y.data_ptr(), m, n, k, r, ps.bits, lut.numel(),
+             lut.data_ptr(), y.data_ptr(), ws.data_ptr(), tickets.data_ptr(), m, n, k,
+             r, ps.bits, lut.numel(), splits,
              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, what)
     lords_decode.launches += 1

@@ -976,3 +976,83 @@ def test_gptq_on_card_matches_cpu(dev):
         return ((x @ w_hat.T - x @ w.T) ** 2).mean().item()
 
     assert abs(mse(qg, sg) / mse(qc, sc) - 1) <= 0.01
+
+
+# (M, N, K) of the decode GEMV edges: one warp's rows and one stage,
+# minicpm3-4b's kv_down (N 288: one full 256-row tile and a ragged one) and
+# q_up (N 3840, K 768), N and K off the tiles (padded by the dispatch), a
+# split-K shape (wk / wv: N 1024, K 4096) and minicpm3-4b's down; every M
+# from 1 to 8 once
+GEMV_SHAPES = ((1, 32, 128), (2, 288, 2560), (3, 3840, 768), (4, 200, 160),
+               (5, 1024, 4096), (6, 768, 2560), (7, 96, 416), (8, 2560, 6400))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codebook", ["nf4", "nf3", "nf2", "int8"])
+@pytest.mark.parametrize("r", [1, 2, 5, 6, 8, 14, 16, 24, 40, 72])
+def test_lords_decode_gemv_edges_through_dispatch(dev, codebook, r):
+    """The LoRDS decode GEMV through the dispatch at the core's edges: every
+    M from 1 to 8, every codebook width, ranks below, at and between the
+    8-rank chunks (B's fragments in registers up to r = 24, re-read from L1
+    above), N of one warp, of a ragged 256-row tile and off the 32-row
+    multiple, K off the 128-column stage, and split-K.  One launch per call;
+    2e-3 of the output's scale."""
+    from repro_torch.kernels import gemv
+    for m, n, k in GEMV_SHAPES:
+        x, p = _linear(n, k, r, dev, codebook, seed=m + r)
+        x = x[:m].contiguous()
+        before = lords_decode.launches
+        y = dispatch._lords_forward(x, p["q"], p["b"], p["a"], codebook, "fused")
+        assert lords_decode.launches == before + 1 and y.shape == (m, n)
+        y_ref = ref.lords_matmul_ref(x, p["q"], p["b"], p["a"], codebook)
+        torch.testing.assert_close(y, y_ref, rtol=0, atol=_tol(y_ref), msg=str((m, n, k)))
+    assert gemv.splits(5, 1024, 4096, torch.cuda.get_device_properties(dev)
+                       .multi_processor_count) > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codebook", ["nf4", "nf3", "nf2", "int8"])
+@pytest.mark.parametrize("bs", [32, 40, 64, 96, 128, 256])
+def test_block_decode_gemv_edges_through_dispatch(dev, codebook, bs):
+    """block_matmul's decode entry through the dispatch at the same edges,
+    blocks 32-256: blocks of 96 and 256 straddle the 128-column stages and
+    the split-K slices, and a block of 40 (not a multiple of 16) takes the
+    per-element scale path.  One launch per call; 1e-4 of the output's
+    scale (exact bf16 products summed in f32 in another order)."""
+    for m, n, kb in ((1, 32, 1), (2, 288, 20), (3, 3840, 6), (4, 200, 3), (5, 1024, 32),
+                     (6, 768, 10), (7, 96, 5), (8, 2560, 50)):
+        k = kb * bs if kb > 1 else math.lcm(bs, 128)
+        q, s_blk, rng = _block_linear(n, k, bs, dev, codebook, seed=m + bs)
+        x = _bf16(rng, dev, m, k)
+        before = block_matmul.launches
+        y = dispatch._block_forward(x, q, s_blk, bs, codebook, "fused")
+        assert block_matmul.launches == before + 1 and y.shape == (m, n)
+        assert _rel(y, ref.block_matmul_ref(x, q, s_blk, bs, codebook), 1e-4), (m, n, k)
+
+
+@pytest.mark.cuda
+def test_decode_gemvs_are_deterministic_at_split_k(dev):
+    """Both decode GEMVs at a split-K shape (N 1024, K 14336: the partials
+    meet in a workspace and the last CTA sums them in split order) give
+    bitwise-equal results from two calls, and write every output: the
+    allocator's pool for y is filled with NaN before each call."""
+    from repro_torch.kernels import gemv
+    m, n, k = 4, 1024, 14336
+    assert gemv.splits(m, n, k, torch.cuda.get_device_properties(dev)
+                       .multi_processor_count) > 1
+    x, p = _linear(n, k, 24, dev, "nf4", seed=7)
+    x = x[:m].contiguous()
+    q, s_blk, _ = _block_linear(n, k, 128, dev, "nf4", seed=7)
+    calls = (
+        (lambda: lords_decode(x, p["q"], p["b"], p["a"]),
+         ref.lords_matmul_ref(x, p["q"], p["b"], p["a"]), 2e-3),
+        (lambda: block_matmul(x, q, s_blk), ref.block_matmul_ref(x, q, s_blk, 128), 1e-4))
+    for call, y_ref, tol in calls:
+        outs = []
+        for _ in range(2):
+            junk = [torch.full((m, n), float("nan"), device=dev) for _ in range(8)]
+            del junk
+            outs.append(call())
+        torch.cuda.synchronize()
+        assert torch.isfinite(outs[0]).all() and torch.equal(outs[0], outs[1])
+        assert _rel(outs[0], y_ref, tol)

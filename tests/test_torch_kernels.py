@@ -85,6 +85,64 @@ def test_lords_decode_plain_matches_jax(m, r):
     np.testing.assert_allclose(y, y_kernel, rtol=0, atol=_scale_tol(y_kernel))
 
 
+# (kind, M, N, K, rank or block) of the decode forwards off their tiles: N
+# off the 32-row multiple, K off the 128-column stage (block-wise: off
+# lcm(128, block)), minicpm3-4b's kv_down N 288
+DECODE_EDGES = [("lords", 1, 200, 160, 6), ("lords", 5, 288, 416, 24), ("lords", 8, 40, 96, 14),
+                ("block", 1, 200, 160, 32), ("block", 4, 72, 288, 96),
+                ("block", 8, 288, 256, 128)]
+
+
+@pytest.mark.parametrize("kind,m,n,k,rb", DECODE_EDGES)
+def test_decode_forwards_pad_n_and_k_match_jax_kernels(monkeypatch, kind, m, n, k, rb):
+    """The decode forwards (M <= 8) as the dispatch runs them on ``fused``:
+    x keeps its M rows, codes, B / A and block scales are padded to N % 32
+    and K % 128 (block-wise: K % lcm(128, block), padded scales 1.0), and
+    the output on the unpadded operands matches the JAX package's kernel
+    (``lords_decode_pallas``; ``block_matmul_pallas``, which serves every
+    block-wise M) in interpret mode, as ``test_lords_decode_plain_matches_jax``
+    holds the plain version at the kernel's own tile."""
+    from repro.kernels.block_matmul import block_matmul_pallas
+    from repro_torch.kernels import block_matmul as block_matmul_mod
+    from repro_torch.kernels import lords_decode as lords_decode_mod
+    seen = []
+    np_, kp = -(-n // 32) * 32, -(-k // math.lcm(128, rb if kind == "block" else 1))
+    kp *= math.lcm(128, rb if kind == "block" else 1)
+    if kind == "lords":
+        real = lords_decode_mod.lords_decode
+
+        def spy(x, q, b, a, codebook):
+            seen.append((tuple(x.shape), tuple(q.shape), tuple(b.shape), tuple(a.shape)))
+            return real(x, q, b, a, codebook)
+
+        monkeypatch.setattr(lords_decode_mod, "lords_decode", spy)
+        t, j = _lords_operands(m, n, k, rb, seed=m + n)
+        y = dispatch._lords_forward(*t, "nf4", "fused")
+        assert seen == [((m, kp), (np_, kp // 2), (np_, rb), (rb, kp))]
+        want = np.asarray(lords_decode_pallas(*j, "nf4", bn=n, bk=k, interpret=True))
+    else:
+        real = block_matmul_mod.block_matmul
+
+        def spy(x, q, s_blk, codebook):
+            seen.append((tuple(x.shape), tuple(q.shape), s_blk.clone()))
+            return real(x, q, s_blk, codebook)
+
+        monkeypatch.setattr(block_matmul_mod, "block_matmul", spy)
+        rng = np.random.default_rng(m + n + rb)
+        q, s_blk = quantize_blockwise(torch.from_numpy(
+            rng.standard_normal((n, k)).astype(np.float32) * 0.05), rb, "nf4")
+        x, jx = _bf16(rng.standard_normal((m, k)))
+        y = dispatch._block_forward(x, q, s_blk, rb, "nf4", "fused")
+        (xs, qs, sp), = seen
+        assert xs == (m, kp) and qs == (np_, kp // 2) and tuple(sp.shape) == (np_, kp // rb)
+        assert (sp[n:] == 1.0).all() and (sp[:, k // rb:] == 1.0).all()
+        want = np.asarray(block_matmul_pallas(jx, jnp.asarray(q.numpy()),
+                                              jnp.asarray(s_blk.numpy()), rb, "nf4", bm=m,
+                                              bn=n, bk=k, interpret=True))
+    assert y.shape == (m, n) and y.dtype == torch.float32
+    np.testing.assert_allclose(y.numpy(), want, rtol=0, atol=_scale_tol(want))
+
+
 def _attn_inputs(b, s, cap, nh, nkv, hd, seed=0):
     rng = np.random.default_rng(seed)
     tq, jq = _bf16(rng.standard_normal((b, s, nh, hd)))
@@ -339,7 +397,7 @@ def test_lords_grads_pad_n_and_k_but_not_m(monkeypatch):
 def test_block_and_grad_wrappers_take_any_m_and_refuse_off_tile_n_k():
     """The wrappers' contracts: ``block_matmul`` takes any M (the prefill
     kernel masks the ragged edge) with N % 128 and K % 64, its decode entry
-    (M <= 8) N % 32 and K % 256 as before; ``lords_grad`` and ``block_grad``
+    (M <= 8, the GEMV core) N % 32 and K % 128; ``lords_grad`` and ``block_grad``
     (one product core) take any M with N % 128 and K % 256, and
     ``block_grad_slots`` counts 256-column K tiles.  Off-tile shapes and M
     = 0 are refused with "divisible"; CPU tensors run the plain version and
@@ -349,7 +407,7 @@ def test_block_and_grad_wrappers_take_any_m_and_refuse_off_tile_n_k():
     from repro_torch.kernels.block_matmul import block_matmul
     from repro_torch.kernels.lords_grad import block_grad, block_grad_slots, lords_grad
     assert (block_matmul_mod.BM, block_matmul_mod.BN, block_matmul_mod.BK) == (256, 128, 64)
-    assert block_matmul_mod.tile(9) == (1, 128, 64) and block_matmul_mod.tile(8) == (1, 32, 256)
+    assert block_matmul_mod.tile(9) == (1, 128, 64) and block_matmul_mod.tile(8) == (1, 32, 128)
     assert (lords_grad_mod.GRAD_BN, lords_grad_mod.GRAD_BK) == (128, 256)
     assert not hasattr(lords_grad_mod, "BM")  # no M tile: block_grad takes any M
     assert [block_grad_slots(bs) for bs in (32, 96, 128, 256, 384, 512)] == [1, 2, 1, 1, 3, 2]
@@ -363,12 +421,12 @@ def test_block_and_grad_wrappers_take_any_m_and_refuse_off_tile_n_k():
         return quantize_blockwise(torch.from_numpy(
             rng.standard_normal((n, k)).astype(np.float32) * 0.05), bs, "nf4")
 
-    for m, n, k in ((9, 128, 64), (300, 256, 192), (1, 32, 256), (8, 96, 512)):
+    for m, n, k in ((9, 128, 64), (300, 256, 192), (1, 32, 256), (8, 96, 512), (8, 32, 128)):
         qb, sb = block_operands(n, k)
         x = bf16(m, k)
         np.testing.assert_array_equal(block_matmul(x, qb, sb).numpy(),
                                       ref.block_matmul_ref(x, qb, sb, 32).numpy())
-    for m, n, k in ((9, 192, 64), (9, 128, 96), (8, 48, 256), (8, 32, 128), (0, 128, 64)):
+    for m, n, k in ((9, 192, 64), (9, 128, 96), (8, 48, 256), (8, 32, 64), (0, 128, 64)):
         qb, sb = block_operands(n, k)
         with pytest.raises(ValueError, match="divisible"):
             block_matmul(bf16(m, k), qb, sb)
@@ -501,6 +559,17 @@ def test_wrappers_check_operands_and_count_only_launches():
         lords_decode(x, q, b, a)
     with pytest.raises(ValueError, match="match"):
         lords_decode(x[:4], q[:, :10], b, a)
+    # the decode GEMV's tile: N % 32 and K % 128 (the dispatch pads them)
+    from repro_torch.kernels import lords_decode as lords_decode_mod
+    assert (lords_decode_mod.BN, lords_decode_mod.BK) == (32, 128)
+    for n_, k_ in ((32, 128), (96, 384)):
+        (xd, qd, bd, ad), _ = _lords_operands(4, n_, k_, 6)
+        np.testing.assert_array_equal(lords_decode(xd, qd, bd, ad).numpy(),
+                                      ref.lords_matmul_ref(xd, qd, bd, ad).numpy())
+    for n_, k_ in ((48, 128), (32, 192)):
+        (xd, qd, bd, ad), _ = _lords_operands(4, n_, k_, 6)
+        with pytest.raises(ValueError, match="divisible"):
+            lords_decode(xd, qd, bd, ad)
     xp = torch.nn.functional.pad(x, (0, 0, 0, 112))
     y = lords_matmul(xp, q, b, a)  # CPU: the plain version
     np.testing.assert_array_equal(y.numpy(), ref.lords_matmul_ref(xp, q, b, a).numpy())
