@@ -12,10 +12,10 @@ decode GEMVs at its seven decode linears, which also run at llama3-8b's
 at M = 8), and times kernel, plain version, one library call (where one
 computes the same function) and the bytes/FLOP bound; each line gives the
 share of the bound the kernel reached, and the lines of the product
-kernels among the ten Hopper designs (the LoRDS and block-wise prefill
+kernels among the twelve Hopper designs (the LoRDS and block-wise prefill
 kernels, the attention prefill kernel, the two activation-gradient
 kernels, ``lords_grad`` and ``block_grad``; the others are the split-KV
-GQA decode kernel and the two decode GEMVs) their achieved TFLOP/s
+GQA and MLA decode kernels and the two decode GEMVs) their achieved TFLOP/s
 (``lords_matmul`` also at the 4096-row step of the engine chunk and
 training, ``attn_prefill`` also with a peaked softmax).  Phase 1 prints
 those sources' ptxas registers and spills.
@@ -34,7 +34,8 @@ trains PEQA-style block scales at 4 layers; phase 10 quantizes layer 0's
 seven matrices by block-wise NF4, the LoRDS init, Algorithm 1, GPTQ, AWQ,
 LoftQ, QPiSSA and SmoothRot and runs the bit / rank allocation over them.
 Phase 11 serves minicpm3-4b (multi-head latent attention, 62 layers, full
-width) at phase 3's settings with a bf16 and an int8 latent cache; phase 12
+width) at phase 3's settings with a bf16 and an int8 latent cache and
+profiles one decode step of each as phase 3 does; phase 12
 runs phase 4's engine and trace on it (int8 latent pool).  Each path runs
 with the launch counts set to 0 just before it, must launch every kernel
 it uses (and none of another path's linears or decode kernels), and must hold
@@ -836,7 +837,14 @@ def check_mla_attention(torch, F, results, gen, flush):
                 + (4 if elt == 1 else 0)) + b * 4 + b * nh * lat * 4)
 
     def mla_ops(live):
-        return {"f32": (2 * nh * live * (2 * lat + rope), FP32_FLOP_S)}
+        # one pass of the products on the tensor cores (the kernel's three
+        # passes of q_lat and two of P are its own cost, not the function's)
+        return {"bf16": (2 * nh * live * (2 * lat + rope), BF16_FLOP_S)}
+
+    def fp32_count(what, live):
+        ms = 2 * nh * live * (2 * lat + rope) / FP32_FLOP_S * 1e3
+        log(f"[bound] {what}: the products on the FP32 cores would take {ms:.4f} ms "
+            f"(the first design's count)")
 
     # serve_batch's decode at its last step: 543 of 544 slots live
     ql = _randn(torch, gen, BATCH, nh, lat)
@@ -863,6 +871,7 @@ def check_mla_attention(torch, F, results, gen, flush):
         out = attn_decode_mla(*args, logit_scale=scale)
         err = (out - ref.attn_mla_decode_ref(*args, logit_scale=scale)).abs().max().item()
         b_ms, b_by = bound(mla_bytes(BATCH, live, elt), mla_ops(live))
+        fp32_count(f"attn_decode_mla serve_batch {kv}", live)
         results["attn_decode_mla"].add(
             f"serve_batch {kv} cache b={BATCH} S={cap} nh={nh} L={lat} R={rope} "
             f"live={cap - 1}", err, 1e-4,
@@ -914,6 +923,7 @@ def check_mla_attention(torch, F, results, gen, flush):
         out = attn_decode_mla_paged(*args, logit_scale=scale)
         err = (out - plain()).abs().max().item()
         b_ms, b_by = bound(mla_bytes(slots, plive, elt) + pt.numel() * 4, mla_ops(plive))
+        fp32_count(f"attn_decode_mla_paged engine {kv}", plive)
         results["attn_decode_mla_paged"].add(
             f"engine {kv} pool slots={slots} ps={ps} np={npages} pages={total} "
             f"live_slots={plive}", err, 1e-4,
@@ -1621,7 +1631,8 @@ def main() -> int:
         f"into {_build.BUILD_DIR.relative_to(ROOT)}")
     # the Hopper designs' ptxas report
     for name in ("lords_matmul", "attn_prefill", "lords_matmul_t", "block_matmul_t",
-                 "block_matmul", "lords_grad", "block_grad", "attn_decode", "lords_decode"):
+                 "block_matmul", "lords_grad", "block_grad", "attn_decode", "lords_decode",
+                 "attn_decode_mla"):
         for kernel, regs, spill in _build.resource_usage(name):
             log(f"[build] {name}.cu {kernel}: {regs} registers, {spill} bytes spilled")
 
@@ -1722,6 +1733,7 @@ def main() -> int:
             mcfg, params, torch, kv, what=what, used=MLA_SERVE,
             unused=BLOCK_KERNELS + GQA_DECODE + ("attn_decode_mla_paged",))
         depths[f"serve_batch mla {kv}"] = mcfg.num_layers
+        profile_decode(mcfg.with_(kv_cache_dtype=kv), params, torch, what)
         log(f"[{what}] phase time {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     paths["engine mla int8"] = engine_checks(

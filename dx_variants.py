@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time copies of eight Hopper kernels side by side on one card.
+"""Time copies of ten Hopper kernels side by side on one card.
 
-    python3 dx_variants.py [--gemv] DIR [DIR ...]
+    python3 dx_variants.py [--gemv | --mla] DIR [DIR ...]
 
 The two decode GEMVs (``lords_decode.cu`` and ``block_matmul.cu``'s decode
 entry, on the core ``gemv.cuh`` or as before it) of each copy are held
@@ -10,6 +10,18 @@ of 32-128, a split-K shape; y NaN-filled first) and timed over llama3-8b's
 and minicpm3-4b's seven decode linears at M = 4 and 8, operands padded to
 each design's own tile, a core copy also at half and twice its split plan;
 ``--gemv`` times only these two.
+
+``--mla`` builds only each copy's ``attn_decode_mla.cu`` (both entry
+points), holds it against the plain versions (bf16 and int8 latent caches,
+contiguous at ragged caches and paged at page sizes 12 and 64, logits at
+the model's scale and x30; outputs NaN-filled first) and times it at
+``chip_smoke.py`` phase 2's four shapes: contiguous bf16 and int8 (b 4, 543
+of 544 slots, minicpm3-4b's 40 heads, latent 256, RoPE 32) and the
+engine's paged int8 and bf16 pools (8 slots, pages of 64, phase 2's
+scattered tables); the check's reference is the plain version's function
+in float64.  A split-KV copy (it takes a workspace and tickets) is
+timed at its plan's chunk and at half and twice it, its tile read from the
+copy's source; one from before the split as it was.
 
 Each DIR holds a copy of ``src/repro_torch/csrc``, edited or not.  Each
 copy's ``lords_matmul_t.cu`` and ``block_matmul_t.cu`` (the two
@@ -36,7 +48,9 @@ or if a build or a check fails.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -74,6 +88,14 @@ DECODE_SIGNATURES = {
     False: {"attn_decode_launch": ([P] * 7 + [F] + [I] * 6 + [P], I),
             "attn_decode_paged_launch": ([P] * 8 + [F] + [I] * 7 + [P], I)},
 }
+# the MLA decode entry points: split-KV (a workspace, tickets and the chunk)
+# or one CTA per four heads as before
+MLA_SIGNATURES = {
+    True: {"attn_decode_mla_launch": ([P] * 9 + [F] + [I] * 7 + [P], I),
+           "attn_decode_mla_paged_launch": ([P] * 10 + [F] + [I] * 8 + [P], I)},
+    False: {"attn_decode_mla_launch": ([P] * 7 + [F] + [I] * 6 + [P], I),
+            "attn_decode_mla_paged_launch": ([P] * 8 + [F] + [I] * 7 + [P], I)},
+}
 # (M, N, K, r, bs): dx kernels (N % 64, K % 128), the block forward (N %
 # 128, K % 64, K % bs) and lords_grad (N % 128, K % 256) each take the
 # shapes their tiles allow
@@ -102,7 +124,8 @@ def build(dirs, sources=SOURCES):
             print(f"[build] {d} {name}.cu {kernel}: {regs} registers, {spill} bytes spilled")
         lib = libs[(d, name)] = ctypes.CDLL(str(so))
         for entry, (args, res) in (SIGNATURES | DECODE_SIGNATURES[split_kv(d)]
-                                   | GEMV_SIGNATURES[gemv_core(d)]).items():
+                                   | GEMV_SIGNATURES[gemv_core(d)]
+                                   | MLA_SIGNATURES[mla_tile(d) is not None]).items():
             if hasattr(lib, entry):
                 getattr(lib, entry).argtypes, getattr(lib, entry).restype = args, res
     return libs
@@ -111,6 +134,23 @@ def build(dirs, sources=SOURCES):
 def split_kv(d) -> bool:
     """Whether DIR's decode kernel is the split-KV design."""
     return "tickets" in (Path(d) / "attn_decode.cu").read_text()
+
+
+@functools.lru_cache(maxsize=None)  # read once: no file read inside a timing
+def mla_tile(d) -> int | None:
+    """The slots of a ring stage of DIR's MLA decode kernel if it is the
+    split-KV design, else None."""
+    src = (Path(d) / "attn_decode_mla.cu").read_text()
+    m = re.search(r"constexpr int TILE = (\d+);", src)
+    return int(m.group(1)) if m and "tickets" in src else None
+
+
+@functools.lru_cache(maxsize=None)
+def mla_heads(d) -> int:
+    """The heads of a CTA of DIR's split-KV MLA kernel (16 if its source
+    names no HEADS)."""
+    m = re.search(r"constexpr int HEADS = (\d+);", (Path(d) / "attn_decode_mla.cu").read_text())
+    return int(m.group(1)) if m else 16
 
 
 def gemv_core(d) -> bool:
@@ -581,12 +621,172 @@ def time_decode(torch, libs, dirs, gen, flush):
                 print(f"[time] {d} attn_decode {label}{tag}: {ms:.4f} ms")
 
 
+def mla_launcher(torch, libs, d):
+    """A callable running DIR's MLA decode kernel into ``out``: contiguous
+    (``pos``) or paged (``pt`` too), at ``chunk`` slots a CTA (split-KV
+    copies; None: the copy's plan, the wrapper's on its tile)."""
+    from repro_torch.kernels.attn_decode import launch_buffers, split_plan
+    from repro_torch.kernels.lords_matmul import _sms
+
+    lib = libs[(d, "attn_decode_mla")]
+    tile = mla_tile(d)
+
+    def run(ql, qr, c, kr, cs, out, scale, *, pos, pt=None, chunk=None):
+        b, nh, lat = ql.shape
+        rope = qr.shape[2]
+        ps = None if pt is None else c.shape[1]
+        cap = c.shape[1] if pt is None else pt.shape[1] * ps
+        st = torch.cuda.current_stream().cuda_stream
+        head = (ql.data_ptr(), qr.data_ptr(), c.data_ptr(), kr.data_ptr(),
+                None if cs is None else cs.data_ptr())
+        rows = (pos.data_ptr(),) if pt is None else (pt.data_ptr(), pos.data_ptr())
+        dims = (b, cap) if pt is None else (b, pt.shape[1], ps)
+        tail = (nh, lat, rope, int(cs is not None))
+        entry = lib.attn_decode_mla_launch if pt is None else lib.attn_decode_mla_paged_launch
+        if tile is None:
+            err = entry(*head, *rows, out.data_ptr(), scale, *dims, *tail, st)
+        else:
+            heads = mla_heads(d)
+            chunk = chunk or split_plan(b, 1, nh, cap, _sms(ql.device), ps, tile=tile,
+                                        most=2 * tile, rows=heads)[0]
+            ws, tickets = launch_buffers(ql.device, b, 1, nh, lat, -(-cap // chunk), rows=heads)
+            err = entry(*head, *rows, out.data_ptr(), ws.data_ptr(), tickets.data_ptr(), scale,
+                        *dims, *tail, chunk, st)
+        if err:
+            raise RuntimeError(f"{d}: attn_decode_mla CUDA error {err}")
+
+    return run
+
+
+def mla_operands(torch, gen, b, nh, cap, kv, lead=None):
+    """q_lat f32, q_rope bf16, a latent cache (bf16, or int8 codes and
+    scales) and its RoPE keys of shape ``lead`` (default (b, cap))."""
+    from repro_torch.models.common import kv_quantize
+
+    dev = torch.device("cuda")
+    lead = lead or (b, cap)
+    ql = torch.randn(b, nh, 256, generator=gen, device=dev)
+    qr = torch.randn(b, nh, 32, generator=gen, device=dev).to(torch.bfloat16)
+    c = torch.randn(*lead, 256, generator=gen, device=dev).to(torch.bfloat16)
+    kr = torch.randn(*lead, 32, generator=gen, device=dev).to(torch.bfloat16)
+    c, cs = kv_quantize(c) if kv == "int8" else (c, None)
+    return ql, qr, c, kr, cs
+
+
+def exact_mla(torch, ql, qr, c, kr, cs, pos, scale):
+    """MLA decode in float64 (the plain version's arithmetic without its
+    f32 rounding): at 30x logits two f32 sums in different orders differ
+    by up to ~2e-4 near a tie, so the check holds each copy to this."""
+    cf = c.double() if cs is None else c.double() * cs.double()[..., None]
+    s = (torch.einsum("bhl,bsl->bhs", ql.double(), cf)
+         + torch.einsum("bhr,bsr->bhs", qr.double(), kr.double())) * scale
+    live = torch.arange(c.shape[1], device=c.device)[None, :] <= pos[:, None]
+    p = torch.softmax(torch.where(live[:, None], s, -torch.inf), dim=-1)
+    return torch.einsum("bhs,bsl->bhl", p, cf).float()
+
+
+def check_mla(torch, libs, d, gen) -> float:
+    """DIR's MLA decode kernel against the plain version's function in
+    float64 (outputs NaN-filled first): contiguous at caches of 77 and 544
+    slots with ragged rows, paged at page sizes 12 and 64 with scattered
+    tables, bf16 and int8, logits x1 and x30; prints the worst case and
+    returns its error over the bound (1e-4 absolute)."""
+    import numpy as np
+
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(5)
+    run = mla_launcher(torch, libs, d)
+    worst, where = 0.0, ""
+    for kv in ("bf16", "int8"):
+        for peak in (1.0, 30.0):
+            scale = peak * 96**-0.5
+            cases = []
+            for cap in (77, 544):
+                ops = mla_operands(torch, gen, 4, 40, cap, kv)
+                pos = torch.tensor([0, 31, 32, cap - 1], dtype=torch.int32, device=dev)
+                cases.append((f"S={cap}", ops, dict(pos=pos),
+                              lambda ops=ops, pos=pos: exact_mla(torch, *ops, pos, scale)))
+            for ps in (12, 64):
+                npages, total = 20, 110
+                ops = mla_operands(torch, gen, 5, 40, 0, kv, (total, ps))
+                pos_np = rng.integers(0, npages * ps, 5).astype(np.int32)
+                pt_np = np.zeros((5, npages), np.int32)
+                for i, p in enumerate(pos_np):
+                    used = p // ps + 1
+                    pt_np[i, :used] = rng.choice(np.arange(1, total), size=used, replace=False)
+                pt, pos = torch.from_numpy(pt_np).to(dev), torch.from_numpy(pos_np).to(dev)
+                cases.append((f"ps={ps}", ops, dict(pos=pos, pt=pt),
+                              lambda ops=ops, pt=pt, pos=pos: exact_mla(
+                                  torch, ops[0], ops[1], *(None if t is None else
+                                                           ref.gather_pool(t, pt)
+                                                           for t in ops[2:]), pos, scale)))
+            for label, ops, kw, want in cases:
+                out = torch.full(ops[0].shape, float("nan"), device=dev)
+                run(*ops, out, scale, **kw)
+                err = nan_inf((out - want()).abs().max().item()) / 1e-4
+                if err > worst:
+                    worst, where = err, f"{kv} x{peak:g} {label}"
+    print(f"[check] {d} attn_decode_mla worst case: {where}")
+    return worst
+
+
+def time_mla(torch, libs, dirs, gen, flush):
+    """Each directory's MLA decode kernel at chip_smoke phase 2's shapes:
+    serve_batch's last step (b 4, 543 of 544 slots, bf16 and int8 latent)
+    and the engine's (8 slots, pages of 64, phase 2's tables and positions,
+    int8 and bf16 pools); split-KV copies at their plan's chunk, half and
+    twice it."""
+    import numpy as np
+
+    from repro_torch.kernels.attn_decode import split_plan
+    from repro_torch.kernels.lords_matmul import _sms
+
+    dev = torch.device("cuda")
+    b, cap, nh = chip_smoke.BATCH, chip_smoke.PROMPT + chip_smoke.GEN, 40
+    eng = chip_smoke.ENGINE
+    slots, ps, npages, total = eng["slots"], eng["page_size"], eng["max_pages"], eng["total_pages"]
+    rng = np.random.default_rng(12)  # phase 2's page tables and positions
+    pos_np = rng.integers(64, npages * ps - 129, slots).astype(np.int32)
+    pos_np[0], pos_np[1] = 3 * ps - 1, 3 * ps
+    pt, ppos = chip_smoke._engine_page_tables(torch, rng, pos_np)
+    pos = torch.full((b,), cap - 2, dtype=torch.int32, device=dev)
+    cases = []
+    for kv in ("bf16", "int8"):
+        cases.append((f"serve {kv} b={b} live={cap - 1}", mla_operands(torch, gen, b, nh, cap, kv),
+                      dict(pos=pos)))
+    for kv in ("int8", "bf16"):
+        cases.append((f"engine paged {kv} live_slots={int((pos_np + 1).sum())}",
+                      mla_operands(torch, gen, slots, nh, 0, kv, (total, ps)),
+                      dict(pos=ppos, pt=pt)))
+    for i, d in enumerate(dirs):
+        run = mla_launcher(torch, libs, d)
+        tile = mla_tile(d)
+        for label, (ql, qr, c, kr, cs), kw in cases:
+            out = torch.empty(ql.shape, device=dev)
+            chunks = [None]
+            if tile is not None:
+                page = kw.get("pt") is not None and ps or None
+                capx = cap if page is None else npages * ps
+                plan = split_plan(ql.shape[0], 1, nh, capx, _sms(dev), page, tile=tile,
+                                  most=2 * tile, rows=mla_heads(d))[0]
+                unit = tile if page is None else math.lcm(tile, page)
+                chunks = [x for x in (plan // 2, plan, 2 * plan) if x >= unit and x % unit == 0]
+            for chunk in chunks:
+                def fn():
+                    run(ql, qr, c, kr, cs, out, 96**-0.5, chunk=chunk, **kw)
+                ms = min(chip_smoke.timed(fn, 50, flush), chip_smoke.timed(fn, 50, flush))
+                tag = "" if chunk is None else f" chunk={chunk}"
+                print(f"[time] {d} attn_decode_mla {label}{tag}: {ms:.4f} ms")
+
+
 def main() -> int:
     import torch
 
     dirs = sys.argv[1:]
-    only_gemv = bool(dirs) and dirs[0] == "--gemv"
-    if only_gemv:
+    mode = dirs[0] if dirs and dirs[0] in ("--gemv", "--mla") else None
+    if mode:
         dirs = dirs[1:]
     if not dirs or not torch.cuda.is_available():
         print(__doc__ if not dirs else "dx_variants: no CUDA device visible", file=sys.stderr)
@@ -598,11 +798,22 @@ def main() -> int:
     from repro_torch.core.quantize import pack_spec, quantize_blockwise
     from repro_torch.kernels.lords_matmul import device_lut
 
-    libs = build(dirs, ("lords_decode", "block_matmul") if only_gemv else SOURCES)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1234)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev).zero_
     passed = True
+    if mode == "--mla":
+        libs = build(dirs, ("attn_decode_mla",))
+        for d in dict.fromkeys(dirs):
+            v = check_mla(torch, libs, d, gen)
+            passed &= v <= 1.0
+            print(f"[check] {d} attn_decode_mla: worst error {v:.3f} of its bound "
+                  f"{'PASS' if v <= 1.0 else 'FAIL'}")
+        time_mla(torch, libs, dirs, gen, flush)
+        print(chip_smoke.nvidia_smi())
+        return 0 if passed else 1
+    only_gemv = mode == "--gemv"
+    libs = build(dirs, ("lords_decode", "block_matmul") if only_gemv else SOURCES)
     for d in dict.fromkeys(dirs):
         v = check_gemv(torch, libs, d, gen)
         passed &= v <= 1.0

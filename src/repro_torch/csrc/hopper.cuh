@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the LoRDS dequant-matmul and
 // gradient kernels, the decode GEMVs and the attention kernels: cp.async
-// copies, the `mma.sync` bf16 and tf32 products, the split of f32 into bf16
+// copies, `ldmatrix`, the `mma.sync` bf16 and tf32 products, the split of f32 into bf16
 // hi / lo parts and the MUFU 2^x, mbarriers and TMA tile loads, the tf32
 // split, shared-memory matrix descriptors (K-major and MN-major), wgmma
 // fences and the wgmma shapes they issue, 3xTF32 S (64 x 64 and 64 x 32),
@@ -68,6 +68,21 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8 x 8 bf16 matrices from shared memory: lanes 8i .. 8i + 7 give the
+// 16-byte rows of matrix i, and r[i] holds its fragment (row lane / 4,
+// elements 2·(lane % 4) and + 1); .trans gives the transposed fragments
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
 }
 
 // 2^x, to 2 ulp (the MUFU unit); 2^(-huge) and 2^(-inf) are 0

@@ -161,6 +161,37 @@ def require_dtype(what: str, t, dtype, name: str) -> None:
         raise TypeError(f"{what}: {name} must be {dtype}, got {t.dtype}")
 
 
+_BUILTIN = {"a": "int8_t", "h": "uint8_t", "i": "int", "f": "float", "b": "bool"}
+
+
+def _demangle(mangled: str) -> str:
+    """``name<args>`` of a mangled template kernel <length><name>I<args>E
+    whose arguments are integers (Li4E, Lb0E), builtin types (a, h, f) or
+    names (13__nv_bfloat16, NS_5PagedE); the mangled name otherwise."""
+    # the innermost <length><name>: a namespace's hash may spell one too
+    for k in reversed(list(re.finditer(r"(?=(\d+)([A-Za-z_]\w*?_kernel)I)", mangled))):
+        if int(k.group(1)) != len(k.group(2)):
+            continue
+        rest, args = mangled[k.end(2) + 1:], []
+        while rest and rest[0] != "E":
+            if m := re.match(r"L[ib](\d+)E", rest):  # an integer
+                args.append(m.group(1))
+                rest = rest[m.end():]
+            elif m := re.match(r"(NS_)?(\d+)", rest):  # a name (NS_: in a scope, E-closed)
+                end = m.end() + int(m.group(2))
+                args.append(rest[m.end():end])
+                rest = rest[end + bool(m.group(1)):]
+            elif rest[0] in _BUILTIN:
+                args.append(_BUILTIN[rest[0]])
+                rest = rest[1:]
+            else:
+                break
+        else:
+            if rest:
+                return f"{k.group(2)}<{', '.join(args)}>"
+    return mangled
+
+
 def resource_usage(name: str, log: str | None = None) -> list[tuple[str, int, int]]:
     """(kernel, registers per thread, spill-store bytes) of each entry
     function of ``csrc/<name>.cu``, from ptxas's report (``-Xptxas=-v``)
@@ -171,13 +202,7 @@ def resource_usage(name: str, log: str | None = None) -> list[tuple[str, int, in
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            kernel = m.group(1)
-            # a mangled template kernel: <length><name>I<args>E, args Li4E / Lb0E
-            for k in re.finditer(r"(?=(\d+)([A-Za-z_]\w*?_kernel)I((?:L[ib]\d+E)+)E)", kernel):
-                if int(k.group(1)) == len(k.group(2)):
-                    args = re.findall(r"L[ib](\d+)E", k.group(3))
-                    kernel = f"{k.group(2)}<{', '.join(args)}>"
-                    break
+            kernel = _demangle(m.group(1))
             spill = 0
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:

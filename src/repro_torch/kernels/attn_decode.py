@@ -38,18 +38,20 @@ CHUNK = 128  # slots a CTA takes at most: its ring's two stages, all in flight
 
 @functools.lru_cache(maxsize=None)
 def split_plan(b: int, nkv: int, g: int, cap: int, sms: int,
-               page_size: int | None = None) -> tuple[int, int]:
+               page_size: int | None = None, tile: int = TILE,
+               most: int = CHUNK, rows: int = ROWS) -> tuple[int, int]:
     """(chunk, chunks): the slots [0, cap) of each (batch row, KV head) cut
     into ``chunks`` chunks of ``chunk`` slots, in order, the last one
-    ragged.  A chunk is whole tiles (and whole pages of ``page_size`` on
-    the paged entry), at most CHUNK slots (or one page-and-tile unit), and
-    smaller where the CTAs, b·nkv·ceil(g / ROWS) a chunk, would otherwise
-    leave an SM idle.  Of chunks of 64, 128 and 256 slots, 128 was
-    the fastest at the engine's shape and within the spread of the fastest
-    at serve_batch's (PERF.md §6)."""
-    unit = TILE if page_size is None else math.lcm(TILE, page_size)
-    units, ctas = -(-cap // unit), b * nkv * -(-g // ROWS)
-    per = max(1, CHUNK // unit)
+    ragged.  A chunk is whole ``tile``-slot tiles (and whole pages of
+    ``page_size`` on the paged entry), at most ``most`` slots (or one
+    page-and-tile unit), and smaller where the CTAs, b·nkv·ceil(g / rows) a
+    chunk, would otherwise leave an SM idle.  Of GQA chunks of 64, 128 and
+    256 slots, 128 was the fastest at the engine's shape and within the
+    spread of the fastest at serve_batch's (PERF.md §6); the MLA kernel
+    passes its own tile, most and rows (``attn_decode_mla.mla_plan``)."""
+    unit = tile if page_size is None else math.lcm(tile, page_size)
+    units, ctas = -(-cap // unit), b * nkv * -(-g // rows)
+    per = max(1, most // unit)
     while per > 1 and ctas * -(-units // per) < sms:
         per -= 1
     return per * unit, -(-units // per)
@@ -58,13 +60,14 @@ def split_plan(b: int, nkv: int, g: int, cap: int, sms: int,
 _TICKETS: dict[torch.device, torch.Tensor] = {}
 
 
-def launch_buffers(dev, b: int, nkv: int, g: int, hd: int, chunks: int):
+def launch_buffers(dev, b: int, nkv: int, g: int, hd: int, chunks: int,
+                   rows: int = ROWS):
     """The f32 workspace of one launch (per chunk of each (batch row, KV
-    head, row group): ROWS rows of m, l and acc[hd]) and the device's int32
-    tickets, zero between launches (the kernel resets each one it uses),
-    grown when a launch needs more."""
-    units = b * nkv * -(-g // ROWS)
-    ws = torch.empty(units * chunks * ROWS * (hd + 2), dtype=torch.float32,
+    head, group of ``rows`` query rows): rows of m, l and acc[hd]) and the
+    device's int32 tickets, zero between launches (the kernel resets each
+    one it uses), grown when a launch needs more."""
+    units = b * nkv * -(-g // rows)
+    ws = torch.empty(units * chunks * rows * (hd + 2), dtype=torch.float32,
                      device=dev)
     tickets = _TICKETS.get(dev)
     if tickets is None or tickets.numel() < units:

@@ -9,18 +9,61 @@ latent cache comes with ``c_scale`` (b, S) f32, folded into the kernel's
 products.  On CUDA tensors the wrapper launches the kernel (or raises); on
 CPU tensors it runs the plain version
 :func:`repro_torch.kernels.ref.attn_mla_decode_ref`.
-``attn_decode_mla.launches`` counts kernel launches.
+
+The kernel splits the slots into chunks (:func:`mla_plan`), one CTA per
+chunk, batch row and group of HEADS heads; the partials go to an f32
+workspace and the last CTA of each (batch row, head group) merges them,
+counted by the device's ticket array
+(:func:`repro_torch.kernels.attn_decode.launch_buffers`, shared with the
+GQA decode kernels).  ``attn_decode_mla.launches`` counts kernel launches:
+one a call.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.attn_decode import launch_buffers, split_plan
+from repro_torch.kernels.lords_matmul import _sms
 from repro_torch.kernels.ref import attn_mla_decode_ref
 
-__all__ = ["attn_decode_mla", "check_mla", "LATENT_DIMS"]
+__all__ = ["attn_decode_mla", "check_mla", "mla_plan", "LATENT_DIMS", "TILE",
+           "CHUNK", "HEADS"]
 
 LATENT_DIMS = ((256, 32),)  # (L, R) pairs the kernel is built for (minicpm3)
+TILE = 32    # slots of one stage of the kernel's ring: a chunk is whole tiles
+CHUNK = 64   # slots a CTA takes at most: its ring's two stages
+HEADS = 8    # heads of one CTA (csrc/attn_decode_mla.cu: HEADS)
+
+
+def mla_plan(b: int, nh: int, cap: int, sms: int,
+             page_size: int | None = None) -> tuple[int, int]:
+    """(chunk, chunks) of the MLA decode kernel: the GQA kernel's
+    :func:`~repro_torch.kernels.attn_decode.split_plan` for one KV head
+    shared by the nh query heads, on the MLA kernel's TILE, CHUNK and
+    HEADS."""
+    return split_plan(b, 1, nh, cap, sms, page_size, tile=TILE, most=CHUNK,
+                      rows=HEADS)
+
+
+def launch_mla(entry: str, signature: str, q_lat, operands, sizes, *,
+               logit_scale: float, cap: int,
+               page_size: int | None = None) -> torch.Tensor:
+    """Launch ``entry`` of ``csrc/attn_decode_mla.cu`` with q_lat, the
+    ``operands`` (pointers or None), out, the workspace, the tickets, the
+    logit scale, the ``sizes``, the chunk and the stream; returns the
+    (b, nh, L) f32 output."""
+    b, nh, lat = q_lat.shape
+    dev = q_lat.device
+    out = torch.empty((b, nh, lat), dtype=torch.float32, device=dev)
+    chunk, chunks = mla_plan(b, nh, cap, _sms(dev), page_size)
+    ws, tickets = launch_buffers(dev, b, 1, nh, lat, chunks, rows=HEADS)
+    fn = _build.bind("attn_decode_mla", entry, signature)
+    err = fn(q_lat.data_ptr(), *operands, out.data_ptr(), ws.data_ptr(),
+             tickets.data_ptr(), float(logit_scale), *sizes, chunk,
+             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, entry)
+    return out
 
 
 def check_mla(what, q_lat, q_rope, c, k_rope, c_scale, scale_shape) -> bool:
@@ -70,13 +113,11 @@ def attn_decode_mla(q_lat, q_rope, c, k_rope, pos, c_scale=None, *,
         return attn_mla_decode_ref(q_lat, q_rope, c, k_rope, pos, c_scale,
                                    logit_scale)
     check_latent_dims(what, lat, rope)
-    out = torch.empty((b, nh, lat), dtype=torch.float32, device=q_lat.device)
-    fn = _build.bind("attn_decode_mla", "attn_decode_mla_launch", "pppppppfiiiiiip")
-    err = fn(q_lat.data_ptr(), q_rope.data_ptr(), c.data_ptr(), k_rope.data_ptr(),
-             c_scale.data_ptr() if quantized else None, pos.data_ptr(),
-             out.data_ptr(), float(logit_scale), b, cap, nh, lat, rope,
-             int(quantized), torch.cuda.current_stream(q_lat.device).cuda_stream)
-    _build.check(err, what)
+    out = launch_mla(
+        "attn_decode_mla_launch", "pppppppppfiiiiiiip", q_lat,
+        (q_rope.data_ptr(), c.data_ptr(), k_rope.data_ptr(),
+         c_scale.data_ptr() if quantized else None, pos.data_ptr()),
+        (b, cap, nh, lat, rope, int(quantized)), logit_scale=logit_scale, cap=cap)
     attn_decode_mla.launches += 1
     return out
 

@@ -7,18 +7,20 @@ Port of the JAX package's ``attn_decode_mla_paged_pallas``: q_lat
 (P, ps, R) bf16, read through the page table ``pt`` (b, np) int32: logical
 slot j of row b is pool row ``pt[b, j // ps] * ps + j % ps`` and is live
 when ``j <= pos[b]``, at any page size ``ps``.  The kernel reads no page
-past ``pos[b] // ps``.  On
-CUDA tensors the wrapper launches the kernel (or raises); on CPU tensors it
-runs the plain version, the gather oracle
+past ``pos[b] // ps``; it is the contiguous wrapper's split-KV kernel, its
+chunks whole pages (:func:`repro_torch.kernels.attn_decode_mla.mla_plan`).
+On CUDA tensors the wrapper launches the kernel (or raises); on CPU tensors
+it runs the plain version, the gather oracle
 :func:`repro_torch.kernels.ref.attn_mla_decode_paged_ref`.
-``attn_decode_mla_paged.launches`` counts kernel launches.
+``attn_decode_mla_paged.launches`` counts kernel launches: one a call.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.attn_decode_mla import check_latent_dims, check_mla
+from repro_torch.kernels.attn_decode_mla import (check_latent_dims, check_mla,
+                                                 launch_mla)
 from repro_torch.kernels.ref import attn_mla_decode_paged_ref
 
 __all__ = ["attn_decode_mla_paged"]
@@ -53,15 +55,13 @@ def attn_decode_mla_paged(q_lat, q_rope, c_pool, k_rope_pool, pt, pos,
         return attn_mla_decode_paged_ref(pt, q_lat, q_rope, c_pool, k_rope_pool,
                                          pos, c_scale, logit_scale)
     check_latent_dims(what, lat, rope)
-    out = torch.empty((b, nh, lat), dtype=torch.float32, device=q_lat.device)
-    fn = _build.bind("attn_decode_mla", "attn_decode_mla_paged_launch",
-                     "ppppppppfiiiiiiip")
-    err = fn(q_lat.data_ptr(), q_rope.data_ptr(), c_pool.data_ptr(),
-             k_rope_pool.data_ptr(), c_scale.data_ptr() if quantized else None,
-             pt.data_ptr(), pos.data_ptr(), out.data_ptr(), float(logit_scale),
-             b, pt.shape[1], ps, nh, lat, rope, int(quantized),
-             torch.cuda.current_stream(q_lat.device).cuda_stream)
-    _build.check(err, what)
+    npages = pt.shape[1]
+    out = launch_mla(
+        "attn_decode_mla_paged_launch", "ppppppppppfiiiiiiiip", q_lat,
+        (q_rope.data_ptr(), c_pool.data_ptr(), k_rope_pool.data_ptr(),
+         c_scale.data_ptr() if quantized else None, pt.data_ptr(), pos.data_ptr()),
+        (b, npages, ps, nh, lat, rope, int(quantized)), logit_scale=logit_scale,
+        cap=npages * ps, page_size=ps)
     attn_decode_mla_paged.launches += 1
     return out
 

@@ -355,6 +355,149 @@ def test_mla_paged_decode_matches_plain(dev, kv, ps):
         rtol=0, atol=1e-4)
 
 
+def _mla_exact(ql, qr, c, kr, cs, pos, scale):
+    """The plain version's function in float64 (c dequantized by cs)."""
+    cf = c.double() if cs is None else c.double() * cs.double()[..., None]
+    s = (torch.einsum("bhl,bsl->bhs", ql.double(), cf)
+         + torch.einsum("bhr,bsr->bhs", qr.double(), kr.double())) * scale
+    live = torch.arange(c.shape[1], device=c.device)[None, :] <= pos[:, None]
+    p = torch.softmax(torch.where(live[:, None], s, -torch.inf), dim=-1)
+    return torch.einsum("bhs,bsl->bhl", p, cf).float()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nh", [1, 16, 40, 48])
+def test_mla_decode_split_kv_matches_plain(dev, nh):
+    """The split-KV MLA decode kernel against its plain version, bf16 and
+    int8 latent caches, at caches of one slot, around the chunk C the
+    wrapper picks at the longest cache (C - 1, C, C + 1), serve_batch's 543
+    / 544, the engine's 1280 and 4096 (more chunks than the merge weighs at
+    once); row 0 fully live, row 1 with a dead tail
+    of at least one whole chunk where the cache has one; logits at the
+    model's scale and x30 (peaked: q_lat's f32 value must reach the
+    scores); nh 1, one head group of 8, two, minicpm3's 40 and 48.  One
+    launch per call; 1e-4 absolute on O(1) outputs against the plain
+    version's function in float64, and at the model's scale against the
+    plain version itself (f32, summed in another order).  At x30 the f32
+    plain version is itself up to 1.3e-4 from the float64 value (measured
+    on an H100): only the float64 value can hold the kernel to 1e-4
+    there."""
+    from repro_torch.kernels.attn_decode_mla import mla_plan
+    from repro_torch.kernels.lords_matmul import _sms
+    rng = np.random.default_rng(nh)
+    b = 2
+    ql = torch.from_numpy(rng.standard_normal((b, nh, MLA_L)).astype(np.float32)).to(dev)
+    qr = _bf16(rng, dev, b, nh, MLA_R)
+    c_max = mla_plan(b, nh, 4096, _sms(dev))[0]
+    for cap in (1, c_max - 1, c_max, c_max + 1, 543, 544, 1280, 4096):
+        chunk = mla_plan(b, nh, cap, _sms(dev))[0]
+        dead_from = cap - 2 * chunk if cap > 2 * chunk else max(1, cap // 3)
+        pos = torch.tensor([cap - 1, dead_from - 1 if cap > 1 else 0], dtype=torch.int32,
+                           device=dev)
+        kr = _bf16(rng, dev, b, cap, MLA_R)
+        for kv in ("bf16", "int8"):
+            c, cs = _mla_cache(rng, dev, (b, cap), kv)
+            scales = () if cs is None else (cs,)
+            for peak in (1.0, 30.0):
+                scale = peak * 96**-0.5
+                before = attn_decode_mla.launches
+                y = attn_decode_mla(ql, qr, c, kr, pos, *scales, logit_scale=scale)
+                assert attn_decode_mla.launches == before + 1
+                refs = [_mla_exact(ql, qr, c, kr, cs, pos, scale)]
+                if peak == 1.0:
+                    refs.append(ref.attn_mla_decode_ref(ql, qr, c, kr, pos, cs, scale))
+                for y_ref in refs:
+                    err = (y - y_ref).abs().max().item()
+                    assert err <= 1e-4, (cap, chunk, kv, peak, err)
+
+
+def _mla_pages(rng, dev, pos_np, ps, npages, total):
+    """Scattered page tables: row i maps pos_np[i] // ps + 1 distinct pages
+    of 1 .. total - 1, its later entries the dummy page 0."""
+    pt_np = np.zeros((len(pos_np), npages), np.int32)
+    for i, p in enumerate(pos_np):
+        used = p // ps + 1
+        pt_np[i, :used] = rng.choice(np.arange(1, total), size=used, replace=False)
+    return torch.from_numpy(pt_np).to(dev), torch.from_numpy(pos_np).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("ps", [8, 12, 64])
+def test_mla_paged_split_kv_reads_no_page_past_pos(dev, kv, ps):
+    """The paged MLA entry's chunks are whole pages: 20-page tables, pos on
+    and off page boundaries (0, ps - 1, ps, mid-page, the last slot),
+    unmapped entries past pos // ps pointing at the dummy page 0, whose
+    latent rows and RoPE keys (bf16) or scales (int8) are NaN here: a read
+    past pos would poison the row.  The plain version reads a clean copy.
+    One launch per call; 1e-4 absolute."""
+    rng = np.random.default_rng(ps)
+    npages, total = 20, 110
+    pos_np = np.array([0, ps - 1, ps, 11 * ps + ps // 3, npages * ps - 1], np.int32)
+    b = len(pos_np)
+    ql = torch.from_numpy(rng.standard_normal((b, MLA_NH, MLA_L)).astype(np.float32)).to(dev)
+    qr = _bf16(rng, dev, b, MLA_NH, MLA_R)
+    c, cs = _mla_cache(rng, dev, (total, ps), kv)
+    kr = _bf16(rng, dev, total, ps, MLA_R)
+    pt, pos = _mla_pages(rng, dev, pos_np, ps, npages, total)
+    scales = () if cs is None else (cs,)
+    poisoned = [t.clone() for t in (c, kr, *scales)]
+    for t in (poisoned[1:] if scales else poisoned):  # int8 codes hold no NaN
+        t[0] = float("nan")
+    before = attn_decode_mla_paged.launches
+    y = attn_decode_mla_paged(ql, qr, *poisoned[:2], pt, pos, *poisoned[2:],
+                              logit_scale=96**-0.5)
+    assert attn_decode_mla_paged.launches == before + 1
+    y_ref = ref.attn_mla_decode_paged_ref(pt, ql, qr, c, kr, pos, cs, 96**-0.5)
+    assert torch.isfinite(y).all()
+    torch.testing.assert_close(y, y_ref, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_mla_decode_is_deterministic_at_split_kv(dev):
+    """Both MLA decode entries at serve_batch's and the engine's geometry
+    (many chunks a row: the partials meet in a workspace and the last CTA
+    merges them in chunk order) give bitwise-equal results from two calls,
+    bf16 and int8, and write every output: the allocator's pool for the
+    output is filled with NaN before each call."""
+    from repro_torch.kernels.attn_decode_mla import mla_plan
+    from repro_torch.kernels.lords_matmul import _sms
+    rng = np.random.default_rng(7)
+    b, cap = 4, 544
+    assert mla_plan(b, MLA_NH, cap, _sms(dev))[1] > 1
+    ql = torch.from_numpy(rng.standard_normal((b, MLA_NH, MLA_L)).astype(np.float32)).to(dev)
+    qr = _bf16(rng, dev, b, MLA_NH, MLA_R)
+    kr = _bf16(rng, dev, b, cap, MLA_R)
+    pos = torch.tensor([cap - 2, cap - 1, 300, 40], dtype=torch.int32, device=dev)
+    slots, ps, npages, total = 8, 64, 20, 49
+    pql = torch.from_numpy(rng.standard_normal((slots, MLA_NH, MLA_L)).astype(np.float32)
+                           ).to(dev)
+    pqr = _bf16(rng, dev, slots, MLA_NH, MLA_R)
+    pkr = _bf16(rng, dev, total, ps, MLA_R)
+    pt, ppos = _mla_pages(rng, dev, rng.integers(64, npages * ps - 1, slots).astype(np.int32),
+                          ps, npages, total)
+    for kv in ("bf16", "int8"):
+        c, cs = _mla_cache(rng, dev, (b, cap), kv)
+        pc, pcs = _mla_cache(rng, dev, (total, ps), kv)
+        calls = (
+            (lambda: attn_decode_mla(ql, qr, c, kr, pos, *(() if cs is None else (cs,)),
+                                     logit_scale=96**-0.5),
+             ref.attn_mla_decode_ref(ql, qr, c, kr, pos, cs, 96**-0.5)),
+            (lambda: attn_decode_mla_paged(pql, pqr, pc, pkr, pt, ppos,
+                                           *(() if pcs is None else (pcs,)),
+                                           logit_scale=96**-0.5),
+             ref.attn_mla_decode_paged_ref(pt, pql, pqr, pc, pkr, ppos, pcs, 96**-0.5)))
+        for call, y_ref in calls:
+            outs = []
+            for _ in range(2):
+                junk = [torch.full(y_ref.shape, float("nan"), device=dev) for _ in range(8)]
+                del junk
+                outs.append(call())
+            torch.cuda.synchronize()
+            assert torch.isfinite(outs[0]).all() and torch.equal(outs[0], outs[1])
+            torch.testing.assert_close(outs[0], y_ref, rtol=0, atol=1e-4)
+
+
 @pytest.mark.cuda
 def test_mla_decode_rejects_unbuilt_latent_dims(dev):
     """Latent dims the kernel is not built for raise on the card (the CPU

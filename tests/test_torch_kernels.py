@@ -497,6 +497,38 @@ def test_attn_decode_split_plan_covers_the_slots_and_fills_the_card(b, nkv, g, c
         assert ctas >= 132 and chunk == CHUNK
 
 
+@pytest.mark.parametrize("b,nh,cap,page", [
+    (4, 40, 544, None),      # serve_batch's MLA decode: minicpm3-4b, b 4, 544 slots
+    (8, 40, 1280, 64),       # the MLA engine's: 8 slots, pages of 64, 20-page tables
+    (2, 48, 77, None),       # six head groups, a ragged short cache
+    (1, 1, 4096, None),      # one head: one CTA a chunk
+    (3, 16, 5 * 12, 12),     # pages that do not divide a tile
+    (64, 40, 4096, None),    # a large batch: chunks at their cap
+    (1, 40, 1, 8),
+])
+def test_mla_decode_split_plan_covers_the_slots_and_fills_the_card(b, nh, cap, page):
+    """The MLA decode kernel's split over the slot axis (the GQA plan on the
+    MLA kernel's 32-slot tile and 8-head CTAs, one KV head for the nh
+    heads): ``chunks``
+    chunks of ``chunk`` slots cover [0, cap) once, in order, the last one
+    ragged; a chunk is whole tiles and, on the paged entry, whole pages, at
+    most CHUNK slots (or one tile-and-page unit); it is smaller only to give
+    every SM a CTA (b·ceil(nh / HEADS) a chunk), which the CTAs do at
+    serve_batch's and the engine's shapes on the 132 SMs of an H100."""
+    from repro_torch.kernels.attn_decode_mla import CHUNK, HEADS, TILE, mla_plan
+    chunk, chunks = mla_plan(b, nh, cap, 132, page)
+    unit = TILE if page is None else math.lcm(TILE, page)
+    assert chunk % unit == 0 and chunk <= max(unit, CHUNK)
+    bounds = [(c * chunk, min(cap, (c + 1) * chunk)) for c in range(chunks)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == cap
+    assert all(lo < hi for lo, hi in bounds)
+    assert all(a[1] == b_[0] for a, b_ in zip(bounds, bounds[1:]))
+    ctas = b * -(-nh // HEADS) * chunks
+    assert ctas >= 132 or chunk == unit, (chunk, chunks, ctas)
+    if (b, nh, cap) in ((4, 40, 544), (8, 40, 1280)):
+        assert ctas >= 132
+
+
 def test_qattention_matches_jax_ref():
     """qattention kinds prefill (s not a tile multiple: padded with dead
     positions) and decode on both backends against JAX qattention on its ref
@@ -643,10 +675,17 @@ def test_resource_usage_reads_ptxas_report():
         "ptxas info    : Compiling entry function '_Z13prepass_kernelPKfS0_Pfiiiii' "
         "for 'sm_90a'",
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
-        "ptxas info    : Used 40 registers, used 0 barriers"])
+        "ptxas info    : Used 40 registers, used 0 barriers",
+        # type arguments, and a namespace hash that spells a <length><name>
+        "ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__46658bac_18_attn_"
+        "decode_mla_cu_1b8e2afb22attn_decode_mla_kernelILi256ELi32EaNS_5PagedEEEvPKfPK13__"
+        "nv_bfloat16PKT1_S6_S3_PKiPfSC_PifT2_iii' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 137 registers, used 1 barriers"])
     assert _build.resource_usage("lords_matmul", log) == [
         ("lords_matmul_kernel<4, 0>", 255, 4),
-        ("_Z13prepass_kernelPKfS0_Pfiiiii", 40, 0)]
+        ("_Z13prepass_kernelPKfS0_Pfiiiii", 40, 0),
+        ("attn_decode_mla_kernel<256, 32, int8_t, Paged>", 137, 0)]
     assert _build.resource_usage("no_such_source") == []
 
 
