@@ -12,10 +12,11 @@ decode GEMVs at its seven decode linears, which also run at llama3-8b's
 at M = 8), and times kernel, plain version, one library call (where one
 computes the same function) and the bytes/FLOP bound; each line gives the
 share of the bound the kernel reached, and the lines of the product
-kernels among the twelve Hopper designs (the LoRDS and block-wise prefill
+kernels among the thirteen Hopper designs (the LoRDS and block-wise prefill
 kernels, the attention prefill kernel, the two activation-gradient
 kernels, ``lords_grad`` and ``block_grad``; the others are the split-KV
-GQA and MLA decode kernels and the two decode GEMVs) their achieved TFLOP/s
+GQA and MLA decode kernels, the two decode GEMVs and the row-streaming
+``lut_quantize``) their achieved TFLOP/s
 (``lords_matmul`` also at the 4096-row step of the engine chunk and
 training, ``attn_prefill`` also with a peaked softmax).  Phase 1 prints
 those sources' ptxas registers and spills.

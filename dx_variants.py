@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time copies of ten Hopper kernels side by side on one card.
+"""Time copies of eleven Hopper kernels side by side on one card.
 
-    python3 dx_variants.py [--gemv | --mla] DIR [DIR ...]
+    python3 dx_variants.py [--gemv | --mla | --lut] DIR [DIR ...]
 
 The two decode GEMVs (``lords_decode.cu`` and ``block_matmul.cu``'s decode
 entry, on the core ``gemv.cuh`` or as before it) of each copy are held
@@ -22,6 +22,20 @@ scattered tables); the check's reference is the plain version's function
 in float64.  A split-KV copy (it takes a workspace and tickets) is
 timed at its plan's chunk and at half and twice it, its tile read from the
 copy's source; one from before the split as it was.
+
+``--lut`` builds only each copy's ``lut_quantize.cu``, holds it against
+the plain version (every codebook; ragged N and K, K a multiple of 8 but
+not of 128; ranks 1 to 72; output 0xAA-filled first; every flipped code
+within 4 ulps of a midpoint; and exact ties: S a power of two and W / S
+on a midpoint or beside it, codes equal byte for byte) and times it at
+``chip_smoke.py`` phase 2's seven llama3-8b linears (the better of two
+medians of 10), printing each shape's ms and the ms a layer of each copy.
+Both the kernel from before the binary search and the one after take the
+wrapper's table (midpoints padded with +inf to 2^bits - 1).  For a
+row-streaming copy it also counts, in the SASS of its nf4 kernels
+(``cuobjdump``), the instructions a weight of the main loop's hot path
+(``[sass]``), and turns them into the layer's issue floor at four warp
+instructions a clock on every SM at the card's top clock (``[issue]``).
 
 Each DIR holds a copy of ``src/repro_torch/csrc``, edited or not.  Each
 copy's ``lords_matmul_t.cu`` and ``block_matmul_t.cu`` (the two
@@ -53,6 +67,7 @@ import math
 import re
 import subprocess
 import sys
+from collections import Counter
 from pathlib import Path
 
 import chip_smoke
@@ -71,6 +86,7 @@ SIGNATURES = {  # entry point -> (argtypes, restype)
     "lords_grad_workspace": ([I] * 4, ctypes.c_longlong),
     "lords_grad_launch": ([P] * 11 + [I] * 6 + [P], I),
     "block_grad_launch": ([P] * 5 + [I] * 6 + [P], I),
+    "lut_quantize_launch": ([P] * 5 + [I] * 5 + [P], I),
 }
 # the decode GEMVs: on the GEMV core (a workspace, tickets and the split
 # count) or as before it (lords_decode adds into a zeroed y)
@@ -781,11 +797,176 @@ def time_mla(torch, libs, dirs, gen, flush):
                 print(f"[time] {d} attn_decode_mla {label}{tag}: {ms:.4f} ms")
 
 
+def lut_launcher(torch, libs, d):
+    """A callable running DIR's ``lut_quantize`` into ``out``."""
+    from repro_torch.core.quantize import pack_spec
+    from repro_torch.kernels.lut_quantize import device_table
+
+    lib = libs[(d, "lut_quantize")]
+
+    def run(w, b, a, codebook, out):
+        tab = device_table(codebook, str(w.device))
+        err = lib.lut_quantize_launch(w.data_ptr(), b.data_ptr(), a.data_ptr(), tab.data_ptr(),
+                                      out.data_ptr(), w.shape[0], w.shape[1], b.shape[1],
+                                      pack_spec(codebook).bits, tab.numel(),
+                                      torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"{d}: lut_quantize CUDA error {err}")
+
+    return run
+
+
+def check_lut(torch, libs, d) -> bool:
+    """DIR's lut_quantize against the plain version (output 0xAA-filled
+    first): random operands with every flip within 4 ulps of a midpoint;
+    ratios exactly on a midpoint or one f32 ulp beside it byte for byte."""
+    import numpy as np
+
+    from repro_torch.core.lut import CODEBOOKS
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.lut_quantize import flipped_codes
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from test_torch_cuda import lut_tie_operands
+
+    dev = torch.device("cuda")
+    run = lut_launcher(torch, libs, d)
+    rng = np.random.default_rng(22)
+    ok, worst, ties = True, 0.0, 0
+    for codebook in CODEBOOKS:
+        for n, k, r in ((200, 232, 1), (77, 1000, 6), (333, 4104, 24), (130, 264, 32),
+                        (129, 520, 17), (64, 136, 72), (1, 8, 40)):
+            w = torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32)).to(dev)
+            b = torch.from_numpy(rng.standard_normal((n, r)).astype(np.float32) * 0.3).to(dev)
+            a = torch.from_numpy(rng.standard_normal((r, k)).astype(np.float32) * 0.3).to(dev)
+            want = ref.lut_quantize_ref(w, b, a, codebook)
+            got = torch.full_like(want, 0xAA)
+            run(w, b, a, codebook, got)
+            torch.cuda.synchronize()
+            _, ulps = flipped_codes(w, b, a, got, want, codebook)
+            worst = max(worst, ulps)
+            ok &= ulps <= 4
+        for n, k, r in ((136, 264, 1), (136, 264, 6), (136, 264, 24), (136, 264, 72)):
+            w, b, a = (torch.from_numpy(t).to(dev)
+                       for t in lut_tie_operands(rng, n, k, r, codebook)[:3])
+            want = ref.lut_quantize_ref(w, b, a, codebook)
+            got = torch.full_like(want, 0xAA)
+            run(w, b, a, codebook, got)
+            torch.cuda.synchronize()
+            bad = int((got != want).sum())
+            ties += bad
+            ok &= bad == 0
+    print(f"[check] {d} lut_quantize: farthest flip {worst:.1f} ulps from a midpoint (<= 4), "
+          f"{ties} bytes unequal on or beside a midpoint (0) {'PASS' if ok else 'FAIL'}")
+    return ok
+
+
+def sass_loop(sass: str) -> Counter:
+    """Opcodes of the hot path of a function's longest loop, from its
+    ``cuobjdump -sass`` text: the instructions from the target of the
+    longest backward branch to that branch, less every block that a forward
+    branch skips and that holds a CALL (the IEEE division's slow path)."""
+    ins = [(int(m.group(1), 16), m.group(2)) for m in
+           re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;", sass)]
+    where = {addr: i for i, (addr, _) in enumerate(ins)}
+    loop = None
+    for addr, text in ins:
+        m = re.search(r"\bBRA\s+(?:!?U?P\w+,\s*)?(0x[0-9a-f]+)", text)
+        if m and int(m.group(1), 16) < addr and (
+                loop is None or addr - int(m.group(1), 16) > loop[1] - loop[0]):
+            loop = (int(m.group(1), 16), addr)
+    if loop is None:
+        return Counter()
+    body = ins[where[loop[0]]:where[loop[1]] + 1]
+    cold = set()
+    for j, (addr, text) in enumerate(body):
+        m = re.match(r"@!?P\w+\s+BRA\s+(0x[0-9a-f]+)", text)
+        if m and int(m.group(1), 16) > addr:
+            block = [i for i in range(j + 1, len(body)) if body[i][0] < int(m.group(1), 16)]
+            if any("CALL" in body[i][1] for i in block):
+                cold.update(block)
+    return Counter(re.sub(r"^@!?U?P\w+\s+", "", text).split()[0].split(".")[0]
+                   for i, (_, text) in enumerate(body) if i not in cold)
+
+
+def lut_issue(so) -> dict:
+    """{rank bucket: issued instructions a weight} of the row-streaming
+    lut_quantize kernels at 4 bits (a step of the main loop computes 8
+    weights a thread) in the library ``so``, from its SASS; {} for another
+    design."""
+    from repro_torch.kernels import _build
+
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(so)], capture_output=True, text=True,
+                          check=True).stdout
+    out = {}
+    for fn in sass.split("Function : ")[1:]:
+        m = re.search(r"lut_quantize_kernelILi4ELi(\d+)E", fn.splitlines()[0])
+        if m and int(m.group(1)) > 0:
+            ops = sass_loop(fn)
+            out[int(m.group(1))] = (sum(ops.values()) / 8, ops)
+    return out
+
+
+def time_lut(torch, libs, dirs, gen, flush):
+    """Each directory's lut_quantize at chip_smoke phase 2's seven llama3-8b
+    linears (W the dequantized weight plus noise, as there); prints each
+    shape's ms and the ms a layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import init_quantized_linear
+    from repro_torch.core.lords import dequantize_weight
+    from repro_torch.core.quantize import pack_spec
+
+    dev = torch.device("cuda")
+    cfg = get_config("llama3-8b")
+    spec = cfg.quant
+    layer = [0.0] * len(dirs)
+    issue = {d: lut_issue(libs[(d, "lut_quantize")]._name) for d in dict.fromkeys(dirs)}
+    floor = dict.fromkeys(issue, 0.0)  # warp-instructions of a layer
+    mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                                "--format=csv,noheader,nounits"], capture_output=True,
+                               text=True, check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for d, counts in issue.items():
+        for rb, (per_weight, ops) in sorted(counts.items()):
+            top = ", ".join(f"{n} {op}" for op, n in ops.most_common(6))
+            print(f"[sass] {d} lut_quantize_kernel<4, {rb}> main loop: {per_weight:.1f} "
+                  f"instructions a weight ({top}, a step of 8)")
+    for (n, k), names in chip_smoke._layer_shapes(cfg).items():
+        p = init_quantized_linear(n, k, spec, generator=gen, device=dev)
+        b, a = p["b"], p["a"]
+        w = (dequantize_weight(p, spec).float()
+             + 1e-3 * torch.randn(n, k, generator=gen, device=dev)).contiguous()
+        out = torch.empty(n, pack_spec(spec.codebook).packed_width(k), dtype=torch.uint8,
+                          device=dev)
+        for i, d in enumerate(dirs):
+            run = lut_launcher(torch, libs, d)
+
+            def fn():
+                run(w, b, a, spec.codebook, out)
+            ms = min(chip_smoke.timed(fn, 10, flush), chip_smoke.timed(fn, 10, flush))
+            layer[i] += len(names) * ms
+            print(f"[time] {d} lut_quantize {'/'.join(names)} N={n} K={k} r={b.shape[1]}: "
+                  f"{ms:.4f} ms")
+        for d, counts in issue.items():
+            rb = next((x for x in sorted(counts) if x >= b.shape[1]), None)
+            if rb is not None:
+                floor[d] += len(names) * n * k * counts[rb][0] / 32
+        del p, b, a, w, out
+    for d, ms in zip(dirs, layer):
+        print(f"[layer] {d} lut_quantize: {ms:.4f} ms a layer of seven linears")
+    for d, warp_ins in floor.items():
+        if warp_ins:
+            print(f"[issue] {d} lut_quantize: {warp_ins / 1e6:.1f} M warp-instructions a layer, "
+                  f"{warp_ins / (sms * 4 * mhz * 1e6) * 1e3:.4f} ms at 4 a clock on {sms} SMs "
+                  f"at {mhz:.0f} MHz")
+
+
 def main() -> int:
     import torch
 
     dirs = sys.argv[1:]
-    mode = dirs[0] if dirs and dirs[0] in ("--gemv", "--mla") else None
+    mode = dirs[0] if dirs and dirs[0] in ("--gemv", "--mla", "--lut") else None
     if mode:
         dirs = dirs[1:]
     if not dirs or not torch.cuda.is_available():
@@ -802,6 +983,13 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(1234)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev).zero_
     passed = True
+    if mode == "--lut":
+        libs = build(dirs, ("lut_quantize",))
+        for d in dict.fromkeys(dirs):
+            passed &= check_lut(torch, libs, d)
+        time_lut(torch, libs, dirs, gen, flush)
+        print(chip_smoke.nvidia_smi())
+        return 0 if passed else 1
     if mode == "--mla":
         libs = build(dirs, ("attn_decode_mla",))
         for d in dict.fromkeys(dirs):

@@ -6,10 +6,15 @@
 Port of the JAX package's ``lut_quantize_pallas``; it feeds the QAT
 forward.  On CUDA tensors the wrapper launches the hand-written kernel (or
 raises); on CPU tensors it runs the plain version
-:func:`repro_torch.kernels.ref.lut_quantize_ref`.  The kernel clamps S with
-``clamp_scale`` (sign kept), where the plain version maps a tiny negative S
-to +eps: the two agree wherever |S| >= 1e-8.  ``lut_quantize.launches``
-counts kernel launches.
+:func:`repro_torch.kernels.ref.lut_quantize_ref`.  The kernel streams W's
+rows past A held in registers (ranks <= 32; larger ranks, up to
+``MAX_RANK``, keep A in shared memory), divides W by S with IEEE rounding
+and finds each code by a ``bits``-step binary search over
+:func:`device_table`, the level midpoints padded with +inf: the count of
+midpoints strictly below the ratio (a tie takes the lower level, NaN code
+0).  It clamps S with ``clamp_scale`` (sign kept), where the plain version
+maps a tiny negative S to +eps: the two agree wherever |S| >= 1e-8.
+``lut_quantize.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -23,18 +28,23 @@ from repro_torch.core.scaling import clamp_scale
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import lut_quantize_ref
 
-__all__ = ["lut_quantize", "flipped_codes"]
+__all__ = ["lut_quantize", "device_table", "flipped_codes", "MAX_RANK"]
+
+MAX_RANK = 256  # the kernel's B rows and strip of A fit in shared memory
 
 
 @functools.lru_cache(maxsize=None)
-def device_mids(codebook_name: str, device: str) -> torch.Tensor:
-    """The codebook's level midpoints on ``device``, uploaded once."""
-    return lut_mod.midpoints(codebook_name, device=device)
+def device_table(codebook_name: str, device: str) -> torch.Tensor:
+    """The kernel's search table on ``device``, uploaded once: the
+    codebook's level midpoints, padded with +inf to 2^bits − 1 entries."""
+    mids = lut_mod.midpoints(codebook_name)
+    pad = 2 ** lut_mod.codebook_bits(codebook_name) - 1 - mids.numel()
+    return torch.cat([mids, torch.full((pad,), torch.inf)]).to(device)
 
 
 def lut_quantize(w, b, a, codebook_name: str = "nf4") -> torch.Tensor:
     """w (N, K) f32, b (N, r), a (r, K) f32 → packed codes (N, K·bits/8)
-    uint8.  K must divide 8."""
+    uint8; K % 8 == 0."""
     what = "lut_quantize"
     if w.dim() != 2 or b.dim() != 2 or a.dim() != 2:
         raise ValueError(f"{what}: w, b, a must be 2-D")
@@ -44,18 +54,19 @@ def lut_quantize(w, b, a, codebook_name: str = "nf4") -> torch.Tensor:
         raise ValueError(f"{what}: b {tuple(b.shape)}, a {tuple(a.shape)} do "
                          f"not match w {tuple(w.shape)}")
     if k % 8:
-        raise ValueError(f"{what}: K={k} must divide 8")
+        raise ValueError(f"{what}: K={k} is not a multiple of 8")
     for name, t in (("w", w), ("b", b), ("a", a)):
         _build.require_dtype(what, t, torch.float32, name)
-    ps = pack_spec(codebook_name)
     if not _build.on_card(what, w=w, b=b, a=a):
         return lut_quantize_ref(w, b, a, codebook_name)
-    mids = device_mids(codebook_name, str(w.device))
-    out = torch.empty((n, ps.packed_width(k)), dtype=torch.uint8,
-                      device=w.device)
+    if r > MAX_RANK:
+        raise ValueError(f"{what}: rank {r} > {MAX_RANK} on the card")
+    ps = pack_spec(codebook_name)
+    tab = device_table(codebook_name, str(w.device))
+    out = torch.empty(n, ps.packed_width(k), dtype=torch.uint8, device=w.device)
     fn = _build.bind("lut_quantize", "lut_quantize_launch", "pppppiiiiip")
-    err = fn(w.data_ptr(), b.data_ptr(), a.data_ptr(), mids.data_ptr(),
-             out.data_ptr(), n, k, r, ps.bits, mids.numel(),
+    err = fn(w.data_ptr(), b.data_ptr(), a.data_ptr(), tab.data_ptr(),
+             out.data_ptr(), n, k, r, ps.bits, tab.numel(),
              torch.cuda.current_stream(w.device).cuda_stream)
     _build.check(err, what)
     lut_quantize.launches += 1

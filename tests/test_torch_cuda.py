@@ -17,11 +17,12 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config, smoke_variant
-from repro_torch.core import QuantSpec, init_quantized_linear, peft
+from repro_torch.core import QuantSpec, init_quantized_linear, lut, peft
 from repro_torch.core.baselines import gptq_quantize
+from repro_torch.core.lut import CODEBOOKS
 from repro_torch.core.quantize import quantize_blockwise, unpack_codes
 from repro_torch.data import SyntheticLM, synthetic_activations
-from repro_torch.kernels import dispatch, ref
+from repro_torch.kernels import _build, dispatch, ref
 from repro_torch.kernels.attn_decode import attn_decode
 from repro_torch.kernels.attn_decode_mla import attn_decode_mla
 from repro_torch.kernels.attn_decode_mla_paged import attn_decode_mla_paged
@@ -32,7 +33,7 @@ from repro_torch.kernels.lords_decode import lords_decode
 from repro_torch.kernels.lords_grad import block_grad, lords_grad
 from repro_torch.kernels.lords_matmul import lords_matmul
 from repro_torch.kernels.lords_matmul_t import block_matmul_t, lords_matmul_t
-from repro_torch.kernels.lut_quantize import flipped_codes, lut_quantize
+from repro_torch.kernels.lut_quantize import device_table, flipped_codes, lut_quantize
 from repro_torch.launch.train import batch_tensors
 from repro_torch.models import forward_train, model_init
 from repro_torch.models.common import f32_matmul_train, kv_quantize
@@ -576,22 +577,94 @@ def test_backward_kernels_match_plain_through_dispatch(dev, codebook, mtok, n, k
             assert _rel(a, b, 1e-4), name
 
 
+def _lut_quantize_checked(w, b, a, codebook):
+    """The kernel's codes and the plain version's.  The kernel runs once
+    from its C entry point into an output filled with 0xAA, so that an
+    unwritten byte shows, and once through the wrapper: one launch, the
+    same bytes."""
+    want = ref.lut_quantize_ref(w, b, a, codebook)
+    got = torch.full_like(want, 0xAA)
+    tab = device_table(codebook, str(w.device))
+    launch = _build.bind("lut_quantize", "lut_quantize_launch", "pppppiiiiip")
+    _build.check(launch(w.data_ptr(), b.data_ptr(), a.data_ptr(), tab.data_ptr(),
+                        got.data_ptr(), w.shape[0], w.shape[1], b.shape[1],
+                        lut.codebook_bits(codebook), tab.numel(),
+                        torch.cuda.current_stream(w.device).cuda_stream), "lut_quantize")
+    before = lut_quantize.launches
+    again = lut_quantize(w, b, a, codebook)
+    assert lut_quantize.launches == before + 1
+    assert torch.equal(again, got)
+    return got, want
+
+
+def lut_tie_operands(rng, n, k, r, codebook):
+    """f32 w, b, a (numpy) whose S = B·A is ±2^e exactly in any summation
+    order (small integers times powers of two, ranks summing to 1) and
+    whose W / S is a level midpoint or one of its two f32 neighbours,
+    exactly; also S (float64), the midpoint picked for each weight and its
+    nudge (-1, 0 or +1 ulp).  ``dx_variants.py --lut`` uses it too."""
+    c = rng.integers(-1, 2, r).astype(np.float64)
+    d = rng.integers(-1, 2, r).astype(np.float64)
+    c[-1], d[-1] = 1.0, 1.0 - c[:-1] @ d[:-1]
+    scale_n = rng.choice([-1.0, 1.0], n) * 2.0 ** rng.integers(-4, 5, n)
+    scale_k = 2.0 ** rng.integers(-4, 5, k)
+    s = scale_n[:, None] * scale_k[None]
+    mids = lut.midpoints(codebook).numpy().astype(np.float64)
+    pick = rng.integers(0, mids.size, (n, k))
+    w = (mids[pick] * s).astype(np.float32)
+    nudge = rng.integers(-1, 2, (n, k))
+    toward = np.where(nudge > 0, np.inf, -np.inf).astype(np.float32)  # f32 ulps
+    w = np.where(nudge == 0, w, np.nextafter(w, toward))
+    b, a = scale_n[:, None] * c[None], d[:, None] * scale_k[None]
+    return w, b.astype(np.float32), a.astype(np.float32), s, pick, nudge
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("codebook", ["nf4", "nf3", "nf2", "int8"])
+@pytest.mark.parametrize("codebook", CODEBOOKS)
 def test_lut_quantize_kernel_matches_plain(dev, codebook):
     """Codes equal the plain version's except where W/S lies within 4 f32
-    ulps of a level midpoint (S = B·A summed in another order)."""
+    ulps of a level midpoint (S = B·A summed in another order); no byte is
+    left unwritten.  Ranks 1 to 72 (A in registers up to 32, in shared
+    memory beyond), K a multiple of 8 but not of the kernel's 128-column
+    strip, N not a multiple of its run of rows."""
     rng = np.random.default_rng(5)
-    for n, k, r in ((200, 224, 6), (64, 1024, 24)):  # 224: a ragged column tile
-        _, p = _linear(n, k, r, dev, codebook, seed=n)
+    cases = [(_linear(n, k, r, dev, codebook, seed=n)[1], n, k, r)
+             for n, k, r in ((200, 224, 6), (64, 1024, 24))]
+    rng_ba = np.random.default_rng(6)  # the first two cases keep their W
+    for n, k, r in ((77, 1000, 1), (333, 264, 24), (130, 520, 72), (1, 8, 40)):
+        p = {"b": torch.from_numpy(rng_ba.standard_normal((n, r)).astype(np.float32) * 0.3),
+             "a": torch.from_numpy(rng_ba.standard_normal((r, k)).astype(np.float32) * 0.3)}
+        cases.append(({name: t.to(dev) for name, t in p.items()}, n, k, r))
+    for p, n, k, r in cases:
         w = torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32) * 0.05).to(dev)
-        before = lut_quantize.launches
-        got = lut_quantize(w, p["b"], p["a"], codebook)
-        assert lut_quantize.launches == before + 1
-        want = ref.lut_quantize_ref(w, p["b"], p["a"], codebook)
+        got, want = _lut_quantize_checked(w, p["b"], p["a"], codebook)
         assert got.shape == want.shape and got.dtype == torch.uint8
         count, ulps = flipped_codes(w, p["b"], p["a"], got, want, codebook)
-        assert ulps <= 4, (count, ulps)
+        assert ulps <= 4, (n, k, r, count, ulps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codebook", CODEBOOKS)
+@pytest.mark.parametrize("r", [1, 6, 24, 72])
+def test_lut_quantize_exact_ties_match_plain(dev, codebook, r):
+    """S = B·A is ±2^e exactly in any summation order (small integers times
+    powers of two, ranks summing to 1) and W = mid·S, or one of its f32
+    neighbours: every ratio lies exactly on a midpoint or beside it.  The
+    codes equal the plain version's byte for byte, a tie taking the lower
+    level."""
+    n, k = 136, 264
+    w, b, a, s, pick, nudge = lut_tie_operands(np.random.default_rng(r), n, k, r, codebook)
+    mids = lut.midpoints(codebook).numpy().astype(np.float64)
+    w, b, a = (torch.from_numpy(t).to(dev) for t in (w, b, a))
+    got, want = _lut_quantize_checked(w, b, a, codebook)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    # the ratio W / S is exact here; a tie takes the lower level
+    ratio = torch.from_numpy(w.cpu().numpy().astype(np.float64) / s)
+    on_mid = torch.from_numpy(nudge == 0)
+    codes = unpack_codes(got.cpu(), codebook).long()
+    assert bool((codes[on_mid] == torch.from_numpy(pick)[on_mid]).all())
+    below = (ratio[..., None] > torch.from_numpy(mids)).sum(-1)
+    np.testing.assert_array_equal(codes.numpy(), below.numpy())
 
 
 @pytest.mark.cuda

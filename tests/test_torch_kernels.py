@@ -23,7 +23,8 @@ from repro.kernels.attn_prefill import attn_prefill_pallas
 from repro.kernels.lords_decode import lords_decode_pallas
 from repro.kernels.lords_matmul import lords_matmul_pallas
 from repro_torch.core import QuantSpec, init_quantized_linear
-from repro_torch.core.quantize import quantize_blockwise
+from repro_torch.core import lut
+from repro_torch.core.quantize import nearest_code, quantize_blockwise
 from repro_torch.kernels import _build, dispatch, ref
 from repro_torch.kernels.attn_decode import attn_decode
 from repro_torch.kernels.attn_decode_paged import attn_decode_paged
@@ -31,6 +32,7 @@ from repro_torch.kernels.attn_prefill import attn_prefill
 from repro_torch.kernels.lords_decode import lords_decode
 from repro_torch.kernels.lords_matmul import lords_matmul
 from repro_torch.kernels.lords_matmul_t import block_matmul_t, lords_matmul_t
+from repro_torch.kernels.lut_quantize import device_table, lut_quantize
 from repro_torch.models.common import kv_quantize
 
 
@@ -627,6 +629,69 @@ def test_wrappers_check_operands_and_count_only_launches():
                       cvs.reshape(8, 8, 1), logit_scale=0.25)
     assert counts == [fn.launches for fn in wrappers]
 
+
+
+@pytest.mark.parametrize("codebook", lut.CODEBOOKS)
+def test_lut_quantize_table_is_midpoints_padded_with_inf(codebook):
+    """The kernel's search table: 2^bits - 1 entries, the sorted midpoints
+    first, +inf after them (int4, fp4 and int2 have one pad entry)."""
+    tab = device_table(codebook, "cpu")
+    mids = lut.midpoints(codebook)
+    assert tab.dtype == torch.float32
+    assert tab.numel() == 2 ** lut.codebook_bits(codebook) - 1
+    torch.testing.assert_close(tab[:mids.numel()], mids, rtol=0, atol=0)
+    assert bool((mids[1:] > mids[:-1]).all())
+    assert bool(torch.isposinf(tab[mids.numel():]).all())
+
+
+def _kernel_search(ratio, tab, bits):
+    """The kernel's search in torch ops: code += step where ratio >
+    tab[code + step - 1], step = 2^(bits-1) .. 1."""
+    code = torch.zeros(ratio.shape, dtype=torch.int64)
+    step = 2 ** (bits - 1)
+    while step:
+        code += torch.where(ratio > tab[code + step - 1], step, 0)
+        step //= 2
+    return code
+
+
+@pytest.mark.parametrize("codebook", lut.CODEBOOKS)
+def test_lut_quantize_search_counts_midpoints_below(codebook):
+    """The kernel's bits-step search over the padded table equals
+    ``nearest_code`` at every midpoint (a tie takes the lower level), at its
+    two f32 neighbours, at ±0, ±1e30 and ±inf; a NaN ratio gives code 0, as
+    the JAX compare tree does."""
+    mids = lut.midpoints(codebook)
+    inf = torch.full_like(mids, torch.inf)
+    big = torch.tensor([0.0, -0.0, 1e30, -1e30, torch.inf, -torch.inf])
+    ratio = torch.cat([mids, torch.nextafter(mids, inf), torch.nextafter(mids, -inf), big])
+    got = _kernel_search(ratio, device_table(codebook, "cpu"), lut.codebook_bits(codebook))
+    want = nearest_code(ratio, codebook).long()
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert int(got[-2]) == mids.numel() and int(got[-1]) == 0  # ±inf: the ends
+    nan = _kernel_search(torch.tensor([float("nan")]), device_table(codebook, "cpu"),
+                         lut.codebook_bits(codebook))
+    assert int(nan[0]) == 0
+
+
+def test_lut_quantize_wrapper_runs_plain_on_cpu_and_checks_operands():
+    """On the CPU the wrapper returns the plain version's codes and counts
+    no launch; it refuses a K that is not a multiple of 8, operands whose
+    shapes disagree and a dtype other than f32."""
+    rng = np.random.default_rng(3)
+    w, b, a = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for s in ((24, 40), (24, 5), (5, 40)))
+    before = lut_quantize.launches
+    got = lut_quantize(w, b, a, "nf3")
+    np.testing.assert_array_equal(got.numpy(), ref.lut_quantize_ref(w, b, a, "nf3").numpy())
+    assert got.shape == (24, 15) and got.dtype == torch.uint8
+    with pytest.raises(ValueError, match="K=36"):
+        lut_quantize(w[:, :36], b, a[:, :36])
+    with pytest.raises(ValueError, match="do not match"):
+        lut_quantize(w, b[:, :4], a)
+    with pytest.raises(TypeError, match="w must be torch.float32"):
+        lut_quantize(w.double(), b, a)
+    assert lut_quantize.launches == before
 
 
 def test_transposed_wrappers_take_any_m_and_refuse_off_tile_n_k():
