@@ -37,7 +37,18 @@ LoftQ, QPiSSA and SmoothRot and runs the bit / rank allocation over them.
 Phase 11 serves minicpm3-4b (multi-head latent attention, 62 layers, full
 width) at phase 3's settings with a bf16 and an int8 latent cache and
 profiles one decode step of each as phase 3 does; phase 12
-runs phase 4's engine and trace on it (int8 latent pool).  Each path runs
+runs phase 4's engine and trace on it (int8 latent pool); phase 13 trains
+it in PEFT mode at full depth as phase 5 does (multi-head latent
+attention's training path).  Phase 14 serves the embedding-input models
+internvl2-1b (group size 7) and musicgen-medium (group size 1) at full
+width and depth at phase 3's settings, bf16 cache, the window and step
+embeddings drawn from a seeded ``torch.Generator``.  Phase 15 serves the
+mixture-of-experts phi3.5-moe-42b-a6.6b (16 experts, top-2, nf4 at block
+128) at full width at phase 3's settings, bf16 cache (every decode step
+launches ``lords_decode`` 7 times a layer: each expert stack is one launch
+on the decode GEMV's expert axis, which phase 2 also holds against the
+plain version at the model's stacks, both entries), profiles one decode
+step, then trains 4 of its layers as phase 5 does.  Each path runs
 with the launch counts set to 0 just before it, must launch every kernel
 it uses (and none of another path's linears or decode kernels), and must hold
 its outputs (teacher-forced logits, or one step's gradients) within a
@@ -49,6 +60,7 @@ before it come the card's name and power limit and the
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -81,8 +93,12 @@ BASE_BLOCK, ADAPTER_RANK, PEQA_LAYERS = 128, 32, 4
 # phase 10: Algorithm 1 at the paper's lr and step count; GPTQ / AWQ /
 # SmoothRot calibration tokens; LoftQ's alternations
 PTQ_LR, PTQ_STEPS, PTQ_TOKENS, PTQ_LOFTQ_ITERS = 0.05, 500, 2048, 5
-# phases 11 and 12: the repo's MLA architecture
+# phases 11-13: the repo's MLA architecture; phase 14: the embedding-input
+# ones; phase 15: the mixture-of-experts one
 MLA_ARCH = "minicpm3-4b"
+EMBEDS_ARCHS = ("internvl2-1b", "musicgen-medium")
+MOE_ARCH = "phi3.5-moe-42b-a6.6b"
+MOE_TRAIN_LAYERS = 4
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "lords_matmul": ("lords_matmul", "src/repro/kernels/lords_matmul.py:140"),
     "lords_decode": ("lords_decode", "src/repro/kernels/lords_decode.py:84"),
@@ -269,6 +285,9 @@ def check_kernels(cfg, torch, F):
     check_mla_attention(torch, F, results, gen, flush)
     check_train_kernels(cfg, torch, results, gen, flush)
     check_block_kernels(cfg, torch, results, gen, flush)
+    # last: the checks above keep the generator's stream, so their inputs
+    # are those of every earlier run of this script
+    check_expert_gemvs(torch, results, gen, flush)
     del scratch
     return results
 
@@ -340,6 +359,98 @@ def check_decode_gemvs(cfg, torch, results, gen, flush):
                     primary=False)
                 del x, y, y_ref
             del p, w_hat, q, s_blk, wb_hat
+
+
+def check_expert_gemvs(torch, results, gen, flush):
+    """Phase 2, the two decode GEMVs on the expert axis (not primary):
+    phi3.5-moe's expert stacks (E 16 experts, C 8 slots each: a decode
+    step's capacity) at gate / up (N 6400, K 4096) and down (4096, 6400),
+    LoRDS at the config's rank and block-wise at block 128, one launch per
+    stack, against the plain version expert by expert (the primary checks'
+    tolerances), timed against E single-expert launches, the bytes bound
+    and ``torch.bmm`` of the dequantized stack."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import init_quantized_linear
+    from repro_torch.core.lords import dequantize_weight
+    from repro_torch.core.quantize import dequantize_blockwise, quantize_blockwise
+    from repro_torch.kernels import dispatch, ref
+    from repro_torch.models.moe import capacity
+
+    dev = torch.device("cuda")
+    mcfg = get_config(MOE_ARCH)
+    mo, spec, cb = mcfg.moe, mcfg.quant, mcfg.quant.codebook
+    e, c, d = mo.num_experts, capacity(mo, BATCH), mcfg.d_model
+    for (n, k), label in (((mo.d_ff, d), "gate/up"), ((d, mo.d_ff), "down")):
+        weight = 2 if label == "gate/up" else 1
+        ps = [init_quantized_linear(n, k, spec, generator=gen, device=dev) for _ in range(e)]
+        q, b, a = (torch.stack([p[key] for p in ps]) for key in ("q", "b", "a"))
+        r = b.shape[-1]
+        w_hat = torch.stack([dequantize_weight(p, spec) for p in ps])
+        del ps
+        x = torch.randn(e, c, k, generator=gen, device=dev).to(torch.bfloat16)
+        shape = f"{MOE_ARCH} {label} E={e} C={c} N={n} K={k}"
+
+        def stack():
+            return dispatch._lords_forward(x, q, b, a, cb, "fused")
+
+        def singles():
+            return [dispatch._lords_forward(x[i], q[i], b[i], a[i], cb, "fused")
+                    for i in range(e)]
+
+        def plain():
+            return [ref.lords_matmul_ref(x[i], q[i], b[i], a[i], cb) for i in range(e)]
+
+        y, y_ref = stack(), torch.stack(plain())
+        torch.cuda.synchronize()
+        nbytes = x.numel() * 2 + q.numel() + (b.numel() + a.numel()) * 4 + e * c * n * 4
+        b_ms, b_by = bound(nbytes, {"bf16": (2 * e * c * n * k, BF16_FLOP_S),
+                                    "tf32": (3 * 2 * r * n * k * e, TF32_FLOP_S)})
+        ms, ms_singles = timed(stack, 30, flush), timed(singles, 10, flush)
+        results["lords_decode"].add(
+            f"experts {shape} r={r}", (y - y_ref).abs().max().item(),
+            2e-3 * y_ref.abs().max().item(), ms, timed(plain, 3, flush),
+            timed(lambda: torch.bmm(x, w_hat.transpose(1, 2)), 30, flush), b_ms, b_by,
+            weight, primary=False)
+        log(f"[kernel] lords_decode experts {shape} r={r}: one launch {ms:.4f} ms, "
+            f"{e} single-expert launches {ms_singles:.4f} ms ({ms_singles / ms:.2f}x)")
+        del q, b, a, w_hat, y, y_ref
+
+        qs, ss = [], []
+        for _ in range(e):
+            w = torch.randn(n, k, generator=gen, device=dev) / math.sqrt(k)
+            qi, si = quantize_blockwise(w, BASE_BLOCK, cb)
+            qs.append(qi)
+            ss.append(si)
+        del w
+        qb, sb = torch.stack(qs), torch.stack(ss)
+        wb_hat = torch.stack([dequantize_blockwise(qi, si, BASE_BLOCK, cb, dtype=torch.bfloat16)
+                              for qi, si in zip(qs, ss)])
+        del qs, ss
+
+        def bstack():
+            return dispatch._block_forward(x, qb, sb, BASE_BLOCK, cb, "fused")
+
+        def bsingles():
+            return [dispatch._block_forward(x[i], qb[i], sb[i], BASE_BLOCK, cb, "fused")
+                    for i in range(e)]
+
+        def bplain():
+            return [ref.block_matmul_ref(x[i], qb[i], sb[i], BASE_BLOCK, cb) for i in range(e)]
+
+        y, y_ref = bstack(), torch.stack(bplain())
+        torch.cuda.synchronize()
+        b_ms, b_by = bound(x.numel() * 2 + qb.numel() + sb.numel() * 4 + e * c * n * 4,
+                           {"bf16": (2 * e * c * n * k, BF16_FLOP_S)})
+        ms, ms_singles = timed(bstack, 30, flush), timed(bsingles, 10, flush)
+        results["block_matmul"].add(
+            f"decode experts {shape} bs={BASE_BLOCK}", (y - y_ref).abs().max().item(),
+            1e-4 * y_ref.abs().max().item(), ms, timed(bplain, 3, flush),
+            timed(lambda: torch.bmm(x, wb_hat.transpose(1, 2)), 30, flush), b_ms, b_by,
+            weight, primary=False)
+        log(f"[kernel] block_matmul decode experts {shape} bs={BASE_BLOCK}: one launch "
+            f"{ms:.4f} ms, {e} single-expert launches {ms_singles:.4f} ms "
+            f"({ms_singles / ms:.2f}x)")
+        del qb, sb, wb_hat, x, y, y_ref
 
 
 def _layer_shapes(cfg):
@@ -586,6 +697,22 @@ def _sdpa_decode_mask(torch, pos, cap):
     return dispatch.decode_kmask(pos, cap)[:, None, None, :].to(torch.bfloat16)
 
 
+def attn_prefill_f64(torch, q, k, v, pos, logit_scale):
+    """``ref.attn_prefill_pos``'s function (queries and keys at ``pos``,
+    rows with no live key zero) in float64: (b, s, nh, hd_v)."""
+    from repro_torch.kernels import ref
+
+    b, s, nh, hd = q.shape
+    nkv = k.shape[2]
+    qg = (q.double() * logit_scale).reshape(b, s, nkv, nh // nkv, hd)
+    scores = torch.einsum("bqngh,bknh->bngqk", qg, k.double())
+    live = (pos[:, None, :] <= pos[:, :, None]) & (pos[:, None, :] >= 0)
+    scores = torch.where(live[:, None, None], scores, ref.ATTN_NEG_INF)
+    probs = torch.softmax(scores, dim=-1) * live.any(-1)[:, None, None, :, None]
+    out = torch.einsum("bngqk,bknh->bqngh", probs, v.double())
+    return out.reshape(b, s, nh, v.shape[-1])
+
+
 def check_prefill(torch, F, results, gen, flush, rng, *, nh, nkv, hd, hdv, tag,
                   chunk_primary):
     """Phase 2, kernel 3 at one (hd, hd_v): serve_batch's prefill (window
@@ -628,9 +755,16 @@ def check_prefill(torch, F, results, gen, flush, rng, *, nh, nkv, hd, hdv, tag,
         # p ~ 0.5) are the ones a bf16-only P misses by 30x
         sc = peak * scale
         if peak != 1.0:
+            # held against the plain version's function in float64: at x30 the
+            # f32 plain version is itself some 1e-4 from it, so the f32 error
+            # is only logged
             out = attn_prefill(q, k, v, positions, positions, logit_scale=sc)
-            err = (out - ref.attn_prefill_pos(q, k, v, positions, positions, sc)
+            f32 = (out - ref.attn_prefill_pos(q, k, v, positions, positions, sc)
                    ).abs().max().item()
+            err = (out.double() - attn_prefill_f64(torch, q, k, v, positions, sc)
+                   ).abs().max().item()
+            log(f"[check] attn_prefill {heads} logits x{peak:g}: {err:.3e} from the "
+                f"float64 function (bound 1e-4), {f32:.3e} from the f32 plain version")
         results["attn_prefill"].add(
             f"{tag}serve_batch prefill b={BATCH} s=S={s_pad} {heads} live_pairs={pairs}"
             + ("" if peak == 1.0 else f" logits x{peak:g} (peaked)"),
@@ -967,6 +1101,76 @@ class LogitBound:
             raise AssertionError(f"{what}: fused and ref logits disagree beyond the bound")
 
 
+# the share of token routings fused may pick differently from ref under
+# PinnedRouting: about 3x the largest reading (phi3.5-moe's serve window at
+# 32 layers, 7.73%; its 4-layer gradient check 1.20%; NVIDIA H100 80GB
+# HBM3, 700.00 W)
+FLIP_MAX = 0.25
+
+
+class PinnedRouting:
+    """Holds a MoE model's routing fixed across the two backends of a
+    check.  Top-k routing is discontinuous: where a token's k-th and
+    (k+1)-th experts are nearly tied, the backends' rounding differences
+    (the ref attention body rounds probabilities to bf16) send it to
+    another expert, and over 32 layers such switches, not the kernels,
+    decide the logits.  ``record()`` saves the expert ids every router
+    call picks (the ref run); ``replay()`` makes the same calls, in the
+    same order, pick them again (the fused run), their gates from its own
+    probabilities, and counts the tokens whose own pick differs."""
+
+    def __init__(self):
+        self.saved, self.at, self.flips, self.picks = [], 0, 0, 0
+
+    @contextlib.contextmanager
+    def _patched(self, pick):
+        from repro_torch.models import moe
+
+        real = moe._top_k
+        moe._top_k = lambda probs, k: pick(real, probs, k)
+        try:
+            yield
+        finally:
+            moe._top_k = real
+
+    def record(self):
+        def pick(real, probs, k):
+            vals, idx = real(probs, k)
+            self.saved.append(idx)
+            return vals, idx
+        return self._patched(pick)
+
+    def replay(self):
+        def pick(real, probs, k):
+            idx = self.saved[self.at]
+            self.at += 1
+            own = real(probs, k)[1]
+            self.flips += int((own.sort(-1).values != idx.sort(-1).values).any(-1).sum())
+            self.picks += idx.shape[0]
+            return probs.gather(-1, idx), idx
+        return self._patched(pick)
+
+    def check(self, what):
+        """Logs the share of routings fused would have picked differently
+        and raises above FLIP_MAX, so a fused-path fault that mainly moves
+        the router's probabilities fails even with the routing pinned."""
+        share = self.flips / max(self.picks, 1)
+        log(f"[{what}] routing pinned to ref's: {self.flips} of {self.picks} token "
+            f"routings ({100 * share:.3f}%, <= {100 * FLIP_MAX:g}%) would have picked "
+            "another expert set on fused")
+        if share > FLIP_MAX:
+            raise AssertionError(f"{what}: fused's own routing differs from ref's for "
+                                 f"{100 * share:.3f}% of the tokens")
+
+
+def _backends(cfg, pin):
+    """The two backends of a check in run order, each with its routing
+    context: ref records and fused replays a MoE model's routing."""
+    if cfg.moe is None:
+        return [("fused", contextlib.nullcontext()), ("ref", contextlib.nullcontext())]
+    return [("ref", pin.record()), ("fused", pin.replay())]
+
+
 def _wrappers():
     from repro_torch.kernels.attn_decode import attn_decode
     from repro_torch.kernels.attn_decode_mla import attn_decode_mla
@@ -1008,6 +1212,11 @@ MLA_ENGINE = ("lords_matmul", "lords_decode", "attn_prefill", "attn_decode_mla_p
 LORDS_LINEAR = ("lords_matmul", "lords_decode", "lords_matmul_t", "lords_grad",
                 "lut_quantize")
 BLOCK_KERNELS = ("block_matmul", "block_matmul_t", "block_grad")
+MLA_DECODE = ("attn_decode_mla", "attn_decode_mla_paged")
+# off a LoRDS GQA serve_batch path (phases 14-15), and off PEFT training (13, 15)
+SERVE_UNUSED = BLOCK_KERNELS + MLA_DECODE + ("attn_decode_paged", "lords_matmul_t",
+                                             "lords_grad", "lut_quantize")
+TRAIN_UNUSED = BLOCK_KERNELS + GQA_DECODE + MLA_DECODE + ("lords_decode", "lut_quantize")
 
 
 def serve_checks(cfg, params, torch, kv, what=None, used=LORDS_SERVE, unused=BLOCK_KERNELS,
@@ -1045,35 +1254,70 @@ def serve_checks(cfg, params, torch, kv, what=None, used=LORDS_SERVE, unused=BLO
         raise AssertionError(f"{what}: kernels off this path launched {stray}; counts "
                              f"(got, want) {wrong}")
 
-    if kv == "bf16":
+    if kv == "bf16" and cfg.moe is None:  # MoE: routing switches decide the tokens
         ref_out = serve_batch(cfg, **kw, backend="ref")
         same = float((ref_out["tokens"] == toks).mean())
         log(f"[{what}] ref: prefill {ref_out['prefill_ms']:.1f} ms, decode "
             f"{ref_out['decode_tok_s']:.1f} tok/s; greedy tokens equal to fused: "
             f"{same * 100:.1f}% ({'identical' if same == 1.0 else 'diverged'})")
 
-    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (BATCH, PROMPT + GEN))
-    tokens = torch.from_numpy(prompts).to(dev)
+    if cfg.input_kind == "tokens":
+        prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (BATCH, PROMPT + GEN))
+        window = {"tokens": torch.from_numpy(prompts).to(dev)}
+    else:  # the same embeddings for both backends: a window, then one a step
+        draw = torch.Generator(device=dev).manual_seed(0)
+        window = {"embeds": _randn(torch, draw, BATCH, PROMPT + GEN, cfg.d_model,
+                                   dtype=torch.bfloat16)}
+        steps_in = [{"embeds": _randn(torch, draw, BATCH, 1, cfg.d_model,
+                                      dtype=torch.bfloat16)} for _ in range(GEN - 1)]
     col = torch.arange(PROMPT + GEN, dtype=torch.int32, device=dev)[None]
     positions = torch.where(col < PROMPT, col, -1).expand(BATCH, PROMPT + GEN)
     caches = {b: cache_init(cfg, BATCH, PROMPT + GEN, device=dev) for b in ("fused", "ref")}
-    worst = LogitBound()
+    worst, pin = LogitBound(), PinnedRouting()
     with torch.inference_mode():
         for step in range(GEN):
             logits = {}
-            for b in ("fused", "ref"):
-                with dispatch.backend_scope(b):
+            for b, routing in _backends(cfg, pin):
+                with dispatch.backend_scope(b), routing:
                     if step == 0:
-                        lg, _ = forward_prefill(params, cfg, {"tokens": tokens}, caches[b],
-                                                positions)
+                        lg, _ = forward_prefill(params, cfg, window, caches[b], positions)
                     else:
-                        tok = torch.from_numpy(toks[:, step - 1]).to(dev)
+                        step_in = ({"tokens": torch.from_numpy(toks[:, step - 1]).to(dev)}
+                                   if cfg.input_kind == "tokens" else steps_in[step - 1])
                         pos = torch.full((BATCH,), PROMPT + step - 1, dtype=torch.int32,
                                          device=dev)
-                        lg, _ = forward_decode(params, cfg, {"tokens": tok}, caches[b], pos)
+                        lg, _ = forward_decode(params, cfg, step_in, caches[b], pos)
                 logits[b] = lg[:, -1, : cfg.vocab_size]
             worst.add(torch, logits["fused"], logits["ref"], f"step {step}")
+    if cfg.moe is not None:
+        pin.check(what)
     worst.check(what)
+    return launches
+
+
+def moe_serve(cfg, params, torch):
+    """Phase 15's serving: ``cfg`` (MoE) through serve_checks with a bf16
+    cache.  Each decode step must launch ``lords_decode`` 7 times a layer
+    (4 attention linears and 3 expert stacks, one launch a stack); the
+    prefill's expert stacks (capacity above 8) run expert by expert through
+    ``lords_matmul``: 4 + 3·E launches a layer.  Then one profiled decode
+    step.  Returns the launch counts."""
+    from repro_torch.models.moe import capacity
+
+    what, layers, e = "serve moe", cfg.num_layers, cfg.moe.num_experts
+    cap = capacity(cfg.moe, BATCH * (PROMPT + GEN))
+    log(f"[{what}] {cfg.name} full width, {layers} layers, {e} experts top-"
+        f"{cfg.moe.top_k}: decode capacity {capacity(cfg.moe, BATCH)} slots an expert, "
+        f"prefill {cap}")
+    expect = {"lords_decode": 7 * layers * (GEN - 1),
+              "lords_matmul": (4 + 3 * e) * layers}
+    launches = serve_checks(cfg, params, torch, "bf16", what=what, unused=SERVE_UNUSED,
+                            expect=expect)
+    log(f"[{what}] lords_decode {launches['lords_decode']} launches = 7 a layer and decode "
+        f"step ({layers} layers x {GEN - 1} steps: 4 attention linears + 3 expert stacks); "
+        f"prefill lords_matmul {launches['lords_matmul']} = {4 + 3 * e} a layer "
+        f"(4 + 3 x {e} experts)")
+    profile_decode(cfg, params, torch, what)
     return launches
 
 
@@ -1318,14 +1562,16 @@ def grad_check(cfg, params, torch, what, keys):
     from repro_torch.models import forward_train
 
     cfg, tree, paths, leaves, batch = _check_model(cfg, params, keys)
-    res = {}
-    for backend in ("fused", "ref"):
+    res, pin = {}, PinnedRouting()
+    for backend, routing in _backends(cfg, pin):
         def step():
-            with dispatch.backend_scope(backend):
+            with dispatch.backend_scope(backend), routing:
                 loss, _ = forward_train(tree, cfg, batch)
                 return loss.item(), torch.autograd.grad(loss, leaves)
         (loss, grads), launches = counted(step)
         res[backend] = loss, grads, launches
+    if cfg.moe is not None:
+        pin.check(what)
     (lf, gf, _), (lr_, gr, ref_launches) = res["fused"], res["ref"]
     worst = {}
     for path, a, b in zip(paths, gf, gr):
@@ -1742,6 +1988,45 @@ def main() -> int:
         unused=BLOCK_KERNELS + GQA_DECODE + ("attn_decode_mla",))
     depths["engine mla int8"] = mcfg.num_layers
     log(f"[engine mla] phase time {time.perf_counter() - t0:.1f} s")
+
+    # phase 13: MLA training, PEFT, on phase 11's model at full depth
+    t0 = time.perf_counter()
+    paths["train mla"], paths["train mla ref check"] = train_peft(
+        mcfg, params, torch, what="train mla", unused=TRAIN_UNUSED, profile=False)
+    depths["train mla"], depths["train mla ref check"] = mcfg.num_layers, CHECK_LAYERS
+    log(f"[train mla] phase time {time.perf_counter() - t0:.1f} s")
+    del params
+    torch.cuda.empty_cache()
+
+    # phase 14: the embedding-input models through serve_batch (bf16 cache)
+    for arch in EMBEDS_ARCHS:
+        t0 = time.perf_counter()
+        ecfg, params = load_model(get_config(arch), torch)
+        what = f"serve embeds {arch}"
+        log(f"[{what}] {ecfg.num_heads} heads, {ecfg.num_kv_heads} KV heads (g "
+            f"{ecfg.num_heads // ecfg.num_kv_heads}), hd {ecfg.resolved_head_dim}")
+        paths[f"serve_batch embeds {arch}"] = serve_checks(
+            ecfg, params, torch, "bf16", what=what, unused=SERVE_UNUSED)
+        depths[f"serve_batch embeds {arch}"] = ecfg.num_layers
+        log(f"[{what}] phase time {time.perf_counter() - t0:.1f} s")
+        del params
+        torch.cuda.empty_cache()
+
+    # phase 15: the mixture-of-experts model served (bf16 cache) and trained
+    t0 = time.perf_counter()
+    pcfg, params = load_model(get_config(MOE_ARCH), torch)
+    paths["serve_batch moe bf16"] = moe_serve(pcfg, params, torch)
+    depths["serve_batch moe bf16"] = pcfg.num_layers
+    log(f"[serve moe] phase time {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    tcfg = pcfg.with_(num_layers=min(MOE_TRAIN_LAYERS, pcfg.num_layers))
+    params = {**params, "layers": params["layers"][:tcfg.num_layers]}
+    torch.cuda.empty_cache()
+    paths["train moe"], paths["train moe ref check"] = train_peft(
+        tcfg, params, torch, what="train moe", unused=TRAIN_UNUSED, profile=False)
+    depths["train moe"] = tcfg.num_layers
+    depths["train moe ref check"] = min(tcfg.num_layers, CHECK_LAYERS)
+    log(f"[train moe] phase time {time.perf_counter() - t0:.1f} s")
     del params
     torch.cuda.empty_cache()
     log(f"[total] {time.perf_counter() - t_start:.1f} s")

@@ -1,4 +1,5 @@
-"""repro_torch.configs — the dense architecture registry (GQA and MLA).
+"""repro_torch.configs — the architecture registry: dense (GQA and MLA),
+mixture-of-experts and the embedding-input vlm / audio decoders.
 
 ``get_config('<arch-id>')`` returns a config with the JAX package's
 dimensions; ``smoke_variant(cfg)`` shrinks it for CPU tests.
@@ -8,6 +9,7 @@ from repro_torch.configs.archs import smoke_variant  # noqa: F401
 from repro_torch.configs.base import (  # noqa: F401
     SHAPES,
     MLACfg,
+    MoECfg,
     ModelConfig,
     ShapeCfg,
     get_config,

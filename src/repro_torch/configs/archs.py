@@ -1,9 +1,10 @@
-"""Dense decoder configs, GQA and MLA (same dimensions as the JAX package's
-registry), and the reduced smoke variant used by the CPU tests.  The MoE,
-SSM and embedding-input architectures come with their model families."""
+"""Architecture configs with the JAX package's dimensions and sources:
+dense decoders (GQA and MLA), mixture-of-experts and the embedding-input
+vlm / audio decoders; and the reduced smoke variant used by the CPU tests.
+The SSM and hybrid architectures come with their model families."""
 from __future__ import annotations
 
-from repro_torch.configs.base import MLACfg, ModelConfig, register
+from repro_torch.configs.base import MLACfg, ModelConfig, MoECfg, register
 
 
 @register
@@ -51,6 +52,53 @@ def granite_20b_cfg() -> ModelConfig:
 
 
 @register
+def phi35_moe_42b_a6_6b_cfg() -> ModelConfig:
+    # [hf:microsoft/Phi-3.5-MoE-instruct] 32L d=4096 32H kv=8, 16e top-2
+    return ModelConfig(
+        name="phi3.5-moe-42b-a6.6b", family="moe", num_layers=32,
+        d_model=4096, num_heads=32, num_kv_heads=8, d_ff=0, vocab_size=32064,
+        moe=MoECfg(num_experts=16, top_k=2, d_ff=6400),
+        rope_theta=10000.0, micro_tokens=2048,
+    )
+
+
+@register
+def kimi_k2_1t_a32b_cfg() -> ModelConfig:
+    # [arXiv:2501.kimi2 per assignment] 61L d=7168 64H kv=8, 384e top-8
+    # (per-assignment GQA kv=8, not MLA; head_dim=7168/64=112)
+    return ModelConfig(
+        name="kimi-k2-1t-a32b", family="moe", num_layers=61, d_model=7168,
+        num_heads=64, num_kv_heads=8, d_ff=0, vocab_size=163840,
+        moe=MoECfg(num_experts=384, top_k=8, d_ff=2048),
+        head_dim=112, rope_theta=50000.0, micro_tokens=2048,
+    )
+
+
+@register
+def internvl2_1b_cfg() -> ModelConfig:
+    # [arXiv:2404.16821] InternViT frontend (stub: the caller supplies
+    # patch embeddings) + InternLM2 backbone
+    return ModelConfig(
+        name="internvl2-1b", family="vlm", num_layers=24, d_model=896,
+        num_heads=14, num_kv_heads=2, d_ff=4864, vocab_size=151655,
+        input_kind="embeddings", rope_theta=10000.0,
+    )
+
+
+@register
+def musicgen_medium_cfg() -> ModelConfig:
+    # [arXiv:2306.05284] decoder-only over EnCodec tokens (frontend stub:
+    # the caller supplies frame embeddings); RoPE stands in for MusicGen's
+    # learned positions (a noted deviation)
+    return ModelConfig(
+        name="musicgen-medium", family="audio", num_layers=48, d_model=1536,
+        num_heads=24, num_kv_heads=24, d_ff=6144, vocab_size=2048,
+        input_kind="embeddings", rope_theta=10000.0,
+        vocab_pad_multiple=256,
+    )
+
+
+@register
 def llama3_8b_cfg() -> ModelConfig:
     # the paper's own model (Tables 1-6)
     return ModelConfig(
@@ -79,17 +127,24 @@ def qwen3_4b_cfg() -> ModelConfig:
 
 
 def smoke_variant(cfg: ModelConfig) -> ModelConfig:
-    """Shrink a dense config to CPU-smoke size (the JAX package's dense
-    smoke dimensions: 2 layers, d 64, 4 heads, head_dim 16, vocab 256; MLA
-    ranks 32 / 16 / 16 / 8 / 16)."""
+    """Shrink a config to CPU-smoke size, keeping its family structure (the
+    JAX package's smoke dimensions: d 64, 4 heads, head_dim 16, vocab 256;
+    2 layers, or one full period of a heterogeneous stack; MLA ranks 32 /
+    16 / 16 / 8 / 16; 4 experts of d_ff 64, top-k at most 2)."""
     kw = dict(
-        num_layers=2, d_model=64, num_heads=4,
-        num_kv_heads=min(4, cfg.num_kv_heads), d_ff=128 if cfg.d_ff else 0,
-        vocab_size=256, head_dim=16, vocab_pad_multiple=64,
-        # smaller quant blocks so tiny matrices still have >1 block
-        quant=cfg.quant.with_(block_size=32, rank=2),
+        num_layers=max(2, min(cfg.period, 8)) if cfg.period > 1 else 2,
+        d_model=64, num_heads=4, num_kv_heads=min(4, cfg.num_kv_heads),
+        d_ff=128 if cfg.d_ff else 0, vocab_size=256, head_dim=16,
+        vocab_pad_multiple=64,
     )
+    if cfg.period > 1:
+        kw["num_layers"] = cfg.period  # one full heterogeneous period
     if cfg.attn_kind == "mla":
         kw["mla"] = MLACfg(q_lora_rank=32, kv_lora_rank=16, qk_nope_dim=16,
                            qk_rope_dim=8, v_head_dim=16)
+    if cfg.moe is not None:
+        kw["moe"] = MoECfg(num_experts=4, top_k=min(2, cfg.moe.top_k),
+                           d_ff=64, every=cfg.moe.every)
+    # smaller quant blocks so tiny matrices still have >1 block
+    kw["quant"] = cfg.quant.with_(block_size=32, rank=2)
     return cfg.with_(**kw)

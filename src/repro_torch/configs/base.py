@@ -1,5 +1,6 @@
-"""Config schema of the dense decoder family (GQA or multi-head latent
-attention) and the architecture registry."""
+"""Config schema of the decoder families the port serves and trains (dense
+GQA or multi-head latent attention, mixture-of-experts, and the
+embedding-input vlm / audio decoders) and the architecture registry."""
 from __future__ import annotations
 
 import dataclasses
@@ -7,11 +8,28 @@ import math
 
 from repro_torch.core.lords import QuantSpec
 
-__all__ = ["MLACfg", "ModelConfig", "ShapeCfg", "SHAPES", "KV_CACHE_DTYPES",
-           "ATTN_KINDS", "register", "get_config"]
+__all__ = ["MoECfg", "MLACfg", "ModelConfig", "ShapeCfg", "SHAPES",
+           "KV_CACHE_DTYPES", "ATTN_KINDS", "FAMILIES", "INPUT_KINDS",
+           "register", "get_config"]
 
 KV_CACHE_DTYPES = ("bf16", "int8")
 ATTN_KINDS = ("gqa", "mla")
+FAMILIES = ("dense", "moe", "vlm", "audio")  # ssm / hybrid: not ported yet
+INPUT_KINDS = ("tokens", "embeddings")
+MOE_DISPATCHES = ("pjit", "shard_map")
+
+
+@dataclasses.dataclass(frozen=True)
+class MoECfg:
+    num_experts: int
+    top_k: int
+    d_ff: int                      # per-expert hidden
+    capacity_factor: float = 1.25
+    every: int = 1                 # MoE layer every `every` layers
+    # expert dispatch: pjit (scatter / gather, the one ported) or shard_map
+    # (explicit all_to_all over expert-parallel ranks; not ported)
+    dispatch: str = "pjit"
+    pad_experts_to: int | None = None  # pad so EP divides the device count
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,20 +45,24 @@ class MLACfg:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense, with GQA or MLA attention (the
-                                   # only family ported so far)
+    family: str                    # dense | moe | vlm | audio
     num_layers: int
     d_model: int
     num_heads: int
     num_kv_heads: int
-    d_ff: int                      # SwiGLU hidden width
+    d_ff: int                      # dense SwiGLU hidden (0 => none)
     vocab_size: int
     head_dim: int | None = None    # default d_model // num_heads
     attn_kind: str = "gqa"         # gqa | mla
     mla: MLACfg | None = None
+    moe: MoECfg | None = None
+    # per-layer mixer pattern, tiled over num_layers (only "attn" mixers
+    # are ported)
+    layer_pattern: tuple = ("attn",)
     rope_theta: float = 500000.0
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    input_kind: str = "tokens"     # tokens | embeddings (vlm / audio stubs)
     quant: QuantSpec = QuantSpec(method="lords", codebook="nf4",
                                  block_size=128, mode="peft")
     # decode KV-cache storage: 'bf16' or 'int8' (per-(token, head)
@@ -59,6 +81,25 @@ class ModelConfig:
         if self.kv_cache_dtype not in KV_CACHE_DTYPES:
             raise ValueError(f"kv_cache_dtype {self.kv_cache_dtype!r} not in "
                              f"{KV_CACHE_DTYPES}")
+        if self.input_kind not in INPUT_KINDS:
+            raise ValueError(f"input_kind {self.input_kind!r} not in "
+                             f"{INPUT_KINDS}")
+        if self.moe is not None and self.moe.dispatch not in MOE_DISPATCHES:
+            raise ValueError(f"moe.dispatch {self.moe.dispatch!r} not in "
+                             f"{MOE_DISPATCHES}")
+
+    def check_ported(self) -> None:
+        """Raise NotImplementedError for what the port cannot build yet: the
+        ssm and hybrid families and any mixer but attention (ROADMAP queue 1
+        items 4-5)."""
+        mixers = sorted(set(self.layer_pattern) - {"attn"})
+        if self.family not in FAMILIES or mixers:
+            raise NotImplementedError(
+                f"family {self.family!r} with mixers "
+                f"{sorted(set(self.layer_pattern))}: the ssm and hybrid "
+                "families and recurrent mixers are not ported yet (ROADMAP "
+                f"queue 1 items 4-5); ported families: {FAMILIES} with "
+                "attention mixers")
 
     @property
     def resolved_head_dim(self) -> int:
@@ -68,6 +109,45 @@ class ModelConfig:
     def padded_vocab(self) -> int:
         m = self.vocab_pad_multiple
         return int(math.ceil(self.vocab_size / m) * m)
+
+    @property
+    def pattern(self) -> tuple:
+        """Full per-layer mixer pattern of length num_layers (tiled)."""
+        p = self.layer_pattern
+        reps = math.ceil(self.num_layers / len(p))
+        return (p * reps)[: self.num_layers]
+
+    @property
+    def period(self) -> int:
+        """Scan period: LCM of mixer pattern and MoE interleave."""
+        p = len(self.layer_pattern)
+        if self.moe is not None and self.moe.every > 1:
+            p = math.lcm(p, self.moe.every)
+        if self.num_layers % p:
+            # fall back to unrolled if the pattern doesn't tile evenly
+            return self.num_layers
+        return p
+
+    @property
+    def num_periods(self) -> int:
+        return self.num_layers // self.period
+
+    def layer_kinds(self, period_idx: int = 0) -> list[tuple[str, str]]:
+        """[(mixer_kind, mlp_kind)] for one scan period."""
+        out = []
+        for i in range(self.period):
+            layer = period_idx * self.period + i
+            mixer = self.pattern[i % len(self.pattern)]
+            every = self.moe.every if self.moe is not None else 1
+            if self.moe is not None and layer % every == (
+                    every - 1 if every > 1 else 0):
+                mlp = "moe"
+            elif self.d_ff > 0:
+                mlp = "dense"
+            else:
+                mlp = "none"
+            out.append((mixer, mlp))
+        return out
 
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

@@ -32,6 +32,10 @@
 // `cp.async` ring, split-K for narrow N with a deterministic last-CTA sum
 // (no atomics, no zeroed output).
 //
+// The decode entry also takes a mixture-of-experts stack of E matrices,
+// each with its own M tokens, in one launch (block_decode_stack_launch):
+// the core's expert grid axis.
+//
 // Shapes: prefill any M >= 1, N % 128 == 0, K % 64 == 0, K % bs == 0;
 // decode 1 <= M <= 8, N % 32 == 0, K % 128 == 0, K % bs == 0 (the dispatch
 // layer pads; padded scales are 1.0).
@@ -54,33 +58,46 @@ int launch(const void* x, const void* q, const void* s_blk, const void* lut, voi
 template <int BITS>
 int launch_decode(const void* x, const void* q, const void* s_blk, const void* lut, void* y,
                   void* ws, void* tickets, int M, int N, int K, int bs, int n_levels, int splits,
-                  cudaStream_t stream) {
+                  int E, cudaStream_t stream) {
   if (bs % 16 == 0)
     return gemv::run<BITS, gemv::BLOCK>(x, q, s_blk, nullptr, lut, y, ws, tickets, M, N, K,
-                                           0, n_levels, bs, splits, stream);
+                                           0, n_levels, bs, splits, E, stream);
   return gemv::run<BITS, gemv::BLOCK_ANY>(x, q, s_blk, nullptr, lut, y, ws, tickets, M, N, K,
-                                             0, n_levels, bs, splits, stream);
+                                             0, n_levels, bs, splits, E, stream);
 }
 
 }  // namespace
 
-// x (M, K) bf16, 1 <= M <= 8; q (N, K·bits/8) u8; s_blk (N, K / bs), lut
-// f32; y (M, N) f32; ws f32 scratch of splits·M·N floats when splits > 1,
-// else unused; tickets: ceil(N / 256) int32, zero (left zero).
+// A stack of E: x (E, M, K) bf16, 1 <= M <= 8; q (E, N, K·bits/8) u8;
+// s_blk (E, N, K / bs), lut f32; y (E, M, N) f32; ws f32 scratch of
+// E·splits·M·N floats when splits > 1, else unused; tickets: E·ceil(N /
+// 256) int32, zero (left zero).
+extern "C" int block_decode_stack_launch(const void* x, const void* q, const void* s_blk,
+                                         const void* lut, void* y, void* ws, void* tickets,
+                                         int M, int N, int K, int bs, int bits, int n_levels,
+                                         int splits, int E, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!gemv::shapes_ok(M, N, K, splits, E) || bs <= 0 || K % bs)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (bits) {
+    case 2: return launch_decode<2>(x, q, s_blk, lut, y, ws, tickets, M, N, K, bs, n_levels, splits, E, st);
+    case 3: return launch_decode<3>(x, q, s_blk, lut, y, ws, tickets, M, N, K, bs, n_levels, splits, E, st);
+    case 4: return launch_decode<4>(x, q, s_blk, lut, y, ws, tickets, M, N, K, bs, n_levels, splits, E, st);
+    case 8: return launch_decode<8>(x, q, s_blk, lut, y, ws, tickets, M, N, K, bs, n_levels, splits, E, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// One matrix (the stack entry at E = 1): x (M, K) bf16, 1 <= M <= 8; q (N,
+// K·bits/8) u8; s_blk (N, K / bs), lut f32; y (M, N) f32; ws f32 scratch of
+// splits·M·N floats when splits > 1, else unused; tickets: ceil(N / 256)
+// int32, zero (left zero).
 extern "C" int block_decode_launch(const void* x, const void* q, const void* s_blk,
                                    const void* lut, void* y, void* ws, void* tickets, int M,
                                    int N, int K, int bs, int bits, int n_levels, int splits,
                                    void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!gemv::shapes_ok(M, N, K, splits) || bs <= 0 || K % bs)
-    return static_cast<int>(cudaErrorInvalidValue);
-  switch (bits) {
-    case 2: return launch_decode<2>(x, q, s_blk, lut, y, ws, tickets, M, N, K, bs, n_levels, splits, st);
-    case 3: return launch_decode<3>(x, q, s_blk, lut, y, ws, tickets, M, N, K, bs, n_levels, splits, st);
-    case 4: return launch_decode<4>(x, q, s_blk, lut, y, ws, tickets, M, N, K, bs, n_levels, splits, st);
-    case 8: return launch_decode<8>(x, q, s_blk, lut, y, ws, tickets, M, N, K, bs, n_levels, splits, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return block_decode_stack_launch(x, q, s_blk, lut, y, ws, tickets, M, N, K, bs, bits, n_levels,
+                                   splits, 1, stream);
 }
 
 // x (M, K) bf16; q (N, K·bits/8) u8; s_blk (N, K / bs), lut f32; y (M, N)

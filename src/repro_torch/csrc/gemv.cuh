@@ -64,7 +64,13 @@
 //    in split order and resets the ticket, so the result is bitwise the
 //    same from run to run, with no atomics on y and no zero-filled output.
 //
-// Shapes: 1 <= M <= 8, N % 32 == 0 (whole warps), K % 128 == 0, and
+//  * A stack of E equal-shaped matrices (a mixture-of-experts layer's
+//    experts, each with its own tokens) is one launch: gridDim.z is the
+//    expert, and every operand (x, codes, B / A or s_blk, y, the split-K
+//    workspace and the tickets) advances by one matrix per expert.  At
+//    E = 1 the offsets are zero and the kernel is the single-matrix one.
+//
+// Shapes: 1 <= M <= 8, N % 32 == 0 (whole warps), K % 128 == 0, E >= 1, and
 // in BLOCK K % bs == 0 (the dispatch layer pads N and K; padded scales are
 // 1.0); codes of a row sit at bit k·BITS of its little-endian byte stream.
 // Launches on one stream run one after another; two at once on two streams
@@ -228,6 +234,21 @@ __device__ __forceinline__ float times_clamped(float level, float s) {
          fmaxf(fabsf(s), lords::kScaleEps);
 }
 
+// Expert blockIdx.z of a stack: the element offsets of its operands past
+// the matrices of the experts before it (x (M, K), codes (N, K·BITS/8), b
+// (N, bcols), a (r, K), y (M, N), the workspace's splits·M·N partials and
+// gridDim.x tickets); all zero at E = 1.
+struct Expert {
+  size_t x, q, b, a, y, ws, tickets;
+};
+
+template <int BITS>
+__device__ __forceinline__ Expert expert_offsets(int M, int N, int K, int bcols, int r) {
+  const size_t e = blockIdx.z;
+  return {e * M * K,       e * N * ((size_t)K * BITS / 8), e * N * bcols,      e * r * K,
+          e * M * N,       e * gridDim.y * M * N,          e * gridDim.x};
+}
+
 // After every CTA of a row tile wrote its partial y to ws: the last CTA to
 // take the tile's ticket sums the partials in split order into y and resets
 // the ticket for the next launch.  `last` is a shared flag.
@@ -258,7 +279,7 @@ __device__ __forceinline__ void sum_splits(float* __restrict__ y, const float* _
 // x (M, K) bf16; q (N, K·BITS/8) u8; LORDS: b (N, r), a (r, K) f32; BLOCK: b
 // is s_blk (N, K / bs) f32 and a unused; y (M, N) f32; ws: splits·M·N f32
 // partials (splits > 1); tickets: one int32 a 256-row tile, zero (left
-// zero).  LORDS here takes any rank, B's fragments re-read from L1 for each
+// zero); each of these E times over, one per expert (gridDim.z).  LORDS here takes any rank, B's fragments re-read from L1 for each
 // use (gemv_wg_kernel serves r <= 24); magic = ceil(2^32 / bs).
 template <int BITS, int MODE>
 __global__ void __launch_bounds__(THREADS, 2)
@@ -273,6 +294,10 @@ gemv_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
   // code's byte offset OR-ed into it (one LOP3 with the extraction's mask)
   __shared__ __align__(1024) float lut_s[256];
   __shared__ int last;
+  {
+    const Expert ex = expert_offsets<BITS>(M, N, K, MODE == LORDS ? r : K / bs, r);
+    x += ex.x, q += ex.q, b += ex.b, a += ex.a, y += ex.y, ws += ex.ws, tickets += ex.tickets;
+  }
   const int r8 = MODE == LORDS ? (r + 7) / 8 : 1;  // 1: no A split (and no division by 0)
   const Plan P = plan<BITS>(MODE, r8);
   float4* afrag = reinterpret_cast<float4*>(smem + P.a);
@@ -535,6 +560,10 @@ gemv_wg_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ 
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ __align__(1024) float lut_s[256];
   __shared__ int last;
+  {
+    const Expert ex = expert_offsets<BITS>(M, N, K, r, r);
+    x += ex.x, q += ex.q, b += ex.b, a += ex.a, y += ex.y, ws += ex.ws, tickets += ex.tickets;
+  }
   const WgPlan P = wg_plan<BITS>(R8);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -700,22 +729,22 @@ gemv_wg_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ 
 }
 
 // The shapes the core takes
-inline bool shapes_ok(int M, int N, int K, int splits) {
+inline bool shapes_ok(int M, int N, int K, int splits, int E = 1) {
   return M >= 1 && M <= MMAX && N >= 32 && N % 32 == 0 && K >= KSTEP && K % KSTEP == 0 &&
-         splits >= 1 && splits <= K / KSTEP;
+         splits >= 1 && splits <= K / KSTEP && E >= 1 && E <= 65535;
 }
 
-// Launch the core on the grid (ceil(N / 256), splits); returns the CUDA
+// Launch the core on the grid (ceil(N / 256), splits, E); returns the CUDA
 // error of the launch.
 template <int BITS, int MODE>
 inline cudaError_t run(const void* x, const void* q, const void* b, const void* a,
                        const void* lut, void* y, void* ws, void* tickets, int M, int N, int K,
-                       int r, int n_levels, int bs, int splits, cudaStream_t stream) {
+                       int r, int n_levels, int bs, int splits, int E, cudaStream_t stream) {
   const Plan p = plan<BITS>(MODE, MODE == LORDS ? (r + 7) / 8 : 0);
   cudaError_t err = lords::allow_smem(gemv_kernel<BITS, MODE>, p.total);
   if (err != cudaSuccess) return err;
   const unsigned long long magic = bs > 0 ? ((1ull << 32) + bs - 1) / bs : 0;
-  dim3 grid((N + ROWS - 1) / ROWS, splits);
+  dim3 grid((N + ROWS - 1) / ROWS, splits, E);
   gemv_kernel<BITS, MODE><<<grid, THREADS, p.total, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(q),
       static_cast<const float*>(b), static_cast<const float*>(a),
@@ -725,15 +754,15 @@ inline cudaError_t run(const void* x, const void* q, const void* b, const void* 
 }
 
 // Launch the wgmma path (LORDS, r <= 8·R8) on the grid (ceil(N / 256),
-// splits); returns the CUDA error of the launch.
+// splits, E); returns the CUDA error of the launch.
 template <int BITS, int R8>
 inline cudaError_t run_wg(const void* x, const void* q, const void* b, const void* a,
                           const void* lut, void* y, void* ws, void* tickets, int M, int N, int K,
-                          int r, int n_levels, int splits, cudaStream_t stream) {
+                          int r, int n_levels, int splits, int E, cudaStream_t stream) {
   const WgPlan p = wg_plan<BITS>(R8);
   cudaError_t err = lords::allow_smem(gemv_wg_kernel<BITS, R8>, p.total);
   if (err != cudaSuccess) return err;
-  dim3 grid((N + ROWS - 1) / ROWS, splits);
+  dim3 grid((N + ROWS - 1) / ROWS, splits, E);
   gemv_wg_kernel<BITS, R8><<<grid, WG_THREADS, p.total, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(q),
       static_cast<const float*>(b), static_cast<const float*>(a),

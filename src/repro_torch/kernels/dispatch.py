@@ -1,8 +1,10 @@
 """Kernel dispatch for the quantized linears and the hot attention shapes.
 
 ``qmatmul(params, x, spec, n, m)`` is the entry point every quantized linear
-goes through (any :class:`QuantSpec` method) and ``qattention(kind, ...)``
-the one every attention call goes through, as in the JAX package.  Two
+goes through (any :class:`QuantSpec` method), ``qmatmul_stack`` the one of
+an expert stack (the JAX package's ``jax.vmap(qmatmul)``), and
+``qattention(kind, ...)`` the one every attention call goes through, as in
+the JAX package.  Two
 backends:
 
   * ``fused`` — the hand-written CUDA kernels (``lords_matmul``,
@@ -81,6 +83,7 @@ from repro_torch.kernels import ref
 __all__ = [
     "BACKENDS",
     "qmatmul",
+    "qmatmul_stack",
     "qattention",
     "resolve_backend",
     "backend_scope",
@@ -134,7 +137,8 @@ def _round_up(v: int, mult: int) -> int:
 
 
 def _pad2(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
-    pr, pc = rows - t.shape[0], cols - t.shape[1]
+    """Zero-pad the last two axes to (rows, cols)."""
+    pr, pc = rows - t.shape[-2], cols - t.shape[-1]
     if pr == 0 and pc == 0:
         return t
     return F.pad(t, (0, pc, 0, pr))
@@ -154,19 +158,21 @@ def _pad_axis(t: torch.Tensor, axis: int, to: int, value=0) -> torch.Tensor:
 
 
 def _lords_forward(x2d, q_packed, b, a, codebook, backend):
-    """y (M, N) f32 = x2d · dequant(q, b, a)ᵀ on the chosen backend."""
+    """y (M, N) f32 = x2d · dequant(q, b, a)ᵀ on the chosen backend; on
+    ``fused`` at M ≤ 8 also a stack (every operand with a leading expert
+    axis) in one decode launch → (E, M, N)."""
     if backend == "ref":
         return ref.lords_matmul_ref(x2d, q_packed, b, a, codebook)
-    m, k = x2d.shape
-    n = q_packed.shape[0]
+    m, k = x2d.shape[-2:]
+    n = q_packed.shape[-2]
     ps = pack_spec(codebook)
     if m <= DECODE_M_MAX:
         bn, bk = lords_decode_mod.BN, lords_decode_mod.BK
         np_, kp = _round_up(n, bn), _round_up(k, bk)
         y = lords_decode_mod.lords_decode(
             _pad2(x2d, m, kp), _pad2(q_packed, np_, ps.packed_width(kp)),
-            _pad2(b, np_, b.shape[1]), _pad2(a, a.shape[0], kp), codebook)
-        return y[:, :n]
+            _pad2(b, np_, b.shape[-1]), _pad2(a, a.shape[-2], kp), codebook)
+        return y[..., :n]
     # the kernel masks the ragged M edge: only N and K are padded
     bn, bk = lords_matmul_mod.BN, lords_matmul_mod.BK
     np_, kp = _round_up(n, bn), _round_up(k, bk)
@@ -297,7 +303,7 @@ def _block_padded(q_packed, s_blk, n, k, block_size, ps, kstep=256, nstep=128):
     kmult = kstep * block_size // math.gcd(kstep, block_size)
     np_, kp = _round_up(n, nstep), _round_up(k, kmult)
     qp = _pad2(q_packed, np_, ps.packed_width(kp))
-    pc, pr = kp // block_size - s_blk.shape[1], np_ - n
+    pc, pr = kp // block_size - s_blk.shape[-1], np_ - n
     s_pad = s_blk.to(torch.float32)
     if pc or pr:
         s_pad = F.pad(s_pad, (0, pc, 0, pr), value=1.0)
@@ -306,16 +312,17 @@ def _block_padded(q_packed, s_blk, n, k, block_size, ps, kstep=256, nstep=128):
 
 def _block_forward(x2d, q_packed, s_blk, block_size, codebook, backend):
     """y (M, N) f32 = x2d · (lut[Q] ⊙ repeat(s_blk))ᵀ on the chosen
-    backend."""
+    backend; on ``fused`` at M ≤ 8 also a stack (every operand with a
+    leading expert axis) in one decode launch → (E, M, N)."""
     if backend == "ref":
         return ref.block_matmul_ref(x2d, q_packed, s_blk, block_size, codebook)
-    m, k = x2d.shape
-    n = q_packed.shape[0]
+    m, k = x2d.shape[-2:]
+    n = q_packed.shape[-2]
     _, tn, tk = block_matmul_mod.tile(m)
     qp, s_pad, _, kp = _block_padded(q_packed, s_blk, n, k, block_size,
                                      pack_spec(codebook), tk, tn)
     y = block_matmul_mod.block_matmul(_pad2(x2d, m, kp), qp, s_pad, codebook)
-    return y[:m, :n]
+    return y[..., :m, :n]
 
 
 def _block_grads(g, x2d, q_packed, s_blk, block_size, codebook, backend, *,
@@ -393,6 +400,24 @@ def _dense_base(params, x2d, spec):
     return torch.matmul(x2d.to(spec.compute_dtype), w_hat.t())
 
 
+def _epilogue(y: torch.Tensor, x: torch.Tensor, params: dict,
+              spec: QuantSpec) -> torch.Tensor:
+    """The base product ``y`` in the compute dtype, plus the additive adapter
+    and the bias: 2-D operands (one matrix) or 3-D ones (an expert stack,
+    every leaf with a leading E axis)."""
+    cd = spec.compute_dtype
+    y = y.to(cd)
+    if spec.method in ADAPTER_METHODS and "lora_a" in params:
+        # the unmergeable additive adapter: y += (x · Aᵀ) · Bᵀ, two plain
+        # products (the extra GEMM the paper's Fig. 2 measures)
+        xa = torch.matmul(x, params["lora_a"].to(cd).transpose(-1, -2))
+        y = y + torch.matmul(xa, params["lora_b"].to(cd).transpose(-1, -2))
+    if "bias" in params:
+        bias = params["bias"].to(y.dtype)
+        y = y + (bias[:, None, :] if bias.dim() == 2 else bias)
+    return y
+
+
 def qmatmul(params: dict, x: torch.Tensor, spec: QuantSpec, n: int, m: int, *,
             backend: str | None = None) -> torch.Tensor:
     """y = x @ Ŵᵀ (+ the additive adapter + bias) for any QuantSpec, in the
@@ -427,15 +452,44 @@ def qmatmul(params: dict, x: torch.Tensor, spec: QuantSpec, n: int, m: int, *,
         args = (x2d, q_packed, s_blk, bs, spec.codebook, backend)
         y2d = (_BlockQMatmul.apply(*args) if _needs_grad(x2d, s_blk)
                else _block_forward(*args))
-    y2d = y2d.to(cd)
-    if spec.method in ADAPTER_METHODS and "lora_a" in params:
-        # the unmergeable additive adapter: y += (x · Aᵀ) · Bᵀ, two plain
-        # products (the extra GEMM the paper's Fig. 2 measures)
-        xa = torch.matmul(x2d, params["lora_a"].to(cd).t())
-        y2d = y2d + torch.matmul(xa, params["lora_b"].to(cd).t())
-    if "bias" in params:
-        y2d = y2d + params["bias"].to(y2d.dtype)
-    return y2d.reshape(*lead, n)
+    return _epilogue(y2d, x2d, params, spec).reshape(*lead, n)
+
+
+def qmatmul_stack(params: dict, xd: torch.Tensor, spec: QuantSpec, n: int,
+                  m: int, *, backend: str | None = None) -> torch.Tensor:
+    """Expert-stacked :func:`qmatmul`, the counterpart of the JAX package's
+    ``jax.vmap(qmatmul)``: every leaf of ``params`` has a leading expert
+    axis E and ``xd`` is (E, C, m) → (E, C, n) in the compute dtype.
+
+    On ``fused`` with C ≤ ``DECODE_M_MAX`` and no gradient wanted, the base
+    of the whole stack is one launch of the expert-axis decode GEMV
+    (``lords_decode``, or ``block_matmul``'s decode entry), then the
+    additive adapter and bias of each expert.  Otherwise (``ref``, C > 8,
+    autograd) each expert goes through :func:`qmatmul`, so the existing
+    kernels and their backward serve prefill, the engine's chunks and
+    training.
+    """
+    backend = resolve_backend(backend, xd)
+    e, c = xd.shape[0], xd.shape[1]
+    # qat's per-call quantization and the dense bases go expert by expert
+    if (backend == "ref" or c > DECODE_M_MAX or spec.mode == "qat"
+            or not _fused_supported(params, spec)
+            or _needs_grad(xd, *params.values())):
+        return torch.stack([
+            qmatmul({k: v[i] for k, v in params.items()}, xd[i], spec, n, m,
+                    backend=backend) for i in range(e)])
+    cd = spec.compute_dtype
+    x3 = xd.reshape(e, c, m).to(cd).contiguous()
+    if spec.method == "lords":
+        y = _lords_forward(x3, params["q"], params["b"].to(spec.ba_compute_dtype),
+                           params["a"].to(spec.ba_compute_dtype), spec.codebook,
+                           backend)
+    else:  # block-wise base (also the qlora / loftq / qpissa frozen base)
+        from repro_torch.core.baselines import baseline_block_operands
+
+        q_packed, s_blk, bs = baseline_block_operands(params, m)
+        y = _block_forward(x3, q_packed, s_blk, bs, spec.codebook, backend)
+    return _epilogue(y, x3, params, spec)
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,9 @@ columns; N must be a multiple of N_MULT (whole warps) and K of KSTEP.
 Narrow N leaves SMs idle, so :func:`splits` cuts K over several CTAs per
 row tile; their partials meet in a workspace, summed in split order by the
 last CTA of the tile, which a per-device ticket array (zero between
-launches, reset by the kernel) elects.
+launches, reset by the kernel) elects.  A stack of E matrices (the experts
+of a mixture-of-experts layer) is one launch of E times the tiles, each
+with its own tickets and partials.
 """
 from __future__ import annotations
 
@@ -32,12 +34,14 @@ def ctas_per_sm(rank: int | None) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def splits(m: int, n: int, k: int, sms: int, rank: int | None = None) -> int:
+def splits(m: int, n: int, k: int, sms: int, rank: int | None = None,
+           e: int = 1) -> int:
     """How many CTAs share one row tile's K range: the s of least modelled
     time, ceil(tiles·s / slots) rounds (``ctas_per_sm`` a SM) of
     ceil(stages / s) + FILL_STAGES stages each, plus the tile's sum of
-    s·m·ROWS partials.  ``rank``: LoRDS's, None block-wise."""
-    tiles, stages = -(-n // ROWS), k // KSTEP
+    s·m·ROWS partials.  ``rank``: LoRDS's, None block-wise; ``e``: the
+    matrices of a stack, whose tiles all share the SMs."""
+    tiles, stages = e * -(-n // ROWS), k // KSTEP
     slots = ctas_per_sm(rank) * sms
 
     def cost(s):
@@ -51,12 +55,14 @@ def splits(m: int, n: int, k: int, sms: int, rank: int | None = None) -> int:
 _TICKETS: dict[torch.device, torch.Tensor] = {}
 
 
-def launch_buffers(dev, m: int, n: int, s: int):
-    """The f32 partials of one launch (s·m·n floats; none at one split) and
-    the device's int32 tickets, one a row tile, zero between launches (the
-    kernel resets each one it uses), grown when a launch needs more."""
-    ws = torch.empty(s * m * n if s > 1 else 0, dtype=torch.float32, device=dev)
-    tiles = -(-n // ROWS)
+def launch_buffers(dev, m: int, n: int, s: int, e: int = 1):
+    """The f32 partials of one launch (e·s·m·n floats; none at one split)
+    and the device's int32 tickets, one a row tile of each of the ``e``
+    matrices, zero between launches (the kernel resets each one it uses),
+    grown when a launch needs more."""
+    ws = torch.empty(e * s * m * n if s > 1 else 0, dtype=torch.float32,
+                     device=dev)
+    tiles = e * -(-n // ROWS)
     tickets = _TICKETS.get(dev)
     if tickets is None or tickets.numel() < tiles:
         tickets = _TICKETS[dev] = torch.zeros(max(tiles, 1024), dtype=torch.int32,

@@ -95,6 +95,8 @@ class Engine:
                  max_pages: int, chunk: int, burst: int = 8,
                  backend: str | None = None, temperature: float = 0.0,
                  seed: int = 0, params=None, device=None):
+        if cfg.input_kind != "tokens":
+            raise ValueError("the paged engine serves token models")
         if chunk % page_size:
             raise ValueError(f"chunk {chunk} % page_size {page_size}")
         if total_pages < 2:

@@ -41,7 +41,12 @@ def serve_batch(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
 
     ``params`` None draws a random model from ``seed``; ``prompts`` None
     draws the window's tokens from ``numpy.random.default_rng(seed)`` as the
-    JAX package's ``serve_batch`` does.  ``backend`` pins the dispatch
+    JAX package's ``serve_batch`` does.  An embedding-input model (its
+    frontend stubbed, as in the JAX package) prefills a window of standard
+    normal bf16 embeddings and feeds one fixed such embedding to every
+    decode step, both drawn from a ``torch.Generator`` seeded with
+    ``seed`` (the JAX package draws them from its own key: the two
+    packages' windows differ).  ``backend`` pins the dispatch
     backend (``fused`` | ``ref``; None = the device's default).
     ``kv_cache`` overrides ``cfg.kv_cache_dtype`` (``bf16`` | ``int8``).
     Returns the tokens (b, gen) and host-clock timings of prefill and
@@ -54,22 +59,31 @@ def serve_batch(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
     if params is None:
         params = model_init(cfg, seed, device=device)
     cache = cache_init(cfg, batch, capacity, device=device)
-    if prompts is None:
-        prompts = np.random.default_rng(seed).integers(
-            0, cfg.vocab_size, (batch, capacity)).astype(np.int32)
-    else:
-        pad = np.zeros((batch, capacity - prompts.shape[1]), np.int32)
-        prompts = np.concatenate([prompts, pad], axis=1).astype(np.int32)
-    tokens = torch.from_numpy(prompts).to(device=device, dtype=torch.long)
     col = torch.arange(capacity, dtype=torch.int32, device=device)[None]
     positions = torch.where(col < prompt_len, col, -1).expand(batch, capacity)
+    step_embeds = None
+    if cfg.input_kind == "tokens":
+        if prompts is None:
+            prompts = np.random.default_rng(seed).integers(
+                0, cfg.vocab_size, (batch, capacity)).astype(np.int32)
+        else:
+            pad = np.zeros((batch, capacity - prompts.shape[1]), np.int32)
+            prompts = np.concatenate([prompts, pad], axis=1).astype(np.int32)
+        window = {"tokens": torch.from_numpy(prompts).to(device=device,
+                                                         dtype=torch.long)}
+    else:
+        draw = torch.Generator(device=device).manual_seed(seed)
+        window = {"embeds": torch.randn(
+            (batch, capacity, cfg.d_model), generator=draw,
+            device=device).to(torch.bfloat16)}
+        step_embeds = torch.randn((batch, 1, cfg.d_model), generator=draw,
+                                  device=device).to(torch.bfloat16)
     generator = torch.Generator(device=device).manual_seed(seed + 1)
 
     with torch.inference_mode(), dispatch.backend_scope(backend):
         _sync(device)
         t0 = time.perf_counter()
-        logits, cache = forward_prefill(params, cfg, {"tokens": tokens}, cache,
-                                        positions)
+        logits, cache = forward_prefill(params, cfg, window, cache, positions)
         tok = sample_token(logits[:, -1, : cfg.vocab_size], temperature,
                            generator)
         _sync(device)
@@ -82,7 +96,7 @@ def serve_batch(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
             t0 = time.perf_counter()
             rest, cache = generate(params, cfg, tok, cache, pos0, gen=gen - 1,
                                    temperature=temperature,
-                                   generator=generator)
+                                   generator=generator, embeds0=step_embeds)
             _sync(device)
             t_decode = time.perf_counter() - t0
             toks.append(rest)
@@ -93,7 +107,7 @@ def serve_batch(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
         "decode_ms": t_decode * 1e3,
         "decode_tok_s": (batch * (gen - 1) / max(t_decode, 1e-9)
                          if gen > 1 else 0.0),
-        "backend": dispatch.resolve_backend(backend, tokens),
+        "backend": dispatch.resolve_backend(backend, positions),
         "kv_cache": cfg.kv_cache_dtype,
         "device": str(device),
     }

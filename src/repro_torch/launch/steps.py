@@ -52,26 +52,28 @@ def train_step(trainable: dict, frozen: dict, opt, batch: dict, *, cfg,
 
     ``trainable`` / ``frozen`` are the path dicts of
     :func:`repro_torch.core.peft.partition`; ``batch`` holds (B, S)
-    ``tokens`` and ``labels`` tensors on the model's device.  The batch is
-    split into microbatches of at most ``min(8192, cfg.micro_tokens)``
-    tokens whose gradients accumulate in f32; the update is
+    ``labels`` and ``tokens`` tensors (or (B, S, d) ``embeds`` for an
+    embedding-input model) on the model's device.  The batch is split into
+    microbatches of at most ``min(8192, cfg.micro_tokens)`` tokens whose
+    gradients accumulate in f32; the update is
     :func:`repro_torch.optim.guarded_update` (``max_gnorm`` None: only a
     non-finite norm skips).  The params and moments are updated in place.
-    metrics: {"loss", "grad_norm", "update_skipped"} as floats.
+    metrics: {"loss", "aux_loss", "grad_norm", "update_skipped"} as floats
+    (``aux_loss``: the MoE router's, 0 for other models).
     """
-    tokens, labels = batch["tokens"], batch["labels"]
-    n_micro = pick_microbatches(tokens.shape[0], tokens.shape[1],
+    labels = batch["labels"]
+    n_micro = pick_microbatches(labels.shape[0], labels.shape[1],
                                 min(8192, cfg.micro_tokens))
     keys = list(trainable)
     leaves = [trainable[k].requires_grad_(True) for k in keys]
     params = peft.combine(trainable, frozen)
     grads = None
-    loss_sum = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    for mb_tokens, mb_labels in zip(tokens.chunk(n_micro),
-                                    labels.chunk(n_micro)):
-        loss, _ = forward_train(params, cfg, {"tokens": mb_tokens,
-                                              "labels": mb_labels},
-                                backend=backend)
+    loss_sum = torch.zeros((), dtype=torch.float32, device=labels.device)
+    aux_sum = torch.zeros((), dtype=torch.float32, device=labels.device)
+    parts = {k: t.chunk(n_micro) for k, t in batch.items()}
+    for i in range(n_micro):
+        mb = {k: p[i] for k, p in parts.items()}
+        loss, metrics = forward_train(params, cfg, mb, backend=backend)
         g = torch.autograd.grad(loss, leaves, allow_unused=True)
         g = [torch.zeros_like(p) if gi is None else gi
              for gi, p in zip(g, leaves)]
@@ -83,12 +85,14 @@ def train_step(trainable: dict, frozen: dict, opt, batch: dict, *, cfg,
             for acc, gi in zip(grads, g):
                 acc += gi.to(torch.float32)
         loss_sum += loss.detach()
+        aux_sum += metrics["aux_loss"].detach()
     if n_micro > 1:
         grads = [gi / n_micro for gi in grads]
     thr = math.inf if max_gnorm is None else max_gnorm
     trainable, opt, gnorm, ok = guarded_update(
         trainable, dict(zip(keys, grads)), opt, lr, thr)
     return trainable, opt, {"loss": float(loss_sum / n_micro),
+                            "aux_loss": float(aux_sum / n_micro),
                             "grad_norm": float(gnorm),
                             "update_skipped": 0.0 if ok else 1.0}
 
@@ -115,15 +119,22 @@ def sample_token_guarded(logits, temperature: float,
 
 def generate(params, cfg, tok0, cache, pos0, *, gen: int,
              temperature: float = 0.0, generator=None,
-             backend: str | None = None):
+             backend: str | None = None, embeds0=None):
     """Run ``gen`` decode steps from ``tok0`` (b,) at positions ``pos0`` (b,)
-    (may be ragged).  Returns (tokens (b, gen) int32, cache)."""
+    (may be ragged).  Returns (tokens (b, gen) int32, cache).
+
+    ``embeds0`` (b, 1, d) is the fixed input of every step of an
+    embedding-input model (its frontend is stubbed), as in the JAX
+    package; token models feed back the sampled token."""
+    if cfg.input_kind != "tokens" and embeds0 is None:
+        raise ValueError(f"{cfg.name} takes embeddings: pass embeds0")
     toks = []
     tok, pos = tok0, pos0
     with dispatch.backend_scope(backend):
         for _ in range(gen):
-            logits, cache = forward_decode(params, cfg, {"tokens": tok}, cache,
-                                           pos)
+            step_in = ({"tokens": tok} if cfg.input_kind == "tokens"
+                       else {"embeds": embeds0})
+            logits, cache = forward_decode(params, cfg, step_in, cache, pos)
             tok = sample_token(logits[:, -1, : cfg.vocab_size], temperature,
                                generator)
             toks.append(tok)

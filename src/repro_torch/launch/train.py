@@ -65,13 +65,17 @@ def run_training(cfg, shape_cfg, *, steps: int, lr: float = 1e-4,
     "skipped_steps", "rollbacks"}; ``step_ms`` is the host time of each
     step, ending when its loss reaches the host.
     """
+    if cfg.input_kind != "tokens":
+        raise ValueError(f"{cfg.name} takes embeddings and run_training draws "
+                         "token batches: train it through train_step with an "
+                         "embeds batch")
     device = resolve_device(device)
     if params is None:
         params = model_init(cfg, seed, device=device)
     trainable, frozen = peft.partition(params, cfg.quant)
     opt = adamw_init(trainable)
     print(f"[train] {cfg.name} mode={cfg.quant.mode} "
-          f"backend={dispatch.resolve_backend(backend, params['embed'])} "
+          f"backend={dispatch.resolve_backend(backend, params['final_norm'])} "
           f"device={device} trainable={sum(t.numel() for t in trainable.values())}",
           flush=True)
 

@@ -1,14 +1,23 @@
-"""Dense decoder LM: embed → layers (GQA or MLA attention + SwiGLU, quantized
-linears) → head.
+"""Decoder LM: embed (or caller-supplied embeddings) → layers (GQA or MLA
+attention, then a SwiGLU or mixture-of-experts MLP, quantized linears) →
+head.
 
 Param layout: ``{"layers": [per-layer dict, ...], "final_norm", "embed",
 "head"}``, each layer ``{"ln1", "mixer": {wq, wk, wv, wo}, "ln2", "mlp":
 {w_gate, w_up, w_down}}``; an MLA mixer (``cfg.attn_kind == "mla"``) is
-``{q_down, q_up, kv_down, k_up, v_up, wo, q_norm, kv_norm}``.  The JAX
-package stacks layers on a leading axis and scans over them; here a Python
-loop walks the list.
+``{q_down, q_up, kv_down, k_up, v_up, wo, q_norm, kv_norm}``; a MoE layer's
+``mlp`` is ``{router, w_gate, w_up, w_down}`` with expert-stacked linears
+(each leaf with a leading expert axis), and a layer whose mlp kind is
+``none`` has no ``ln2`` / ``mlp``.  Which layers are MoE follows
+``cfg.layer_kinds()``.  An embedding-input model (``cfg.input_kind ==
+"embeddings"``: the vlm / audio archs, whose frontends are stubbed) has a
+head and no ``embed``, and takes ``{"embeds": (b, s, d)}`` where a token
+model takes ``{"tokens": (b, s)}``.  The JAX package stacks the layers of
+each period on a leading axis and scans over them; here a Python loop walks
+the list.
 
-  * ``forward_train(params, cfg, batch)`` -> (mean next-token loss, metrics)
+  * ``forward_train(params, cfg, batch)`` -> (mean next-token loss, plus
+    0.01 · the router aux loss for MoE; metrics)
   * ``forward_prefill(params, cfg, batch, cache, positions)`` -> (last-live
     logits (b, 1, Vp) f32, cache)
   * ``forward_decode(params, cfg, batch, cache, pos)`` -> (logits (b, 1, Vp)
@@ -45,40 +54,47 @@ __all__ = ["model_init", "cache_init", "paged_cache_init", "forward_train",
 LOSS_CHUNK = 512  # tokens per vocabulary-loss chunk
 
 
-def _check_dense(cfg):
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r}: only the dense family is ported")
-
-
 def _mla(cfg) -> bool:
     return cfg.attn_kind == "mla"
+
+
+def _mlp_kinds(cfg) -> list[str]:
+    """Each layer's mlp kind (``dense``, ``moe`` or ``none``): the layer's
+    place in its period of ``cfg.layer_kinds()``."""
+    kinds = cfg.layer_kinds()
+    return [kinds[i % cfg.period][1] for i in range(cfg.num_layers)]
+
+
+def _block_init(cfg, mlp_kind, kw):
+    blk = {"ln1": rmsnorm_init(cfg.d_model, kw["device"]),
+           "mixer": (attn.mla_init if _mla(cfg) else attn.gqa_init)(
+               cfg, cfg.quant, **kw)}
+    if mlp_kind == "dense":
+        blk["ln2"] = rmsnorm_init(cfg.d_model, kw["device"])
+        blk["mlp"] = moe_mod.dense_mlp_init(cfg.d_model, cfg.d_ff, cfg.quant,
+                                            **kw)
+    elif mlp_kind == "moe":
+        blk["ln2"] = rmsnorm_init(cfg.d_model, kw["device"])
+        blk["mlp"] = moe_mod.moe_init(cfg, cfg.quant, **kw)
+    return blk
 
 
 def model_init(cfg, seed: int = 0, *, device=None,
                generator: torch.Generator | None = None) -> dict:
     """Random-weight LoRDS model on ``device`` (``cuda`` unless named), drawn
-    from ``generator`` (default: a fresh one seeded with ``seed``)."""
-    _check_dense(cfg)
+    from ``generator`` (default: a fresh one seeded with ``seed``).  An
+    embedding-input model gets a head and no embedding table."""
+    cfg.check_ported()
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(seed)
     kw = dict(generator=generator, device=device)
-    layers = []
-    for _ in range(cfg.num_layers):
-        layers.append({
-            "ln1": rmsnorm_init(cfg.d_model, device),
-            "mixer": (attn.mla_init if _mla(cfg) else attn.gqa_init)(
-                cfg, cfg.quant, **kw),
-            "ln2": rmsnorm_init(cfg.d_model, device),
-            "mlp": moe_mod.dense_mlp_init(cfg.d_model, cfg.d_ff, cfg.quant,
-                                          **kw),
-        })
-    params = {"layers": layers,
-              "final_norm": rmsnorm_init(cfg.d_model, device),
-              "embed": dense_init((cfg.padded_vocab, cfg.d_model), scale=0.02,
-                                  **kw)}
-    if not cfg.tie_embeddings:
+    params = {"layers": [_block_init(cfg, kind, kw) for kind in _mlp_kinds(cfg)],
+              "final_norm": rmsnorm_init(cfg.d_model, device)}
+    if cfg.input_kind == "tokens":
+        params["embed"] = dense_init((cfg.padded_vocab, cfg.d_model),
+                                     scale=0.02, **kw)
+    if not cfg.tie_embeddings or cfg.input_kind != "tokens":
         params["head"] = dense_init((cfg.padded_vocab, cfg.d_model),
                                     scale=0.02, **kw)
     return params
@@ -86,7 +102,7 @@ def model_init(cfg, seed: int = 0, *, device=None,
 
 def cache_init(cfg, batch, capacity, *, device=None) -> list:
     """Per-layer KV caches of ``capacity`` slots, in ``cfg.kv_cache_dtype``."""
-    _check_dense(cfg)
+    cfg.check_ported()
     device = resolve_device(device)
     init = attn.mla_cache_init if _mla(cfg) else attn.gqa_cache_init
     return [init(cfg, batch, capacity, device=device)
@@ -95,8 +111,15 @@ def cache_init(cfg, batch, capacity, *, device=None) -> list:
 
 def paged_cache_init(cfg, total_pages, page_size, *, device=None) -> list:
     """Per-layer page pools of ``total_pages`` pages of ``page_size``
-    tokens, in ``cfg.kv_cache_dtype``; page 0 is the dummy."""
-    _check_dense(cfg)
+    tokens, in ``cfg.kv_cache_dtype``; page 0 is the dummy.
+
+    Paged serving needs every mixer to be a page-table reader, so it is
+    attention-only: a recurrent mixer raises, as in the JAX package."""
+    mixers = {kind[0] for kind in cfg.layer_kinds()}
+    if mixers != {"attn"}:
+        raise ValueError("paged serving requires an attention-only layer "
+                         f"stack; got mixers {sorted(mixers)}")
+    cfg.check_ported()
     device = resolve_device(device)
     init = attn.mla_paged_cache_init if _mla(cfg) else attn.gqa_paged_cache_init
     return [init(cfg, total_pages, page_size, device=device)
@@ -116,19 +139,40 @@ def _last_live_logits(params, cfg, x, positions):
     return f32_matmul(x, _head_matrix(params))
 
 
-def _mlp_residual(blk, x, cfg):
+def _mlp_apply(blk, x, cfg, mlp_kind):
+    """The post-mixer MLP residual: (x, the MoE router's aux loss, or None
+    for a dense or absent MLP)."""
+    if mlp_kind == "none":
+        return x, None
     h = rmsnorm(blk["ln2"], x, cfg.norm_eps)
-    return x + moe_mod.dense_mlp_apply(blk["mlp"], h, cfg.d_model, cfg.d_ff,
-                                       cfg.quant)
+    if mlp_kind == "dense":
+        return x + moe_mod.dense_mlp_apply(blk["mlp"], h, cfg.d_model,
+                                           cfg.d_ff, cfg.quant), None
+    y, aux = moe_mod.moe_apply(blk["mlp"], h, cfg, cfg.quant)
+    return x + y, aux
 
 
-def _block_train(blk, x, cfg, positions, backend):
+def _mlp_residual(blk, x, cfg, mlp_kind):
+    """The inference paths' MLP residual (a MoE layer's aux is discarded)."""
+    return _mlp_apply(blk, x, cfg, mlp_kind)[0]
+
+
+def _embed_in(params, cfg, batch):
+    """The layers' input: the embedding rows of ``batch["tokens"]``, or the
+    caller's ``batch["embeds"]`` in bf16 for an embedding-input model."""
+    if cfg.input_kind == "tokens":
+        return params["embed"][batch["tokens"]]
+    return batch["embeds"].to(torch.bfloat16)
+
+
+def _block_train(blk, x, cfg, mlp_kind, positions, backend):
     # the backend is pinned inside the body: under cfg.remat this runs again
     # in the backward, on the autograd thread, where no scope is set
     with dispatch.backend_scope(backend):
         h = rmsnorm(blk["ln1"], x, cfg.norm_eps)
-        x = x + attn.gqa_train(blk["mixer"], h, cfg, cfg.quant, positions)
-        return _mlp_residual(blk, x, cfg)
+        mixer = attn.mla_train if _mla(cfg) else attn.gqa_train
+        x = x + mixer(blk["mixer"], h, cfg, cfg.quant, positions)
+        return _mlp_apply(blk, x, cfg, mlp_kind)
 
 
 def _chunk_loss(x, labels, head):
@@ -142,33 +186,33 @@ def _chunk_loss(x, labels, head):
 
 
 def forward_train(params, cfg, batch, *, backend: str | None = None):
-    """batch: {"tokens": (b, s), "labels": (b, s)} (label -1 = masked).
+    """batch: {"tokens": (b, s)} or, for an embedding-input model,
+    {"embeds": (b, s, d)}, and "labels" (b, s) (label -1 = masked).
 
-    Returns (mean loss, {"loss", "tokens"}).  Layers run in a Python loop;
-    under ``cfg.remat`` each layer and each vocabulary chunk is a
+    Returns (mean loss, {"loss", "aux_loss", "tokens"}); a MoE model's loss
+    adds 0.01 · the layers' summed router aux loss.  Layers run in a Python
+    loop; under ``cfg.remat`` each layer and each vocabulary chunk is a
     ``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint`` with
     nothing saved), so the backward keeps one layer's activations at a time
     and one chunk of logits.  The loss never materializes (b, s, V) logits:
     it runs over chunks of 512 positions.  ``backend`` (default: resolved
     once here) holds for the forward, the backward and the recompute.
     """
-    if _mla(cfg):
-        raise NotImplementedError(
-            "training an MLA model is not ported yet: it comes with the "
-            "MLA training slice (ROADMAP queue 1); MLA serves through "
-            "forward_prefill / forward_decode and the paged steps")
-    tokens, labels = batch["tokens"], batch["labels"]
+    labels = batch["labels"]
     b, s = labels.shape
-    backend = dispatch.resolve_backend(backend, tokens)
+    backend = dispatch.resolve_backend(backend, labels)
     positions = torch.arange(s, dtype=torch.int32,
-                             device=tokens.device)[None].expand(b, s)
-    x = params["embed"][tokens.long()]
-    for blk in params["layers"]:
+                             device=labels.device)[None].expand(b, s)
+    x = _embed_in(params, cfg, batch)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for blk, kind in zip(params["layers"], _mlp_kinds(cfg)):
         if cfg.remat:
-            x = checkpoint(_block_train, blk, x, cfg, positions, backend,
-                           use_reentrant=False)
+            x, a = checkpoint(_block_train, blk, x, cfg, kind, positions,
+                              backend, use_reentrant=False)
         else:
-            x = _block_train(blk, x, cfg, positions, backend)
+            x, a = _block_train(blk, x, cfg, kind, positions, backend)
+        if a is not None:
+            aux = aux + a
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     head = _head_matrix(params)
     chunk = min(LOSS_CHUNK, s)
@@ -186,66 +230,78 @@ def forward_train(params, cfg, batch, *, backend: str | None = None):
             nll, n = _chunk_loss(*args)
         tot, cnt = tot + nll, cnt + n
     loss = tot / torch.clamp(cnt, min=1.0)
-    return loss, {"loss": loss, "tokens": cnt}
+    if cfg.moe is not None:
+        loss = loss + 0.01 * aux
+    return loss, {"loss": loss, "aux_loss": aux, "tokens": cnt}
 
 
 def forward_prefill(params, cfg, batch, cache, positions=None):
     """Full-window forward filling the caches; returns (logits, cache).
 
-    ``positions`` (b, s) int32 makes the window ragged: -1 columns are dead
-    (masked out of attention; their K/V still land in the cache) and the
-    logits come from each row's ``argmax(positions)`` column.  None = the
-    aligned arange.
+    ``batch``: {"tokens": (b, s)} or {"embeds": (b, s, d)}.  ``positions``
+    (b, s) int32 makes the window ragged: -1 columns are dead (masked out
+    of attention; their K/V still land in the cache) and the logits come
+    from each row's ``argmax(positions)`` column.  None = the aligned
+    arange.
     """
-    tokens = batch["tokens"]
-    b, s = tokens.shape
+    x = _embed_in(params, cfg, batch)
+    b, s = x.shape[:2]
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
-                                 device=tokens.device)[None].expand(b, s)
-    x = params["embed"][tokens]
+                                 device=x.device)[None].expand(b, s)
     prefill = attn.mla_prefill if _mla(cfg) else attn.gqa_prefill
-    for blk, layer_cache in zip(params["layers"], cache):
+    for blk, kind, layer_cache in zip(params["layers"], _mlp_kinds(cfg), cache):
         h = rmsnorm(blk["ln1"], x, cfg.norm_eps)
         y, _ = prefill(blk["mixer"], h, cfg, cfg.quant, positions, layer_cache)
-        x = _mlp_residual(blk, x + y, cfg)
+        x = _mlp_residual(blk, x + y, cfg, kind)
     return _last_live_logits(params, cfg, x, positions), cache
 
 
+def _step_in(params, cfg, batch):
+    """One decode step's input (b, 1, d): the embedding rows of
+    ``batch["tokens"]`` (b,), or ``batch["embeds"]`` (b, 1, d) in bf16."""
+    if cfg.input_kind == "tokens":
+        return params["embed"][batch["tokens"][:, None]]
+    return batch["embeds"].to(torch.bfloat16)
+
+
 def forward_decode(params, cfg, batch, cache, pos):
-    """One decode step.  batch: {"tokens": (b,)}; pos (b,) int32."""
-    x = params["embed"][batch["tokens"][:, None]]          # (b, 1, d)
+    """One decode step.  batch: {"tokens": (b,)} or {"embeds": (b, 1, d)};
+    pos (b,) int32."""
+    x = _step_in(params, cfg, batch)
     decode = attn.mla_decode if _mla(cfg) else attn.gqa_decode
-    for blk, layer_cache in zip(params["layers"], cache):
+    for blk, kind, layer_cache in zip(params["layers"], _mlp_kinds(cfg), cache):
         h = rmsnorm(blk["ln1"], x, cfg.norm_eps)
         y, _ = decode(blk["mixer"], h, cfg, cfg.quant, layer_cache, pos)
-        x = _mlp_residual(blk, x + y, cfg)
+        x = _mlp_residual(blk, x + y, cfg, kind)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return f32_matmul(x, _head_matrix(params)), cache
 
 
 def forward_decode_paged(params, cfg, batch, pools, pt, pos):
-    """One decode step against the page pools.  batch: {"tokens": (b,)};
-    pt (b, np) page table; pos (b,) int32 current positions."""
-    x = params["embed"][batch["tokens"][:, None]]          # (b, 1, d)
+    """One decode step against the page pools.  batch: {"tokens": (b,)} or
+    {"embeds": (b, 1, d)}; pt (b, np) page table; pos (b,) int32 current
+    positions."""
+    x = _step_in(params, cfg, batch)
     decode = attn.mla_decode_paged if _mla(cfg) else attn.gqa_decode_paged
-    for blk, pool in zip(params["layers"], pools):
+    for blk, kind, pool in zip(params["layers"], _mlp_kinds(cfg), pools):
         h = rmsnorm(blk["ln1"], x, cfg.norm_eps)
         y, _ = decode(blk["mixer"], h, cfg, cfg.quant, pool, pt, pos)
-        x = _mlp_residual(blk, x + y, cfg)
+        x = _mlp_residual(blk, x + y, cfg, kind)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return f32_matmul(x, _head_matrix(params)), pools
 
 
 def forward_prefill_chunk(params, cfg, batch, pools, pt, qpos, pos0):
-    """One chunk of paged prefill.  batch: {"tokens": (b, cs)}; qpos
-    (b, cs) in-chunk positions (-1 = dead row); pos0 (b,) page-aligned
-    chunk start.  Returns (logits (b, 1, Vp) f32 of each row's
-    ``argmax(qpos)`` column, pools): meaningful for rows whose prompt ends
-    in this chunk."""
-    x = params["embed"][batch["tokens"]]                   # (b, cs, d)
+    """One chunk of paged prefill.  batch: {"tokens": (b, cs)} or
+    {"embeds": (b, cs, d)}; qpos (b, cs) in-chunk positions (-1 = dead
+    row); pos0 (b,) page-aligned chunk start.  Returns (logits (b, 1, Vp)
+    f32 of each row's ``argmax(qpos)`` column, pools): meaningful for rows
+    whose prompt ends in this chunk."""
+    x = _embed_in(params, cfg, batch)                      # (b, cs, d)
     chunk = attn.mla_prefill_chunk if _mla(cfg) else attn.gqa_prefill_chunk
-    for blk, pool in zip(params["layers"], pools):
+    for blk, kind, pool in zip(params["layers"], _mlp_kinds(cfg), pools):
         h = rmsnorm(blk["ln1"], x, cfg.norm_eps)
         y, _ = chunk(blk["mixer"], h, cfg, cfg.quant, qpos, pos0, pool, pt)
-        x = _mlp_residual(blk, x + y, cfg)
+        x = _mlp_residual(blk, x + y, cfg, kind)
     return _last_live_logits(params, cfg, x, qpos), pools

@@ -143,17 +143,18 @@ def test_dequantize_weight_matches_jax():
 
 
 def test_unported_modes_raise():
-    # every QuantSpec method is ported (tests/test_torch_baselines.py), and
-    # MLA attention within the dense family (tests/test_torch_mla.py); what
-    # is not yet: the non-dense model families (MoE, SSM) and the explicit
-    # `dense` kernel backend
+    # every QuantSpec method is ported (tests/test_torch_baselines.py), MLA
+    # attention (tests/test_torch_mla.py), MoE (tests/test_torch_moe.py) and
+    # the embedding-input families (tests/test_torch_embeds.py); what is not
+    # yet: the SSM and hybrid families and the explicit `dense` kernel
+    # backend
     from repro_torch.configs.archs import smoke_variant
     from repro_torch.configs.base import get_config
     from repro_torch.convert import from_jax_params
     from repro_torch.kernels import dispatch
     from repro_torch.models.model import model_init
 
-    for family in ("moe", "ssm"):
+    for family in ("ssm", "hybrid"):
         cfg = smoke_variant(get_config("llama3-8b")).with_(family=family)
         with pytest.raises(NotImplementedError):
             model_init(cfg, device="cpu")

@@ -1012,7 +1012,7 @@ def test_block_grad_places_every_product(dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("hd", [16, 32, 64, 128])
-@pytest.mark.parametrize("g", [1, 3, 4, 16, 48])
+@pytest.mark.parametrize("g", [1, 3, 4, 7, 16, 48])
 def test_attn_decode_split_kv_matches_plain(dev, hd, g):
     """The split-KV decode kernel against its plain version, bf16 and int8,
     at caches of one slot, around the chunk C the wrapper picks at the
@@ -1020,7 +1020,8 @@ def test_attn_decode_split_kv_matches_plain(dev, hd, g):
     0 fully live, row 1 with a dead tail of at least one whole chunk where
     the cache has one (the dead chunk's p = 1 inside it must get merge
     weight 0); logits at the model's scale and x30 (peaked); g in the
-    registry's group sizes (48: three groups of 16 query rows).  One launch
+    registry's group sizes (7: internvl2-1b's; 48: three groups of 16 query
+    rows).  One launch
     per call; f32 on both sides: 1e-4 absolute on O(1) outputs."""
     from repro_torch.kernels.attn_decode import split_plan
     from repro_torch.kernels.lords_matmul import _sms
@@ -1272,3 +1273,72 @@ def test_decode_gemvs_are_deterministic_at_split_k(dev):
         torch.cuda.synchronize()
         assert torch.isfinite(outs[0]).all() and torch.equal(outs[0], outs[1])
         assert _rel(outs[0], y_ref, tol)
+
+
+# (M, N, K, r) of the expert-axis GEMV: a ragged 256-row tile, a split-K
+# shape (at E = 1) and a rank past the wgmma path's 24
+STACK_SHAPES = ((5, 288, 1024, 6), (8, 1024, 4096, 24), (3, 96, 384, 40))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e", [1, 4, 16])
+@pytest.mark.parametrize("codebook", ["nf2", "nf3", "nf4", "int8"])
+def test_expert_axis_gemv_matches_the_plain_loop(dev, codebook, e):
+    """Both decode GEMV entries on a stack of E experts, each with its own
+    tokens, in one launch (the core's expert grid axis), against the plain
+    version expert by expert: 2e-3 (LoRDS) and 1e-4 (block-wise, block 128
+    and 32) of each expert's output scale.  At E = 1 the stack equals the
+    single-matrix launch bit for bit."""
+    from repro_torch.kernels import gemv
+    from repro_torch.kernels.lords_matmul import _sms
+    for m, n, k, r in STACK_SHAPES:
+        lin = [_linear(n, k, r, dev, codebook, seed=17 * i + m) for i in range(e)]
+        x = torch.stack([xi[:m] for xi, _ in lin])
+        q, b, a = (torch.stack([p[key] for _, p in lin]) for key in ("q", "b", "a"))
+        before = lords_decode.launches
+        y = lords_decode(x, q, b, a, codebook)
+        assert lords_decode.launches == before + 1 and y.shape == (e, m, n)
+        for i in range(e):
+            y_ref = ref.lords_matmul_ref(x[i], q[i], b[i], a[i], codebook)
+            torch.testing.assert_close(y[i], y_ref, rtol=0, atol=_tol(y_ref),
+                                       msg=str((i, m, n, k, r)))
+        if e == 1:
+            assert torch.equal(y[0], lords_decode(x[0], q[0], b[0], a[0], codebook))
+        for bs in (128, 32):
+            blk = [_block_linear(n, k, bs, dev, codebook, seed=17 * i + bs) for i in range(e)]
+            qb, sb = (torch.stack([t[j] for t in blk]) for j in (0, 1))
+            before = block_matmul.launches
+            y = block_matmul(x, qb, sb, codebook)
+            assert block_matmul.launches == before + 1 and y.shape == (e, m, n)
+            for i in range(e):
+                assert _rel(y[i], ref.block_matmul_ref(x[i], qb[i], sb[i], bs, codebook),
+                            1e-4), (i, m, n, k, bs)
+            if e == 1:
+                assert torch.equal(y[0], block_matmul(x[0], qb[0], sb[0], codebook))
+    assert gemv.splits(8, 1024, 4096, _sms(dev), 24) > 1
+
+
+@pytest.mark.cuda
+def test_qmatmul_stack_is_one_launch_per_stack(dev):
+    """``qmatmul_stack`` on the card: at C <= 8 one ``lords_decode`` launch
+    for the whole stack (N and K padded off the tiles, split-K workspaces
+    and tickets for every expert, bitwise equal from call to call), equal
+    to the expert loop on ``ref`` within 1e-2 of the output scale (both
+    round their outputs to bf16, 2^-8 apart at most); at C > 8 one
+    ``lords_matmul`` launch per expert."""
+    e, n, m_in = 16, 200, 160
+    lin = [_linear(n, m_in, 6, dev, "nf4", seed=i) for i in range(e)]
+    stack = {key: torch.stack([p[key] for _, p in lin]) for key in ("q", "b", "a")}
+    spec = QuantSpec(block_size=32, rank=6)
+    for c in (8, 12):
+        xd = torch.stack([xi[:c] for xi, _ in lin])
+        counts = (lords_decode.launches, lords_matmul.launches)
+        y = dispatch.qmatmul_stack(stack, xd, spec, n, m_in)
+        launched = (lords_decode.launches - counts[0], lords_matmul.launches - counts[1])
+        assert launched == ((1, 0) if c <= 8 else (0, e)) and y.shape == (e, c, n)
+        loop = torch.stack([dispatch.qmatmul({k: v[i] for k, v in stack.items()}, xd[i],
+                                             spec, n, m_in, backend="ref")
+                            for i in range(e)])
+        assert _rel(y.float(), loop.float(), 1e-2)
+        if c <= 8:
+            assert torch.equal(y, dispatch.qmatmul_stack(stack, xd, spec, n, m_in))

@@ -1,6 +1,6 @@
-"""The port's multi-head latent attention (MLA) serving path against the JAX
-package, on the CPU: minicpm3-4b's smoke variant (2 layers, d 64, MLA ranks
-q 32 / kv 16, nope 16, rope 8, v 16).
+"""The port's multi-head latent attention (MLA) serving and training paths
+against the JAX package, on the CPU: minicpm3-4b's smoke variant (2 layers,
+d 64, MLA ranks q 32 / kv 16, nope 16, rope 8, v 16).
 
 Inputs come from numpy seeds and go to both packages.  The JAX side runs as
 its own tests run it on the CPU: the MLA Pallas kernels in interpret mode
@@ -24,6 +24,7 @@ from jax.sharding import AxisType
 
 from repro.configs import get_config as jax_get_config
 from repro.configs import smoke_variant as jax_smoke_variant
+from repro.core import peft as jax_peft
 from repro.kernels import dispatch as jax_dispatch
 from repro.kernels import ref as jax_ref
 from repro.kernels.attn_decode import (
@@ -38,11 +39,14 @@ from repro.models import attention as jax_attn
 from repro.models import cache_init as jax_cache_init
 from repro.models import forward_decode as jax_forward_decode
 from repro.models import forward_prefill as jax_forward_prefill
+from repro.models import forward_train as jax_forward_train
 from repro.models import model_init as jax_model_init
 from repro.models import split_tree
 from repro.models.common import kv_quantize as jax_kv_quantize
-from repro_torch.configs import get_config, smoke_variant
+from repro_torch.configs import ShapeCfg, get_config, smoke_variant
 from repro_torch.convert import from_jax_params
+from repro_torch.core import peft
+from repro_torch.data import SyntheticLM
 from repro_torch.kernels import dispatch, ref
 from repro_torch.kernels.attn_decode_mla import attn_decode_mla
 from repro_torch.kernels.attn_decode_mla_paged import attn_decode_mla_paged
@@ -51,6 +55,7 @@ from repro_torch.launch import steps
 from repro_torch.launch.engine import Engine, Request
 from repro_torch.launch.serve import main as serve_main
 from repro_torch.launch.serve import serve_batch
+from repro_torch.launch.train import batch_tensors, run_training
 from repro_torch.models import attention as attn
 from repro_torch.models import (
     cache_init,
@@ -724,9 +729,53 @@ def test_serve_cli_on_cpu(capsys, kv):
     assert "sample tokens" in out
 
 
-def test_forward_train_raises_on_mla(models):
-    """Training MLA belongs to a later slice: forward_train refuses."""
-    _, _, cfg, params = models
-    tokens = torch.zeros((1, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="MLA"):
-        forward_train(params, cfg, {"tokens": tokens, "labels": tokens})
+def _jax_leaf(tree, path):
+    """The JAX leaf of a port path: layer i of the stacked blk0 axis."""
+    node = tree["layers"]["blk0"]
+    for key in path[2:]:
+        node = node[key]
+    return np.asarray(node[path[1]], np.float32)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_forward_train_loss_and_grads_match_jax(models, remat):
+    """MLA training: the loss within 2e-3 and every trainable leaf's
+    gradient (B and A of the 8 MLA linears and 3 MLP linears of 2 layers)
+    at cosine >= 0.999 with its norm within 2%, against JAX
+    ``forward_train`` on ``ref`` (the bound and reason of
+    tests/test_torch_train.py); remat (checkpointed layers) or not."""
+    jcfg, jparams, cfg, params = models
+    jcfg, cfg = jcfg.with_(remat=False), cfg.with_(remat=remat)
+    batch = SyntheticLM(cfg.vocab_size, 64, 2, seed=5).batch_at(0)
+    jt, jf = jax_peft.partition(jparams, jcfg.quant)
+    with jax_dispatch.backend_scope("ref"):
+        (jloss, _), jgrads = jax.jit(jax.value_and_grad(
+            lambda t: jax_forward_train(jax_peft.combine(t, jf), jcfg,
+                                        {k: jnp.asarray(v) for k, v in batch.items()}),
+            has_aux=True))(jt)
+    trainable, frozen = peft.partition(params, cfg.quant)
+    leaves = [t.requires_grad_() for t in trainable.values()]
+    try:
+        loss, _ = forward_train(peft.combine(trainable, frozen), cfg,
+                                batch_tensors(batch, "cpu"), backend="ref")
+        grads = torch.autograd.grad(loss, leaves)
+    finally:
+        for t in leaves:
+            t.requires_grad_(False)
+    assert abs(loss.item() - float(jloss)) < 2e-3
+    assert len(grads) == 2 * (6 + 3) * 2  # the norms' gains do not train
+    for path, g in zip(trainable, grads):
+        mine, theirs = g.float().numpy(), _jax_leaf(jgrads, path)
+        assert _cos(mine, theirs) >= 0.999, path
+        assert abs(np.linalg.norm(mine) / np.linalg.norm(theirs) - 1) < 0.02, path
+
+
+def test_run_training_gives_finite_losses(models):
+    """3 PEFT steps of the smoke MLA model through run_training on the
+    fused backend's plain versions: finite losses, none skipped."""
+    _, jparams, cfg, _ = models
+    params = from_jax_params(jax.tree.map(np.asarray, jparams), cfg, device="cpu")
+    out = run_training(cfg, ShapeCfg("smoke", 32, 2, "train"), steps=3, lr=1e-3,
+                       device="cpu", backend="fused", params=params, log_every=100)
+    assert len(out["losses"]) == 3 and np.isfinite(out["losses"]).all()
+    assert out["skipped_steps"] == 0
