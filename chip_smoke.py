@@ -34,11 +34,11 @@ model); phase 8 trains QLoRA's adapters at phase 5's settings; phase 9
 trains PEQA-style block scales at 4 layers; phase 10 quantizes layer 0's
 seven matrices by block-wise NF4, the LoRDS init, Algorithm 1, GPTQ, AWQ,
 LoftQ, QPiSSA and SmoothRot and runs the bit / rank allocation over them.
-Phase 11 serves minicpm3-4b (multi-head latent attention, 62 layers, full
-width) at phase 3's settings with a bf16 and an int8 latent cache and
+Phase 11 serves minicpm3-4b (multi-head latent attention, 31 of its 62
+layers, full width) at phase 3's settings with a bf16 and an int8 latent cache and
 profiles one decode step of each as phase 3 does; phase 12
 runs phase 4's engine and trace on it (int8 latent pool); phase 13 trains
-it in PEFT mode at full depth as phase 5 does (multi-head latent
+it in PEFT mode at that depth as phase 5 does (multi-head latent
 attention's training path).  Phase 14 serves the embedding-input models
 internvl2-1b (group size 7) and musicgen-medium (group size 1) at full
 width and depth at phase 3's settings, bf16 cache, the window and step
@@ -48,7 +48,14 @@ mixture-of-experts phi3.5-moe-42b-a6.6b (16 experts, top-2, nf4 at block
 launches ``lords_decode`` 7 times a layer: each expert stack is one launch
 on the decode GEMV's expert axis, which phase 2 also holds against the
 plain version at the model's stacks, both entries), profiles one decode
-step, then trains 4 of its layers as phase 5 does.  Each path runs
+step, then trains 4 of its layers as phase 5 does.  Phase 16 serves
+xlstm-1.3b (7 mLSTM : 1 sLSTM, 48 layers) at full width and depth at phase
+3's settings, phase 17 one period of jamba-1.5-large-398b (8 of 72 layers:
+Mamba, attention at layer 4, MoE every 2nd layer, 16 experts) at full width
+with the routing pinned as phase 15, each with exact launch counts (every
+quantized linear once in the prefill and once a decode step) and one
+profiled decode step; phase 18 trains xlstm's first period (8 layers) as
+phase 5 does, its gradient check over the whole period.  Each path runs
 with the launch counts set to 0 just before it, must launch every kernel
 it uses (and none of another path's linears or decode kernels), and must hold
 its outputs (teacher-forced logits, or one step's gradients) within a
@@ -96,9 +103,21 @@ PTQ_LR, PTQ_STEPS, PTQ_TOKENS, PTQ_LOFTQ_ITERS = 0.05, 500, 2048, 5
 # phases 11-13: the repo's MLA architecture; phase 14: the embedding-input
 # ones; phase 15: the mixture-of-experts one
 MLA_ARCH = "minicpm3-4b"
+# phases 11-13 run minicpm3-4b at 31 of its 62 layers since phases 16-18
+# came: its decode is host-bound (231-392 ms of wall a step at 62 layers,
+# 6-11% busy), so the engine phase alone took 178 s, and at full depth the
+# script reached 1190 s of its 1200 on a slow host
+MLA_LAYERS = 31
 EMBEDS_ARCHS = ("internvl2-1b", "musicgen-medium")
 MOE_ARCH = "phi3.5-moe-42b-a6.6b"
 MOE_TRAIN_LAYERS = 4
+# phases 16-18: the recurrent archs.  jamba runs one period, 8 of its 72
+# layers: ≈ 22 GB of nf4 codes a period, ≈ 200 GB at full depth, past the
+# card's 80 GB; it is not trained on the card (Mamba's scan at sequence
+# 4096 and d_in 16384 holds (1, 4096, 16384, 16) f32 tensors of 4.3 GB,
+# many of them under autograd)
+SSM_ARCH = "xlstm-1.3b"
+HYBRID_ARCH = "jamba-1.5-large-398b"
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "lords_matmul": ("lords_matmul", "src/repro/kernels/lords_matmul.py:140"),
     "lords_decode": ("lords_decode", "src/repro/kernels/lords_decode.py:84"),
@@ -697,22 +716,6 @@ def _sdpa_decode_mask(torch, pos, cap):
     return dispatch.decode_kmask(pos, cap)[:, None, None, :].to(torch.bfloat16)
 
 
-def attn_prefill_f64(torch, q, k, v, pos, logit_scale):
-    """``ref.attn_prefill_pos``'s function (queries and keys at ``pos``,
-    rows with no live key zero) in float64: (b, s, nh, hd_v)."""
-    from repro_torch.kernels import ref
-
-    b, s, nh, hd = q.shape
-    nkv = k.shape[2]
-    qg = (q.double() * logit_scale).reshape(b, s, nkv, nh // nkv, hd)
-    scores = torch.einsum("bqngh,bknh->bngqk", qg, k.double())
-    live = (pos[:, None, :] <= pos[:, :, None]) & (pos[:, None, :] >= 0)
-    scores = torch.where(live[:, None, None], scores, ref.ATTN_NEG_INF)
-    probs = torch.softmax(scores, dim=-1) * live.any(-1)[:, None, None, :, None]
-    out = torch.einsum("bngqk,bknh->bqngh", probs, v.double())
-    return out.reshape(b, s, nh, v.shape[-1])
-
-
 def check_prefill(torch, F, results, gen, flush, rng, *, nh, nkv, hd, hdv, tag,
                   chunk_primary):
     """Phase 2, kernel 3 at one (hd, hd_v): serve_batch's prefill (window
@@ -761,7 +764,8 @@ def check_prefill(torch, F, results, gen, flush, rng, *, nh, nkv, hd, hdv, tag,
             out = attn_prefill(q, k, v, positions, positions, logit_scale=sc)
             f32 = (out - ref.attn_prefill_pos(q, k, v, positions, positions, sc)
                    ).abs().max().item()
-            err = (out.double() - attn_prefill_f64(torch, q, k, v, positions, sc)
+            err = (out.double() - ref.attn_prefill_pos(q, k, v, positions, positions, sc,
+                                                       dtype=torch.float64)
                    ).abs().max().item()
             log(f"[check] attn_prefill {heads} logits x{peak:g}: {err:.3e} from the "
                 f"float64 function (bound 1e-4), {f32:.3e} from the f32 plain version")
@@ -1213,18 +1217,21 @@ LORDS_LINEAR = ("lords_matmul", "lords_decode", "lords_matmul_t", "lords_grad",
                 "lut_quantize")
 BLOCK_KERNELS = ("block_matmul", "block_matmul_t", "block_grad")
 MLA_DECODE = ("attn_decode_mla", "attn_decode_mla_paged")
-# off a LoRDS GQA serve_batch path (phases 14-15), and off PEFT training (13, 15)
+# off a LoRDS GQA serve_batch path (phases 14-17), and off PEFT training (13,
+# 15, 18)
 SERVE_UNUSED = BLOCK_KERNELS + MLA_DECODE + ("attn_decode_paged", "lords_matmul_t",
                                              "lords_grad", "lut_quantize")
 TRAIN_UNUSED = BLOCK_KERNELS + GQA_DECODE + MLA_DECODE + ("lords_decode", "lut_quantize")
 
 
 def serve_checks(cfg, params, torch, kv, what=None, used=LORDS_SERVE, unused=BLOCK_KERNELS,
-                 expect=None):
-    """Phases 3, 7 and 11: serve ``cfg`` through serve_batch with a ``kv``
+                 expect=None, check_layers=None):
+    """Phases 3, 7, 11 and 14-17: serve ``cfg`` through serve_batch with a ``kv``
     cache; every kernel of ``used`` must launch, none of ``unused``, and
-    ``expect`` maps kernels to their exact counts.  Returns the kernels'
-    launch counts in the main run."""
+    ``expect`` maps kernels to their exact counts.  The teacher-forced
+    check runs at ``check_layers`` (default: all; see
+    ``prefill_sensitivity`` for why a cut).  Returns the kernels' launch
+    counts in the main run."""
     import numpy as np
 
     from repro_torch.kernels import dispatch
@@ -1272,6 +1279,11 @@ def serve_checks(cfg, params, torch, kv, what=None, used=LORDS_SERVE, unused=BLO
                                       dtype=torch.bfloat16)} for _ in range(GEN - 1)]
     col = torch.arange(PROMPT + GEN, dtype=torch.int32, device=dev)[None]
     positions = torch.where(col < PROMPT, col, -1).expand(BATCH, PROMPT + GEN)
+    if check_layers is not None and check_layers < cfg.num_layers:
+        prefill_sensitivity(cfg, params, torch, what, window, positions)
+        cfg = cfg.with_(num_layers=check_layers)
+        params = {**params, "layers": params["layers"][:check_layers]}
+        what = f"{what} (first {check_layers} layers)"
     caches = {b: cache_init(cfg, BATCH, PROMPT + GEN, device=dev) for b in ("fused", "ref")}
     worst, pin = LogitBound(), PinnedRouting()
     with torch.inference_mode():
@@ -1295,28 +1307,73 @@ def serve_checks(cfg, params, torch, kv, what=None, used=LORDS_SERVE, unused=BLO
     return launches
 
 
-def moe_serve(cfg, params, torch):
-    """Phase 15's serving: ``cfg`` (MoE) through serve_checks with a bf16
-    cache.  Each decode step must launch ``lords_decode`` 7 times a layer
-    (4 attention linears and 3 expert stacks, one launch a stack); the
-    prefill's expert stacks (capacity above 8) run expert by expert through
-    ``lords_matmul``: 4 + 3·E launches a layer.  Then one profiled decode
-    step.  Returns the launch counts."""
+def prefill_sensitivity(cfg, params, torch, what, window, positions):
+    """Logs, at ``cfg``'s full depth, the prefill logits of fused against
+    ref beside those of ref against ref with 1% of the embedding table's
+    entries moved by one bf16 ulp: where the model's own function turns
+    such a nudge into a different answer (a deep stack of mLSTMs at random
+    weights, whose normalizer is a sum that can cancel), no two
+    implementations that round differently agree, and the teacher-forced
+    check is held at a depth where the function does not."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import cache_init, forward_prefill
+
+    dev = torch.device("cuda")
+    nudged = {**params, "embed": _nudged(torch, params["embed"], 9)}
+    out = {}
+    with torch.inference_mode():
+        for name, p, b in (("fused", params, "fused"), ("ref", params, "ref"),
+                           ("nudged", nudged, "ref")):
+            with dispatch.backend_scope(b):
+                lg, _ = forward_prefill(p, cfg, window,
+                                        cache_init(cfg, BATCH, PROMPT + GEN, device=dev),
+                                        positions)
+            out[name] = lg[:, -1, : cfg.vocab_size]
+    for a, label in ((out["fused"], "fused vs ref"), (out["nudged"], "ref vs nudged ref")):
+        bound = LogitBound()
+        bound.add(torch, a, out["ref"], label)
+        log(f"[{what}] prefill logits at {cfg.num_layers} layers, {label}: min cosine "
+            f"{bound.cos:.6f}, max |Δ|/max|logit| {bound.rel:.2e}")
+
+
+def _linears(cfg, prefill: bool) -> int:
+    """The quantized linears one forward of ``cfg`` launches: a mixer's
+    projections (attention 4, Mamba 3, mLSTM 5, sLSTM 4), a dense MLP's 3,
+    and a MoE layer's 3 expert stacks, each one decode launch or, in the
+    prefill (capacity above 8), one launch an expert."""
+    mixer = {"attn": 4, "mamba": 3, "mlstm": 5, "slstm": 4}
+    e = cfg.moe.num_experts if cfg.moe is not None else 0
+    mlp = {"none": 0, "dense": 3, "moe": 3 * e if prefill else 3}
+    kinds = cfg.layer_kinds()
+    return sum(mixer[kinds[i % cfg.period][0]] + mlp[kinds[i % cfg.period][1]]
+               for i in range(cfg.num_layers))
+
+
+def serve_exact(cfg, params, torch, what, check_layers=None):
+    """Phases 15-17: ``cfg`` (a MoE or recurrent model) through serve_checks
+    (bf16 cache; a MoE model's routing pinned; the teacher-forced check at
+    ``check_layers``), with exact counts: every quantized linear once in
+    the prefill (``lords_matmul``; an expert stack, its capacity above 8,
+    once an expert) and once a decode step (``lords_decode``; an expert
+    stack in one launch), and each attention layer one ``attn_prefill``
+    and one ``attn_decode`` a step.  Then one profiled decode step.
+    Returns the launch counts."""
     from repro_torch.models.moe import capacity
 
-    what, layers, e = "serve moe", cfg.num_layers, cfg.moe.num_experts
-    cap = capacity(cfg.moe, BATCH * (PROMPT + GEN))
-    log(f"[{what}] {cfg.name} full width, {layers} layers, {e} experts top-"
-        f"{cfg.moe.top_k}: decode capacity {capacity(cfg.moe, BATCH)} slots an expert, "
-        f"prefill {cap}")
-    expect = {"lords_decode": 7 * layers * (GEN - 1),
-              "lords_matmul": (4 + 3 * e) * layers}
-    launches = serve_checks(cfg, params, torch, "bf16", what=what, unused=SERVE_UNUSED,
-                            expect=expect)
-    log(f"[{what}] lords_decode {launches['lords_decode']} launches = 7 a layer and decode "
-        f"step ({layers} layers x {GEN - 1} steps: 4 attention linears + 3 expert stacks); "
-        f"prefill lords_matmul {launches['lords_matmul']} = {4 + 3 * e} a layer "
-        f"(4 + 3 x {e} experts)")
+    n_attn = sum(k[0] == "attn" for k in cfg.layer_kinds()) * cfg.num_periods
+    expect = {"lords_matmul": _linears(cfg, True),
+              "lords_decode": _linears(cfg, False) * (GEN - 1),
+              "attn_prefill": n_attn, "attn_decode": n_attn * (GEN - 1)}
+    log(f"[{what}] {cfg.name} full width, {cfg.num_layers} layers "
+        f"{[k[0] for k in cfg.layer_kinds()]} x {cfg.num_periods}: expect {expect}")
+    if cfg.moe is not None:
+        log(f"[{what}] {cfg.moe.num_experts} experts top-{cfg.moe.top_k}: decode capacity "
+            f"{capacity(cfg.moe, BATCH)} slots an expert, prefill "
+            f"{capacity(cfg.moe, BATCH * (PROMPT + GEN))}")
+    used = [n for n, c in expect.items() if c]
+    unused = SERVE_UNUSED + tuple(n for n, c in expect.items() if not c)
+    launches = serve_checks(cfg, params, torch, "bf16", what=what, used=used, unused=unused,
+                            expect=expect, check_layers=check_layers)
     profile_decode(cfg, params, torch, what)
     return launches
 
@@ -1534,16 +1591,17 @@ def _require(what, launches, used):
 GRAD_COS_MIN, LOSS_REL_MAX = 0.999, 0.01
 
 
-def _check_model(cfg, params, keys):
-    """The first CHECK_LAYERS layers of ``params``: (cfg, param tree, the
+def _check_model(cfg, params, keys, layers=CHECK_LAYERS):
+    """The first ``layers`` layers of ``params``: (cfg, param tree, the
     trainable paths whose last key is in ``keys`` and their leaves, set to
     require grad, and a batch)."""
     from repro_torch.core import peft
     from repro_torch.data import SyntheticLM
     from repro_torch.launch.train import batch_tensors
 
-    cfg = cfg.with_(num_layers=CHECK_LAYERS)
-    params = {**params, "layers": params["layers"][:CHECK_LAYERS]}
+    layers = min(layers, cfg.num_layers)
+    cfg = cfg.with_(num_layers=layers)
+    params = {**params, "layers": params["layers"][:layers]}
     trainable, frozen = peft.partition(params, cfg.quant)
     for t in trainable.values():
         t.requires_grad_(False)
@@ -1580,12 +1638,89 @@ def grad_check(cfg, params, torch, what, keys):
         if cos < worst.get(path[-1], (2.0,))[0]:
             worst[path[-1]] = (cos, path)
     rel = abs(lf - lr_) / abs(lr_)
-    log(f"[{what}] fused vs ref, one step at {CHECK_LAYERS} layers: loss {lf:.5f} vs "
+    log(f"[{what}] fused vs ref, one step at {cfg.num_layers} layers: loss {lf:.5f} vs "
         f"{lr_:.5f} (|Δ|/loss {rel:.2e} <= {LOSS_REL_MAX}); min gradient cosine by leaf "
         + ", ".join(f"d{k} {c:.6f} at {'/'.join(map(str, p))}" for k, (c, p) in worst.items())
         + f" (>= {GRAD_COS_MIN}); ref launches {sum(ref_launches.values())}")
     if rel > LOSS_REL_MAX or min(c for c, _ in worst.values()) < GRAD_COS_MIN:
         raise AssertionError(f"{what}: fused and ref gradients disagree beyond the bound")
+    if any(ref_launches.values()):
+        raise AssertionError(f"{what}: the ref run launched kernels {ref_launches}")
+    for t in leaves:
+        t.requires_grad_(False)
+    return ref_launches
+
+
+def _nudged(torch, x, seed):
+    """``x`` (bf16) with 1% of its entries moved by one bf16 ulp (seeded)."""
+    flip = torch.rand(x.shape, generator=torch.Generator(device=x.device).manual_seed(seed),
+                      device=x.device) < 0.01
+    return torch.where(flip, (x.view(torch.int16) + 1).view(torch.bfloat16), x)
+
+
+def layer_grad_check(cfg, params, torch, what, keys):
+    """Phase 18's gradient check over all of ``cfg``'s layers: the loss,
+    fused against ref, through the whole stack (|Δ|/loss <= LOSS_REL_MAX),
+    and the gradients a layer at a time from one input: the hidden state
+    entering layer i (ref's forward of the layers before it), the layer's
+    block (norm, mixer, residual), the loss Σ r ⊙ y with one fixed random
+    r.  Each layer's least leaf cosine, fused against ref, must reach
+    GRAD_COS_MIN, or, where the layer's own function is not that well
+    conditioned, the cosine between ref's gradients and ref's from the
+    input with 1% of its entries moved by one bf16 ulp: an mLSTM's
+    normalizer is a sum that can cancel, and at random weights such a nudge
+    turns its gradients to cosine 0.94-0.993 (sequence 1024 and 4096,
+    NVIDIA H100 80GB HBM3, 700.00 W), past any fixed bound two roundings
+    could meet.  Through the stack the same cancellation turns the
+    end-to-end gradients further (its prefill's ``prefill_sensitivity``),
+    so they are held layer by layer.  Returns the ref runs' launch counts
+    (all must be 0)."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import forward_train
+    from repro_torch.models import model as model_mod
+
+    cfg, tree, paths, leaves, batch = _check_model(cfg, params, keys, cfg.num_layers)
+    loss, ref_launches = {}, {}
+    for backend in ("fused", "ref"):
+        with torch.no_grad(), dispatch.backend_scope(backend):
+            loss[backend], launches = counted(lambda: forward_train(tree, cfg, batch)[0].item())
+        if backend == "ref":
+            ref_launches = launches
+    rel = abs(loss["fused"] - loss["ref"]) / abs(loss["ref"])
+    positions = torch.arange(batch["labels"].shape[1], dtype=torch.int32,
+                             device="cuda")[None].expand_as(batch["labels"])
+    x = tree["embed"][batch["tokens"]]
+    r = torch.randn(x.shape, generator=torch.Generator(device="cuda").manual_seed(3),
+                    device="cuda")
+    kinds = model_mod._layer_kinds(cfg)
+    rows, bad = [], []
+    for i, blk in enumerate(tree["layers"]):
+        mine = [t for p, t in zip(paths, leaves) if p[1] == i]
+        grads = {}
+        for name, xi, backend in (("fused", x, "fused"), ("ref", x, "ref"),
+                                  ("nudged", _nudged(torch, x, i), "ref")):
+            def step():
+                y, _ = model_mod._block_train(blk, xi, cfg, kinds[i], positions, backend)
+                return torch.autograd.grad((y.float() * r).sum(), mine)
+            grads[name], launches = counted(step)
+            if backend == "ref":
+                ref_launches = {n: c + launches[n] for n, c in ref_launches.items()}
+        cos = {name: min(torch.nn.functional.cosine_similarity(
+            a.double().flatten(), b.double().flatten(), dim=0).item()
+            for a, b in zip(grads[name], grads["ref"])) for name in ("fused", "nudged")}
+        bound = min(GRAD_COS_MIN, cos["nudged"])
+        rows.append(f"{i} {kinds[i][0]} {cos['fused']:.6f} (nudge {cos['nudged']:.6f}, "
+                    f"bound {bound:.6f})")
+        if cos["fused"] < bound:
+            bad.append(i)
+        with torch.no_grad():
+            x = model_mod._block_train(blk, x, cfg, kinds[i], positions, "ref")[0]
+    log(f"[{what}] fused vs ref at {cfg.num_layers} layers: loss {loss['fused']:.5f} vs "
+        f"{loss['ref']:.5f} (|Δ|/loss {rel:.2e} <= {LOSS_REL_MAX}); gradients a layer at a "
+        f"time from one input, least leaf cosine by layer: " + "; ".join(rows)
+        + f"; ref launches {sum(ref_launches.values())}")
+    if rel > LOSS_REL_MAX or bad:
+        raise AssertionError(f"{what}: fused and ref disagree beyond the bound at layers {bad}")
     if any(ref_launches.values()):
         raise AssertionError(f"{what}: the ref run launched kernels {ref_launches}")
     for t in leaves:
@@ -1629,11 +1764,13 @@ def profile_step(cfg, params, torch, what, keys):
 
 def train_peft(cfg, params, torch, what="train peft", keys=("b", "a"),
                used=("lords_matmul", "lords_matmul_t", "lords_grad", "attn_prefill"),
-               unused=BLOCK_KERNELS, profile=True):
-    """Phases 5, 8 and 9: PEFT training of the loaded model through
-    run_training (the leaves whose last key is in ``keys`` train); every
-    kernel of ``used`` must launch and none of ``unused``; the step-0
-    batch's loss must fall.  Returns the counts of the trained run and of
+               unused=BLOCK_KERNELS, profile=True, by_layer=False):
+    """Phases 5, 8, 9, 13, 15 and 18: PEFT training of the loaded model
+    through run_training (the leaves whose last key is in ``keys`` train);
+    every kernel of ``used`` must launch and none of ``unused``; the step-0
+    batch's loss must fall; the gradient check runs at CHECK_LAYERS, or
+    with ``by_layer`` over every layer, a layer at a time
+    (``layer_grad_check``).  Returns the counts of the trained run and of
     the ref gradient check."""
     from repro_torch.data import SyntheticLM
     from repro_torch.launch.train import batch_tensors
@@ -1655,7 +1792,8 @@ def train_peft(cfg, params, torch, what="train peft", keys=("b", "a"),
         f"the {len(out['losses'])} steps")
     if not again < out["losses"][0]:
         raise AssertionError(f"{what}: the step-0 batch loss did not fall")
-    ref_launches = grad_check(cfg, params, torch, what, keys)
+    ref_launches = (layer_grad_check if by_layer else grad_check)(cfg, params, torch, what,
+                                                                  keys)
     if profile:
         profile_step(cfg, params, torch, what, keys)
     return launches, ref_launches
@@ -1826,27 +1964,32 @@ def _leaves(tree):
 
 
 def load_model(cfg, torch):
-    """``cfg`` (llama3-8b, or minicpm3-4b for phases 11-12) at full width
-    with random weights from seed 0, at full depth unless its init would
-    take over 300 s."""
+    """``cfg`` at full width with random weights from seed 0, at full depth
+    unless its init would take over 300 s: one period is built first
+    (one layer of a homogeneous stack) and timed, and the depth is cut in
+    whole periods; a model of one period keeps the probe's weights."""
     from repro_torch.models import model_init
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    one = model_init(cfg.with_(num_layers=1), 0, device=dev)
+    probe = model_init(cfg.with_(num_layers=cfg.period), 0, device=dev)
     torch.cuda.synchronize()
-    t_layer = time.perf_counter() - t0
-    del one
-    depth = min(cfg.num_layers, max(1, int(300 / t_layer)))
+    t_period = time.perf_counter() - t0
+    depth = min(cfg.num_layers, max(1, int(300 / t_period)) * cfg.period)
     if depth != cfg.num_layers:
         log(f"[model] depth cut: {depth} of {cfg.num_layers} layers")
     cfg = cfg.with_(num_layers=depth)
-    t0 = time.perf_counter()
-    params = model_init(cfg, 0, device=dev)
-    torch.cuda.synchronize()
+    if depth == cfg.period:
+        params = probe
+    else:
+        del probe
+        t0 = time.perf_counter()
+        params = model_init(cfg, 0, device=dev)
+        torch.cuda.synchronize()
     log(f"[model] model_init {cfg.name} full width, {depth} layers: "
-        f"{time.perf_counter() - t0:.1f} s (one-layer probe {t_layer:.2f} s); "
-        f"weights {sum(t.numel() * t.element_size() for t in _leaves(params)) / 2**30:.2f} GiB")
+        f"{time.perf_counter() - t0:.1f} s (one-period probe, {cfg.period} layers, "
+        f"{t_period:.2f} s); weights "
+        f"{sum(t.numel() * t.element_size() for t in _leaves(params)) / 2**30:.2f} GiB")
     return cfg, params
 
 
@@ -1972,7 +2115,7 @@ def main() -> int:
 
     # phases 11 and 12: minicpm3-4b's MLA through serve_batch (bf16 and
     # int8 latent caches) and the paged engine (int8 latent pool)
-    mcfg, params = load_model(get_config(MLA_ARCH), torch)
+    mcfg, params = load_model(get_config(MLA_ARCH).with_(num_layers=MLA_LAYERS), torch)
     for kv in ("bf16", "int8"):
         what = f"serve mla {kv}"
         t0 = time.perf_counter()
@@ -1989,7 +2132,7 @@ def main() -> int:
     depths["engine mla int8"] = mcfg.num_layers
     log(f"[engine mla] phase time {time.perf_counter() - t0:.1f} s")
 
-    # phase 13: MLA training, PEFT, on phase 11's model at full depth
+    # phase 13: MLA training, PEFT, on phase 11's model
     t0 = time.perf_counter()
     paths["train mla"], paths["train mla ref check"] = train_peft(
         mcfg, params, torch, what="train mla", unused=TRAIN_UNUSED, profile=False)
@@ -2015,7 +2158,7 @@ def main() -> int:
     # phase 15: the mixture-of-experts model served (bf16 cache) and trained
     t0 = time.perf_counter()
     pcfg, params = load_model(get_config(MOE_ARCH), torch)
-    paths["serve_batch moe bf16"] = moe_serve(pcfg, params, torch)
+    paths["serve_batch moe bf16"] = serve_exact(pcfg, params, torch, "serve moe")
     depths["serve_batch moe bf16"] = pcfg.num_layers
     log(f"[serve moe] phase time {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -2027,6 +2170,45 @@ def main() -> int:
     depths["train moe"] = tcfg.num_layers
     depths["train moe ref check"] = min(tcfg.num_layers, CHECK_LAYERS)
     log(f"[train moe] phase time {time.perf_counter() - t0:.1f} s")
+    del params
+    torch.cuda.empty_cache()
+
+    # phase 16: xlstm-1.3b (7 mLSTM : 1 sLSTM) served at full width and depth
+    t0 = time.perf_counter()
+    xcfg, params = load_model(get_config(SSM_ARCH), torch)
+    # the teacher-forced check at CHECK_LAYERS: at 48 layers the function
+    # itself turns a one-ulp nudge into other logits (prefill_sensitivity)
+    paths["serve_batch ssm bf16"] = serve_exact(xcfg, params, torch, "serve ssm",
+                                                check_layers=CHECK_LAYERS)
+    depths["serve_batch ssm bf16"] = xcfg.num_layers
+    log(f"[serve ssm] phase time {time.perf_counter() - t0:.1f} s")
+    tcfg = xcfg.with_(num_layers=xcfg.period)  # phase 18 trains the first period
+    params = {**params, "layers": params["layers"][:tcfg.num_layers]}
+    torch.cuda.empty_cache()
+
+    # phase 17: one jamba-1.5-large period (Mamba, attention at layer 4, MoE
+    # every 2nd layer) served at full width
+    t0 = time.perf_counter()
+    hcfg = get_config(HYBRID_ARCH)
+    log(f"[serve hybrid] depth cut to one period: {hcfg.period} of {hcfg.num_layers} layers "
+        f"(≈ 22 GB of nf4 codes a period, ≈ 200 GB at full depth)")
+    hcfg, hparams = load_model(hcfg.with_(num_layers=hcfg.period), torch)
+    paths["serve_batch hybrid bf16"] = serve_exact(hcfg, hparams, torch, "serve hybrid")
+    depths["serve_batch hybrid bf16"] = hcfg.num_layers
+    log(f"[serve hybrid] phase time {time.perf_counter() - t0:.1f} s")
+    del hparams
+    torch.cuda.empty_cache()
+
+    # phase 18: PEFT training of xlstm's first period (7 mLSTM, 1 sLSTM) at
+    # phase 5's settings; the gradient check spans the period, a layer at a
+    # time (the sLSTM is its last layer)
+    t0 = time.perf_counter()
+    paths["train ssm"], paths["train ssm ref check"] = train_peft(
+        tcfg, params, torch, what="train ssm", used=("lords_matmul", "lords_matmul_t",
+                                                     "lords_grad"),
+        unused=TRAIN_UNUSED + ("attn_prefill",), profile=False, by_layer=True)
+    depths["train ssm"] = depths["train ssm ref check"] = tcfg.num_layers
+    log(f"[train ssm] phase time {time.perf_counter() - t0:.1f} s")
     del params
     torch.cuda.empty_cache()
     log(f"[total] {time.perf_counter() - t_start:.1f} s")

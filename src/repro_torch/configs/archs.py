@@ -1,10 +1,17 @@
 """Architecture configs with the JAX package's dimensions and sources:
-dense decoders (GQA and MLA), mixture-of-experts and the embedding-input
-vlm / audio decoders; and the reduced smoke variant used by the CPU tests.
-The SSM and hybrid architectures come with their model families."""
+dense decoders (GQA and MLA), mixture-of-experts, the embedding-input vlm /
+audio decoders, the recurrent xLSTM and the hybrid Jamba; and the reduced
+smoke variant used by the CPU tests."""
 from __future__ import annotations
 
-from repro_torch.configs.base import MLACfg, ModelConfig, MoECfg, register
+from repro_torch.configs.base import (
+    MambaCfg,
+    MLACfg,
+    ModelConfig,
+    MoECfg,
+    XLSTMCfg,
+    register,
+)
 
 
 @register
@@ -86,6 +93,17 @@ def internvl2_1b_cfg() -> ModelConfig:
 
 
 @register
+def xlstm_1_3b_cfg() -> ModelConfig:
+    # [arXiv:2405.04517] 48L d=2048, 4 heads; mLSTM:sLSTM = 7:1; no dense FFN
+    return ModelConfig(
+        name="xlstm-1.3b", family="ssm", num_layers=48, d_model=2048,
+        num_heads=4, num_kv_heads=4, d_ff=0, vocab_size=50304,
+        layer_pattern=("mlstm",) * 7 + ("slstm",),
+        xlstm=XLSTMCfg(proj_factor=2.0, conv_k=4, slstm_every=8),
+    )
+
+
+@register
 def musicgen_medium_cfg() -> ModelConfig:
     # [arXiv:2306.05284] decoder-only over EnCodec tokens (frontend stub:
     # the caller supplies frame embeddings); RoPE stands in for MusicGen's
@@ -95,6 +113,23 @@ def musicgen_medium_cfg() -> ModelConfig:
         num_heads=24, num_kv_heads=24, d_ff=6144, vocab_size=2048,
         input_kind="embeddings", rope_theta=10000.0,
         vocab_pad_multiple=256,
+    )
+
+
+@register
+def jamba_1_5_large_398b_cfg() -> ModelConfig:
+    # [arXiv:2403.19887] 72L d=8192 64H kv=8; attn:mamba 1:7 (attention at
+    # layer 4 of each 8-layer period, per Jamba's block spec); MoE 16e
+    # top-2 every 2nd layer, its d_ff shared with the dense layers
+    return ModelConfig(
+        name="jamba-1.5-large-398b", family="hybrid", num_layers=72,
+        d_model=8192, num_heads=64, num_kv_heads=8, d_ff=24576,
+        vocab_size=65536,
+        layer_pattern=("mamba", "mamba", "mamba", "mamba",
+                       "attn", "mamba", "mamba", "mamba"),
+        moe=MoECfg(num_experts=16, top_k=2, d_ff=24576, every=2),
+        mamba=MambaCfg(d_state=16, d_conv=4, expand=2),
+        rope_theta=10000.0, micro_tokens=2048,
     )
 
 
@@ -130,7 +165,8 @@ def smoke_variant(cfg: ModelConfig) -> ModelConfig:
     """Shrink a config to CPU-smoke size, keeping its family structure (the
     JAX package's smoke dimensions: d 64, 4 heads, head_dim 16, vocab 256;
     2 layers, or one full period of a heterogeneous stack; MLA ranks 32 /
-    16 / 16 / 8 / 16; 4 experts of d_ff 64, top-k at most 2)."""
+    16 / 16 / 8 / 16; 4 experts of d_ff 64, top-k at most 2; Mamba d_state
+    8, scan chunk 16; xLSTM keeps its sLSTM interleave)."""
     kw = dict(
         num_layers=max(2, min(cfg.period, 8)) if cfg.period > 1 else 2,
         d_model=64, num_heads=4, num_kv_heads=min(4, cfg.num_kv_heads),
@@ -145,6 +181,11 @@ def smoke_variant(cfg: ModelConfig) -> ModelConfig:
     if cfg.moe is not None:
         kw["moe"] = MoECfg(num_experts=4, top_k=min(2, cfg.moe.top_k),
                            d_ff=64, every=cfg.moe.every)
+    if cfg.mamba is not None:
+        kw["mamba"] = MambaCfg(d_state=8, d_conv=4, expand=2, chunk=16)
+    if cfg.xlstm is not None:
+        kw["xlstm"] = XLSTMCfg(proj_factor=2.0, conv_k=4,
+                               slstm_every=cfg.xlstm.slstm_every)
     # smaller quant blocks so tiny matrices still have >1 block
     kw["quant"] = cfg.quant.with_(block_size=32, rank=2)
     return cfg.with_(**kw)

@@ -1,6 +1,7 @@
 """Config schema of the decoder families the port serves and trains (dense
-GQA or multi-head latent attention, mixture-of-experts, and the
-embedding-input vlm / audio decoders) and the architecture registry."""
+GQA or multi-head latent attention, mixture-of-experts, the embedding-input
+vlm / audio decoders, the recurrent ssm family and the hybrid attention /
+Mamba stacks) and the architecture registry."""
 from __future__ import annotations
 
 import dataclasses
@@ -8,14 +9,15 @@ import math
 
 from repro_torch.core.lords import QuantSpec
 
-__all__ = ["MoECfg", "MLACfg", "ModelConfig", "ShapeCfg", "SHAPES",
-           "KV_CACHE_DTYPES", "ATTN_KINDS", "FAMILIES", "INPUT_KINDS",
-           "register", "get_config"]
+__all__ = ["MoECfg", "MLACfg", "MambaCfg", "XLSTMCfg", "ModelConfig",
+           "ShapeCfg", "SHAPES", "KV_CACHE_DTYPES", "ATTN_KINDS", "FAMILIES",
+           "INPUT_KINDS", "MIXER_KINDS", "register", "get_config"]
 
 KV_CACHE_DTYPES = ("bf16", "int8")
 ATTN_KINDS = ("gqa", "mla")
-FAMILIES = ("dense", "moe", "vlm", "audio")  # ssm / hybrid: not ported yet
+FAMILIES = ("dense", "moe", "vlm", "audio", "ssm", "hybrid")
 INPUT_KINDS = ("tokens", "embeddings")
+MIXER_KINDS = ("attn", "mamba", "mlstm", "slstm")
 MOE_DISPATCHES = ("pjit", "shard_map")
 
 
@@ -43,21 +45,40 @@ class MLACfg:
 
 
 @dataclasses.dataclass(frozen=True)
+class MambaCfg:
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int | None = None     # default ceil(d_model / 16)
+    chunk: int = 128               # chunked associative scan length
+
+
+@dataclasses.dataclass(frozen=True)
+class XLSTMCfg:
+    proj_factor: float = 2.0
+    conv_k: int = 4
+    slstm_every: int = 8           # sLSTM block every N layers (rest mLSTM)
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense | moe | vlm | audio
+    family: str                    # dense | moe | vlm | audio | ssm | hybrid
     num_layers: int
     d_model: int
     num_heads: int
     num_kv_heads: int
-    d_ff: int                      # dense SwiGLU hidden (0 => none)
+    d_ff: int                      # dense SwiGLU hidden (0 => none, xLSTM)
     vocab_size: int
     head_dim: int | None = None    # default d_model // num_heads
     attn_kind: str = "gqa"         # gqa | mla
     mla: MLACfg | None = None
     moe: MoECfg | None = None
-    # per-layer mixer pattern, tiled over num_layers (only "attn" mixers
-    # are ported)
+    mamba: MambaCfg | None = None
+    xlstm: XLSTMCfg | None = None
+    # per-layer mixer pattern (MIXER_KINDS), tiled over num_layers; e.g.
+    # jamba ('mamba',)*4 + ('attn',) + ('mamba',)*3, xlstm ('mlstm',)*7 +
+    # ('slstm',)
     layer_pattern: tuple = ("attn",)
     rope_theta: float = 500000.0
     norm_eps: float = 1e-5
@@ -87,19 +108,15 @@ class ModelConfig:
         if self.moe is not None and self.moe.dispatch not in MOE_DISPATCHES:
             raise ValueError(f"moe.dispatch {self.moe.dispatch!r} not in "
                              f"{MOE_DISPATCHES}")
-
-    def check_ported(self) -> None:
-        """Raise NotImplementedError for what the port cannot build yet: the
-        ssm and hybrid families and any mixer but attention (ROADMAP queue 1
-        items 4-5)."""
-        mixers = sorted(set(self.layer_pattern) - {"attn"})
-        if self.family not in FAMILIES or mixers:
-            raise NotImplementedError(
-                f"family {self.family!r} with mixers "
-                f"{sorted(set(self.layer_pattern))}: the ssm and hybrid "
-                "families and recurrent mixers are not ported yet (ROADMAP "
-                f"queue 1 items 4-5); ported families: {FAMILIES} with "
-                "attention mixers")
+        if self.family not in FAMILIES:
+            raise ValueError(f"family {self.family!r} not in {FAMILIES}")
+        bad = sorted(set(self.layer_pattern) - set(MIXER_KINDS))
+        if bad:
+            raise ValueError(f"mixer kinds {bad} not in {MIXER_KINDS}")
+        if "mamba" in self.layer_pattern and self.mamba is None:
+            raise ValueError("a mamba mixer needs a MambaCfg in mamba")
+        if {"mlstm", "slstm"} & set(self.layer_pattern) and self.xlstm is None:
+            raise ValueError("an mlstm / slstm mixer needs an XLSTMCfg in xlstm")
 
     @property
     def resolved_head_dim(self) -> int:

@@ -3,12 +3,12 @@
 ``from_jax_params(tree, cfg)`` takes the JAX model's values as a nested dict
 of numpy arrays (``split_tree`` output, each leaf passed through
 ``numpy.asarray``) and returns the params :func:`repro_torch.models.
-model_init` would build, for every ported family (GQA or MLA mixers, dense
-or mixture-of-experts MLPs, token or embedding input): the leading
-``layers`` axis of the scanned stack is unstacked into a list, the blocks
-of a period (``blk0``, ``blk1``, ...) in layer order, expert-stacked
-leaves keep their leading expert axis, an embedding-input model has no
-``embed`` leaf, uint8 codes stay uint8,
+model_init` would build, for every family (GQA, MLA or recurrent Mamba /
+mLSTM / sLSTM mixers, dense or mixture-of-experts MLPs, token or embedding
+input): the leading ``layers`` axis of the scanned stack is unstacked into a
+list, the blocks of a period (``blk0``, ``blk1``, ...) in layer order,
+expert-stacked leaves keep their leading expert axis, an embedding-input
+model has no ``embed`` leaf, uint8 codes stay uint8,
 f32 stays f32, and bf16 leaves (numpy's ``bfloat16`` extension dtype) go
 bf16 → f32 → bf16, which is lossless.  With converted weights both packages compute the same function.
 No JAX import is needed: the input is plain numpy.
@@ -39,7 +39,6 @@ def _convert(tree, device):
 
 def from_jax_params(tree: dict, cfg, *, device=None) -> dict:
     """JAX param values (numpy leaves) → port params on ``device``."""
-    cfg.check_ported()
     device = resolve_device(device)
     stacked = tree["layers"]  # {"blk0": ...} per period, leading periods axis
     blocks = sorted(stacked, key=lambda name: int(name.removeprefix("blk")))

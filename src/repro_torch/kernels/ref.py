@@ -143,26 +143,28 @@ def block_grads_ref(g, x, q_packed, s_blk, block_size: int,
 
 
 def attn_prefill_pos(q, k, v, qpos, kpos, logit_scale: float, *,
-                     zero_dead: bool = True):
-    """Causal attention with separate query / key positions, in f32.
+                     zero_dead: bool = True, dtype=torch.float32):
+    """Causal attention with separate query / key positions, in f32 (or
+    ``dtype``: the card checks hold the kernel against this function in
+    float64, where the f32 version's own error is of the bound's order).
 
     q (b, s, nh, hd) · k/v (b, S, nkv, hd) unexpanded GQA (head h reads KV
     head h // g); query i attends key j when ``0 <= kpos[j] <= qpos[i]``.
     ``zero_dead`` zeroes query rows with no live key, as the flash kernel
     does; the JAX oracle leaves them at the uniform average.
-    Returns (b, s, nh, hd_v) f32.
+    Returns (b, s, nh, hd_v) in ``dtype``.
     """
     b, s, nh, hd = q.shape
     nkv = k.shape[2]
     g = nh // nkv
-    qg = (q.to(torch.float32) * logit_scale).reshape(b, s, nkv, g, hd)
-    scores = torch.einsum("bqngh,bknh->bngqk", qg, k.to(torch.float32))
+    qg = (q.to(dtype) * logit_scale).reshape(b, s, nkv, g, hd)
+    scores = torch.einsum("bqngh,bknh->bngqk", qg, k.to(dtype))
     live = (kpos[:, None, :] <= qpos[:, :, None]) & (kpos[:, None, :] >= 0)
     scores = torch.where(live[:, None, None], scores, ATTN_NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     if zero_dead:
         probs = probs * live.any(-1)[:, None, None, :, None]
-    out = torch.einsum("bngqk,bknh->bqngh", probs, v.to(torch.float32))
+    out = torch.einsum("bngqk,bknh->bqngh", probs, v.to(dtype))
     return out.reshape(b, s, nh, v.shape[-1])
 
 

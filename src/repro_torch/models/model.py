@@ -1,20 +1,21 @@
-"""Decoder LM: embed (or caller-supplied embeddings) → layers (GQA or MLA
-attention, then a SwiGLU or mixture-of-experts MLP, quantized linears) →
-head.
+"""Decoder LM: embed (or caller-supplied embeddings) → layers (a mixer —
+GQA or MLA attention, or a recurrent Mamba / mLSTM / sLSTM — then a SwiGLU
+or mixture-of-experts MLP, quantized linears) → head.
 
 Param layout: ``{"layers": [per-layer dict, ...], "final_norm", "embed",
 "head"}``, each layer ``{"ln1", "mixer": {wq, wk, wv, wo}, "ln2", "mlp":
 {w_gate, w_up, w_down}}``; an MLA mixer (``cfg.attn_kind == "mla"``) is
-``{q_down, q_up, kv_down, k_up, v_up, wo, q_norm, kv_norm}``; a MoE layer's
+``{q_down, q_up, kv_down, k_up, v_up, wo, q_norm, kv_norm}``; a recurrent
+mixer holds the leaves of :mod:`repro_torch.models.ssm`; a MoE layer's
 ``mlp`` is ``{router, w_gate, w_up, w_down}`` with expert-stacked linears
 (each leaf with a leading expert axis), and a layer whose mlp kind is
-``none`` has no ``ln2`` / ``mlp``.  Which layers are MoE follows
-``cfg.layer_kinds()``.  An embedding-input model (``cfg.input_kind ==
-"embeddings"``: the vlm / audio archs, whose frontends are stubbed) has a
-head and no ``embed``, and takes ``{"embeds": (b, s, d)}`` where a token
-model takes ``{"tokens": (b, s)}``.  The JAX package stacks the layers of
-each period on a leading axis and scans over them; here a Python loop walks
-the list.
+``none`` has no ``ln2`` / ``mlp``.  Each layer's (mixer, mlp) kinds follow
+its place in the period of ``cfg.layer_kinds()``.  An embedding-input
+model (``cfg.input_kind == "embeddings"``: the vlm / audio archs, whose
+frontends are stubbed) has a head and no ``embed``, and takes ``{"embeds":
+(b, s, d)}`` where a token model takes ``{"tokens": (b, s)}``.  The JAX
+package stacks the layers of each period on a leading axis and scans over
+them; here a Python loop walks the list.
 
   * ``forward_train(params, cfg, batch)`` -> (mean next-token loss, plus
     0.01 · the router aux loss for MoE; metrics)
@@ -28,7 +29,10 @@ the list.
     (b, 1, Vp) f32, pools)
 
 Caches and page pools are updated in place (see
-:mod:`repro_torch.models.attention`).
+:mod:`repro_torch.models.attention` and :mod:`repro_torch.models.ssm`).  As
+in the JAX package, prefill runs a recurrent mixer's training path and
+leaves its state as it was: decode starts every recurrent layer from the
+state ``cache_init`` made.  The paged forms are attention-only.
 """
 from __future__ import annotations
 
@@ -38,6 +42,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.kernels import dispatch
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm
 from repro_torch.models.common import (
     dense_init,
     f32_matmul,
@@ -58,17 +63,42 @@ def _mla(cfg) -> bool:
     return cfg.attn_kind == "mla"
 
 
-def _mlp_kinds(cfg) -> list[str]:
-    """Each layer's mlp kind (``dense``, ``moe`` or ``none``): the layer's
-    place in its period of ``cfg.layer_kinds()``."""
+def _layer_kinds(cfg) -> list[tuple[str, str]]:
+    """Each layer's (mixer, mlp) kinds: the layer's place in its period of
+    ``cfg.layer_kinds()``."""
     kinds = cfg.layer_kinds()
-    return [kinds[i % cfg.period][1] for i in range(cfg.num_layers)]
+    return [kinds[i % cfg.period] for i in range(cfg.num_layers)]
 
 
-def _block_init(cfg, mlp_kind, kw):
+# mixer kind -> (init, train, cache_init, decode) of a recurrent mixer
+_RECURRENT = {
+    "mamba": (ssm.mamba_init, ssm.mamba_train, ssm.mamba_cache_init,
+              ssm.mamba_decode),
+    "mlstm": (ssm.mlstm_init, ssm.mlstm_train, ssm.mlstm_cache_init,
+              ssm.mlstm_decode),
+    "slstm": (ssm.slstm_init, ssm.slstm_train, ssm.slstm_cache_init,
+              ssm.slstm_decode),
+}
+
+
+def _mixer_init(cfg, mixer_kind, kw):
+    if mixer_kind == "attn":
+        return (attn.mla_init if _mla(cfg) else attn.gqa_init)(
+            cfg, cfg.quant, **kw)
+    return _RECURRENT[mixer_kind][0](cfg, cfg.quant, **kw)
+
+
+def _mixer_train(blk, h, cfg, mixer_kind, positions):
+    if mixer_kind == "attn":
+        train = attn.mla_train if _mla(cfg) else attn.gqa_train
+        return train(blk, h, cfg, cfg.quant, positions)
+    return _RECURRENT[mixer_kind][1](blk, h, cfg, cfg.quant)
+
+
+def _block_init(cfg, kind, kw):
+    mixer_kind, mlp_kind = kind
     blk = {"ln1": rmsnorm_init(cfg.d_model, kw["device"]),
-           "mixer": (attn.mla_init if _mla(cfg) else attn.gqa_init)(
-               cfg, cfg.quant, **kw)}
+           "mixer": _mixer_init(cfg, mixer_kind, kw)}
     if mlp_kind == "dense":
         blk["ln2"] = rmsnorm_init(cfg.d_model, kw["device"])
         blk["mlp"] = moe_mod.dense_mlp_init(cfg.d_model, cfg.d_ff, cfg.quant,
@@ -84,12 +114,12 @@ def model_init(cfg, seed: int = 0, *, device=None,
     """Random-weight LoRDS model on ``device`` (``cuda`` unless named), drawn
     from ``generator`` (default: a fresh one seeded with ``seed``).  An
     embedding-input model gets a head and no embedding table."""
-    cfg.check_ported()
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(seed)
     kw = dict(generator=generator, device=device)
-    params = {"layers": [_block_init(cfg, kind, kw) for kind in _mlp_kinds(cfg)],
+    params = {"layers": [_block_init(cfg, kind, kw)
+                         for kind in _layer_kinds(cfg)],
               "final_norm": rmsnorm_init(cfg.d_model, device)}
     if cfg.input_kind == "tokens":
         params["embed"] = dense_init((cfg.padded_vocab, cfg.d_model),
@@ -101,12 +131,14 @@ def model_init(cfg, seed: int = 0, *, device=None,
 
 
 def cache_init(cfg, batch, capacity, *, device=None) -> list:
-    """Per-layer KV caches of ``capacity`` slots, in ``cfg.kv_cache_dtype``."""
-    cfg.check_ported()
+    """Per-layer decode caches: an attention layer's KV cache of
+    ``capacity`` slots, in ``cfg.kv_cache_dtype``; a recurrent layer's
+    state, whose size ignores ``capacity``."""
     device = resolve_device(device)
-    init = attn.mla_cache_init if _mla(cfg) else attn.gqa_cache_init
-    return [init(cfg, batch, capacity, device=device)
-            for _ in range(cfg.num_layers)]
+    kv_init = attn.mla_cache_init if _mla(cfg) else attn.gqa_cache_init
+    return [kv_init(cfg, batch, capacity, device=device) if mixer == "attn"
+            else _RECURRENT[mixer][2](cfg, batch, device=device)
+            for mixer, _ in _layer_kinds(cfg)]
 
 
 def paged_cache_init(cfg, total_pages, page_size, *, device=None) -> list:
@@ -119,7 +151,6 @@ def paged_cache_init(cfg, total_pages, page_size, *, device=None) -> list:
     if mixers != {"attn"}:
         raise ValueError("paged serving requires an attention-only layer "
                          f"stack; got mixers {sorted(mixers)}")
-    cfg.check_ported()
     device = resolve_device(device)
     init = attn.mla_paged_cache_init if _mla(cfg) else attn.gqa_paged_cache_init
     return [init(cfg, total_pages, page_size, device=device)
@@ -165,14 +196,13 @@ def _embed_in(params, cfg, batch):
     return batch["embeds"].to(torch.bfloat16)
 
 
-def _block_train(blk, x, cfg, mlp_kind, positions, backend):
+def _block_train(blk, x, cfg, kind, positions, backend):
     # the backend is pinned inside the body: under cfg.remat this runs again
     # in the backward, on the autograd thread, where no scope is set
     with dispatch.backend_scope(backend):
         h = rmsnorm(blk["ln1"], x, cfg.norm_eps)
-        mixer = attn.mla_train if _mla(cfg) else attn.gqa_train
-        x = x + mixer(blk["mixer"], h, cfg, cfg.quant, positions)
-        return _mlp_apply(blk, x, cfg, mlp_kind)
+        x = x + _mixer_train(blk["mixer"], h, cfg, kind[0], positions)
+        return _mlp_apply(blk, x, cfg, kind[1])
 
 
 def _chunk_loss(x, labels, head):
@@ -205,7 +235,7 @@ def forward_train(params, cfg, batch, *, backend: str | None = None):
                              device=labels.device)[None].expand(b, s)
     x = _embed_in(params, cfg, batch)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for blk, kind in zip(params["layers"], _mlp_kinds(cfg)):
+    for blk, kind in zip(params["layers"], _layer_kinds(cfg)):
         if cfg.remat:
             x, a = checkpoint(_block_train, blk, x, cfg, kind, positions,
                               backend, use_reentrant=False)
@@ -242,7 +272,8 @@ def forward_prefill(params, cfg, batch, cache, positions=None):
     (b, s) int32 makes the window ragged: -1 columns are dead (masked out
     of attention; their K/V still land in the cache) and the logits come
     from each row's ``argmax(positions)`` column.  None = the aligned
-    arange.
+    arange.  A recurrent layer runs its training path over the whole window
+    and leaves its state as it was (the JAX package's ``_block_prefill``).
     """
     x = _embed_in(params, cfg, batch)
     b, s = x.shape[:2]
@@ -250,10 +281,15 @@ def forward_prefill(params, cfg, batch, cache, positions=None):
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device)[None].expand(b, s)
     prefill = attn.mla_prefill if _mla(cfg) else attn.gqa_prefill
-    for blk, kind, layer_cache in zip(params["layers"], _mlp_kinds(cfg), cache):
+    for blk, (mixer, mlp), layer_cache in zip(params["layers"],
+                                              _layer_kinds(cfg), cache):
         h = rmsnorm(blk["ln1"], x, cfg.norm_eps)
-        y, _ = prefill(blk["mixer"], h, cfg, cfg.quant, positions, layer_cache)
-        x = _mlp_residual(blk, x + y, cfg, kind)
+        if mixer == "attn":
+            y, _ = prefill(blk["mixer"], h, cfg, cfg.quant, positions,
+                           layer_cache)
+        else:
+            y = _mixer_train(blk["mixer"], h, cfg, mixer, positions)
+        x = _mlp_residual(blk, x + y, cfg, mlp)
     return _last_live_logits(params, cfg, x, positions), cache
 
 
@@ -269,11 +305,13 @@ def forward_decode(params, cfg, batch, cache, pos):
     """One decode step.  batch: {"tokens": (b,)} or {"embeds": (b, 1, d)};
     pos (b,) int32."""
     x = _step_in(params, cfg, batch)
-    decode = attn.mla_decode if _mla(cfg) else attn.gqa_decode
-    for blk, kind, layer_cache in zip(params["layers"], _mlp_kinds(cfg), cache):
+    attn_decode = attn.mla_decode if _mla(cfg) else attn.gqa_decode
+    for blk, (mixer, mlp), layer_cache in zip(params["layers"],
+                                              _layer_kinds(cfg), cache):
         h = rmsnorm(blk["ln1"], x, cfg.norm_eps)
+        decode = attn_decode if mixer == "attn" else _RECURRENT[mixer][3]
         y, _ = decode(blk["mixer"], h, cfg, cfg.quant, layer_cache, pos)
-        x = _mlp_residual(blk, x + y, cfg, kind)
+        x = _mlp_residual(blk, x + y, cfg, mlp)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return f32_matmul(x, _head_matrix(params)), cache
 
@@ -284,10 +322,10 @@ def forward_decode_paged(params, cfg, batch, pools, pt, pos):
     positions."""
     x = _step_in(params, cfg, batch)
     decode = attn.mla_decode_paged if _mla(cfg) else attn.gqa_decode_paged
-    for blk, kind, pool in zip(params["layers"], _mlp_kinds(cfg), pools):
+    for blk, (_, mlp), pool in zip(params["layers"], _layer_kinds(cfg), pools):
         h = rmsnorm(blk["ln1"], x, cfg.norm_eps)
         y, _ = decode(blk["mixer"], h, cfg, cfg.quant, pool, pt, pos)
-        x = _mlp_residual(blk, x + y, cfg, kind)
+        x = _mlp_residual(blk, x + y, cfg, mlp)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return f32_matmul(x, _head_matrix(params)), pools
 
@@ -300,8 +338,8 @@ def forward_prefill_chunk(params, cfg, batch, pools, pt, qpos, pos0):
     whose prompt ends in this chunk."""
     x = _embed_in(params, cfg, batch)                      # (b, cs, d)
     chunk = attn.mla_prefill_chunk if _mla(cfg) else attn.gqa_prefill_chunk
-    for blk, kind, pool in zip(params["layers"], _mlp_kinds(cfg), pools):
+    for blk, (_, mlp), pool in zip(params["layers"], _layer_kinds(cfg), pools):
         h = rmsnorm(blk["ln1"], x, cfg.norm_eps)
         y, _ = chunk(blk["mixer"], h, cfg, cfg.quant, qpos, pos0, pool, pt)
-        x = _mlp_residual(blk, x + y, cfg, kind)
+        x = _mlp_residual(blk, x + y, cfg, mlp)
     return _last_live_logits(params, cfg, x, qpos), pools

@@ -144,21 +144,27 @@ def test_dequantize_weight_matches_jax():
 
 def test_unported_modes_raise():
     # every QuantSpec method is ported (tests/test_torch_baselines.py), MLA
-    # attention (tests/test_torch_mla.py), MoE (tests/test_torch_moe.py) and
-    # the embedding-input families (tests/test_torch_embeds.py); what is not
-    # yet: the SSM and hybrid families and the explicit `dense` kernel
-    # backend
+    # attention (tests/test_torch_mla.py), MoE (tests/test_torch_moe.py),
+    # the embedding-input families (tests/test_torch_embeds.py) and the ssm
+    # and hybrid families (tests/test_torch_ssm.py); what is not yet: the
+    # explicit `dense` kernel backend.  A family, mixer kind or missing
+    # mixer config outside the registry's raises when the config is made.
     from repro_torch.configs.archs import smoke_variant
     from repro_torch.configs.base import get_config
-    from repro_torch.convert import from_jax_params
     from repro_torch.kernels import dispatch
     from repro_torch.models.model import model_init
 
+    base = smoke_variant(get_config("llama3-8b"))
     for family in ("ssm", "hybrid"):
-        cfg = smoke_variant(get_config("llama3-8b")).with_(family=family)
-        with pytest.raises(NotImplementedError):
-            model_init(cfg, device="cpu")
-        with pytest.raises(NotImplementedError):
-            from_jax_params({}, cfg, device="cpu")
+        params = model_init(base.with_(family=family), device="cpu")
+        assert len(params["layers"]) == base.num_layers
+    with pytest.raises(ValueError, match="family"):
+        base.with_(family="rnn")
+    with pytest.raises(ValueError, match="mixer kinds"):
+        base.with_(layer_pattern=("attn", "rwkv"))
+    with pytest.raises(ValueError, match="MambaCfg"):
+        base.with_(layer_pattern=("attn", "mamba"))
+    with pytest.raises(ValueError, match="XLSTMCfg"):
+        base.with_(layer_pattern=("mlstm",))
     with pytest.raises(ValueError):
         dispatch.resolve_backend("dense", torch.zeros(1))

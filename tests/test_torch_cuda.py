@@ -240,7 +240,9 @@ def test_attn_prefill_gqa_groups_and_peaked_softmax(dev, g, nkv, hd, hd_v, peak)
     head) pairs of one KV head) and MLA's (96, 64), at the model's scale and
     with the logits x30: a peaked softmax, where rows with one or two live
     keys (the first positions, p ~ 0.5) are the ones a bf16-only P fails.
-    1e-4 absolute."""
+    1e-4 absolute from the plain version's function in float64 (at x30 the
+    f32 plain version is itself some 1e-4 from it; its distance is
+    printed)."""
     rng = np.random.default_rng(g * 1000 + hd)
     b, s = 2, 192
     q = _bf16(rng, dev, b, s, g * nkv, hd)
@@ -251,8 +253,11 @@ def test_attn_prefill_gqa_groups_and_peaked_softmax(dev, g, nkv, hd, hd_v, peak)
     before = attn_prefill.launches
     y = attn_prefill(q, k, v, pos, pos, logit_scale=scale)
     assert attn_prefill.launches == before + 1
-    torch.testing.assert_close(y, ref.attn_prefill_pos(q, k, v, pos, pos, scale),
-                               rtol=0, atol=1e-4)
+    exact = ref.attn_prefill_pos(q, k, v, pos, pos, scale, dtype=torch.float64)
+    f32 = ref.attn_prefill_pos(q, k, v, pos, pos, scale)
+    print(f"x{peak:g} g={g} nkv={nkv} hd={hd}: {(y.double() - exact).abs().max().item():.3e} "
+          f"from float64, {(y - f32).abs().max().item():.3e} from the f32 plain version")
+    torch.testing.assert_close(y.double(), exact, rtol=0, atol=1e-4)
 
 
 @pytest.mark.cuda
@@ -1342,3 +1347,108 @@ def test_qmatmul_stack_is_one_launch_per_stack(dev):
         assert _rel(y.float(), loop.float(), 1e-2)
         if c <= 8:
             assert torch.equal(y, dispatch.qmatmul_stack(stack, xd, spec, n, m_in))
+
+
+# ---------------------------------------------------------------------------
+# the recurrent mixers (xlstm-1.3b, jamba-1.5-large-398b) at full width
+# ---------------------------------------------------------------------------
+
+_MIXER_ARCHS = {"mamba": "jamba-1.5-large-398b", "mlstm": "xlstm-1.3b",
+                "slstm": "xlstm-1.3b"}
+
+
+def _cos(a, b):
+    a, b = a.double().flatten(), b.double().flatten()
+    return (a @ b / (a.norm() * b.norm()).clamp(min=1e-30)).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["mamba", "mlstm", "slstm"])
+def test_recurrent_mixer_fused_matches_ref_at_full_width(dev, name):
+    """One recurrent mixer at its model's full width (Mamba: jamba's d 8192,
+    d_in 16384, d_state 16, x_proj N 544; mLSTM / sLSTM: xlstm's d 2048, 4
+    heads, mLSTM d_in 4096), random weights from a seeded generator:
+    ``*_train`` over a (2, 96) window (the scan chunk falls to gcd(128, 96)
+    = 32) and 3 decode steps from the zero state, ``fused`` against
+    ``ref``.  Every projection launches ``lords_matmul`` once in the window
+    and ``lords_decode`` once a step, and no other kernel.  Outputs and the
+    states after the last step at cosine >= 0.999 and max |Δ| <= 2e-2 of
+    max |y| (the two backends' Ŵ differ by a bf16 rounding here and there,
+    and the mLSTM's normalizer, a sum that can cancel, amplifies that)."""
+    from repro_torch.models import ssm
+
+    cfg = get_config(_MIXER_ARCHS[name])
+    init, train, cache_init, decode = (getattr(ssm, f"{name}_{f}")
+                                       for f in ("init", "train", "cache_init", "decode"))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init(cfg, cfg.quant, generator=gen, device=dev)
+    n_proj = {"mamba": 3, "mlstm": 5, "slstm": 4}[name]
+    x = torch.randn(2, 96, cfg.d_model, generator=gen, device=dev).to(torch.bfloat16)
+    steps = [torch.randn(2, 1, cfg.d_model, generator=gen, device=dev).to(torch.bfloat16)
+             for _ in range(3)]
+    outs = {}
+    with torch.inference_mode():
+        for backend in ("fused", "ref"):
+            with dispatch.backend_scope(backend):
+                counts = {fn: fn.launches for fn in KERNELS}
+                y = train(params, x, cfg, cfg.quant)
+                cache = cache_init(cfg, 2, device=dev)
+                ys = [decode(params, s, cfg, cfg.quant, cache)[0] for s in steps]
+                torch.cuda.synchronize()
+                launched = {fn.__name__: fn.launches - counts[fn] for fn in KERNELS
+                            if fn.launches != counts[fn]}
+            outs[backend] = [y] + ys + list(cache.values())
+            want = ({"lords_matmul": n_proj, "lords_decode": 3 * n_proj}
+                    if backend == "fused" else {})
+            assert launched == want, (backend, launched)
+    for got, exp in zip(outs["fused"], outs["ref"]):
+        assert torch.isfinite(got).all()
+        assert _cos(got, exp) >= 0.999
+        assert _rel(got.float(), exp.float(), 2e-2)
+
+
+@pytest.mark.cuda
+def test_qmatmul_at_mamba_x_proj_ragged_n(dev):
+    """jamba's x_proj, N = dt_rank 512 + 2 · d_state 16 = 544 (not a
+    multiple of the prefill kernel's 128 rows: the dispatch pads it) and K
+    16384, at the config's quant, through ``qmatmul`` on the card: the
+    prefill window's M 2176 (one ``lords_matmul``) and a decode step's M 4
+    (one ``lords_decode``), against ``ref`` within 2^-7 of the output's
+    scale (as ``test_qmatmul_fused_launches_and_matches_ref``: both round
+    their outputs to bf16)."""
+    cfg = get_config("jamba-1.5-large-398b")
+    n, k = 512 + 2 * 16, 2 * cfg.d_model
+    gen = torch.Generator(device=dev).manual_seed(3)
+    p = init_quantized_linear(n, k, cfg.quant, generator=gen, device=dev)
+    for m, kernel in ((2176, lords_matmul), (4, lords_decode)):
+        x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+        before = kernel.launches
+        y = dispatch.qmatmul(p, x, cfg.quant, n, k)
+        assert kernel.launches == before + 1 and y.shape == (m, n)
+        y_ref = dispatch.qmatmul(p, x, cfg.quant, n, k, backend="ref")
+        torch.testing.assert_close(y.float(), y_ref.float(), rtol=0,
+                                   atol=2**-7 * y_ref.float().abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", [(24576, 8192), (8192, 24576)])
+def test_expert_stack_gemv_at_jamba_width(dev, n, k):
+    """The expert-axis decode GEMV at jamba's stacks (E 16, C 8: a decode
+    step's capacity; gate / up N 24576 K 8192 and down N 8192 K 24576, nf4
+    at the config's parity rank), one launch for the stack, against the
+    plain version expert by expert: 2e-3 of each expert's output scale."""
+    from repro_torch.models.moe import capacity
+
+    cfg = get_config("jamba-1.5-large-398b")
+    e, c = cfg.moe.num_experts, capacity(cfg.moe, 4)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    ps = [init_quantized_linear(n, k, cfg.quant, generator=gen, device=dev) for _ in range(e)]
+    q, b, a = (torch.stack([p[key] for p in ps]) for key in ("q", "b", "a"))
+    del ps
+    x = torch.randn(e, c, k, generator=gen, device=dev).to(torch.bfloat16)
+    before = lords_decode.launches
+    y = lords_decode(x, q, b, a, cfg.quant.codebook)
+    assert lords_decode.launches == before + 1 and y.shape == (e, c, n)
+    for i in range(e):
+        y_ref = ref.lords_matmul_ref(x[i], q[i], b[i], a[i], cfg.quant.codebook)
+        torch.testing.assert_close(y[i], y_ref, rtol=0, atol=_tol(y_ref), msg=str(i))

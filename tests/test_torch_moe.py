@@ -140,21 +140,24 @@ def test_config_matches_jax(arch, smoke):
 
 
 def test_unported_families_and_dispatch_raise():
-    """ssm / hybrid families and recurrent mixers raise NotImplementedError
-    naming the queue; the paged pool refuses recurrent mixers as the JAX
-    one does; the shard_map dispatch raises."""
-    cfg = smoke_variant(get_config("phi3.5-moe-42b-a6.6b"))
-    for bad in (cfg.with_(family="ssm"), cfg.with_(family="hybrid"),
-                cfg.with_(layer_pattern=("attn", "mamba"))):
-        with pytest.raises(NotImplementedError, match="queue 1 items 4-5"):
-            bad.check_ported()
+    """Every registered family builds (the ssm and hybrid ones since their
+    slice); an unknown family or mixer kind raises at config construction;
+    the paged pool refuses recurrent mixers as the JAX one does; the
+    shard_map dispatch raises."""
+    from repro_torch.configs import MambaCfg
     from repro_torch.models import model_init, paged_cache_init
 
-    with pytest.raises(NotImplementedError):
-        model_init(cfg.with_(family="hybrid"), device="cpu")
+    cfg = smoke_variant(get_config("phi3.5-moe-42b-a6.6b"))
+    for arch in ("xlstm-1.3b", "jamba-1.5-large-398b"):
+        params = model_init(smoke_variant(get_config(arch)), device="cpu")
+        assert len(params["layers"]) == 8
+    with pytest.raises(ValueError, match="family"):
+        cfg.with_(family="rnn")
+    with pytest.raises(ValueError, match="mixer kinds"):
+        cfg.with_(layer_pattern=("attn", "conv"))
+    hybrid = cfg.with_(layer_pattern=("attn", "mamba"), mamba=MambaCfg())
     with pytest.raises(ValueError, match="attention-only"):
-        paged_cache_init(cfg.with_(layer_pattern=("attn", "mamba")), 4, 8,
-                         device="cpu")
+        paged_cache_init(hybrid, 4, 8, device="cpu")
     sm = cfg.with_(moe=cfg.moe.__class__(**{**cfg.moe.__dict__,
                                             "dispatch": "shard_map"}))
     with pytest.raises(NotImplementedError, match="queue 1 item 6"):
