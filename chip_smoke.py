@@ -25,7 +25,13 @@ random weights from a seeded ``torch.Generator``) through
 ``repro_torch.launch.serve.serve_batch`` with a bf16 and with an int8 KV
 cache, and profiles one bf16 decode step (device busy ms and share of
 wall; phase 7 does the same for block-wise NF4).  Phase 4 runs the paged continuous-batching engine (int8 pool, 8
-slots, a 16-request trace that forces an eviction).  Phase 5 trains the
+slots, a 16-request trace that forces an eviction), then replays the trace
+on the same engine under a seeded ``FaultPlan`` (a failed chunk step and
+decode step, a collective timeout, a NaN-poisoned KV page, refused page
+allocations, a drain) and holds it to the chaos contract: one terminal
+status per request, completed requests token for token the clean run's,
+only the poisoned request quarantined, no organic failure, clean audits,
+the CPU-simulated schedule.  Phase 5 trains the
 same model in PEFT mode through ``repro_torch.launch.train.run_training``
 (a warm-up step and 3 steps of 4096 tokens); phase 6 trains llama3-8b at
 full width and 4 layers in QAT mode.  Phase 7 serves block-wise NF4 and
@@ -37,7 +43,8 @@ LoftQ, QPiSSA and SmoothRot and runs the bit / rank allocation over them.
 Phase 11 serves minicpm3-4b (multi-head latent attention, 31 of its 62
 layers, full width) at phase 3's settings with a bf16 and an int8 latent cache and
 profiles one decode step of each as phase 3 does; phase 12
-runs phase 4's engine and trace on it (int8 latent pool); phase 13 trains
+runs phase 4's engine and trace on its first 8 layers (int8 latent
+pool); phase 13 trains
 it in PEFT mode at that depth as phase 5 does (multi-head latent
 attention's training path).  Phase 14 serves the embedding-input models
 internvl2-1b (group size 7) and musicgen-medium (group size 1) at full
@@ -86,6 +93,20 @@ BATCH, PROMPT, GEN = 4, 512, 32
 ENGINE = dict(slots=8, page_size=64, chunk=512, max_pages=20, burst=8,
               total_pages=49)
 N_REQUESTS = 16
+# phase 4's chaos replay of the same trace on the same engine: a seeded
+# FaultPlan whose schedule (consult indices on this trace) gives a failed
+# chunk step (engine.step 2) and decode step (engine.step 40), a collective
+# timeout, one NaN-poisoned page, three refused page allocations and a drain
+# at tick 70 with 7 requests still waiting (tests/test_torch_robust.py holds
+# the schedule on the CPU)
+CHAOS_SEED = 0
+CHAOS_SPEC = {
+    "engine.page_alloc": {"prob": 0.05, "max_fires": 3},
+    "engine.step": {"at": (2, 40)},
+    "dist.collective_timeout": {"at": (60,)},
+    "engine.nan_logits": {"at": (10,)},
+    "engine.preempt": {"at": (70,)},
+}
 # phases 5 and 6: train_4k's sequence, its global batch 256 cut to 1; the
 # peft run takes a larger step than the training CLIs' default 1e-4 so that the
 # step-0 batch's loss moves visibly in 3 steps
@@ -108,6 +129,10 @@ MLA_ARCH = "minicpm3-4b"
 # 6-11% busy), so the engine phase alone took 178 s, and at full depth the
 # script reached 1190 s of its 1200 on a slow host
 MLA_LAYERS = 31
+# phase 12 runs the engine on the first 8 of those layers since phase 4's
+# chaos replay came: its decode is host-bound (222 ms of wall a step at 31
+# layers), and with the replay the script reached 1105.5 s on a slow host
+MLA_ENGINE_LAYERS = 8
 EMBEDS_ARCHS = ("internvl2-1b", "musicgen-medium")
 MOE_ARCH = "phi3.5-moe-42b-a6.6b"
 MOE_TRAIN_LAYERS = 4
@@ -1439,12 +1464,90 @@ def engine_trace(cfg, n: int):
                     max_new=int(m)) for i, (p, m) in enumerate(zip(plens, gens))]
 
 
+def stub_engine(geom, faults=None):
+    """The smoke llama3-8b's Engine on the CPU at geometry ``geom``, its
+    steps stubbed: token 0 for every row, ``NONFINITE_TOKEN`` for a row
+    whose page table maps a poisoned page.  With every arrival at 0 and
+    greedy decoding the schedule depends only on the lengths, the geometry
+    and the fault plan, so this engine shows the schedule the card's must
+    follow (the model and its width play no part in it)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.launch.engine import Engine
+    from repro_torch.launch.steps import NONFINITE_TOKEN
+
+    cfg = smoke_variant(get_config("llama3-8b")).with_(kv_cache_dtype="int8")
+    eng = Engine(cfg, device="cpu", faults=faults, **geom)
+
+    def rows(pt, n):
+        bad = [bool(set(r[r > 0].tolist()) & eng._poisoned) for r in pt]
+        return np.array([[NONFINITE_TOKEN if b else 0] * n for b in bad], np.int32)
+
+    eng._chunk_step = lambda tokens, pt, qpos, pos0: rows(pt, 1)[:, 0]
+    eng._decode_step = lambda tok, pt, pos, n: rows(pt, n)
+    return eng
+
+
+def chaos_plan():
+    from repro_torch.robustness import FaultPlan
+
+    return FaultPlan(CHAOS_SEED, CHAOS_SPEC)
+
+
+_SCHEDULE = ("evictions", "chunk_steps", "decode_steps", "step_failures", "retries",
+             "quarantined", "nan_injections", "collective_timeouts", "preempted",
+             "drained", "statuses")
+
+
+def chaos_problems(st, clean_tokens, n_requests, expect):
+    """What the chaos run ``st`` breaks of its contract: one terminal
+    record per request; completed requests token for token the clean run's;
+    exactly one quarantine, of the one NaN injection; step failures all
+    injected (engine.step or dist.collective_timeout fires); clean audits;
+    a drain that rejected the waiting; and the schedule (``_SCHEDULE``) of
+    ``expect``, the stub engine's run under the same plan."""
+    from repro_torch.launch.engine import TERMINAL_STATUSES
+
+    recs = st["records"]
+    out = []
+    if sorted(r["rid"] for r in recs) != list(range(n_requests)):
+        out.append(f"terminal records for rids {sorted(r['rid'] for r in recs)}")
+    if any(r["status"] not in TERMINAL_STATUSES for r in recs):
+        out.append("a status outside TERMINAL_STATUSES")
+    diverged = [r["rid"] for r in recs
+                if r["status"] == "completed" and r["tokens"] != clean_tokens[r["rid"]]]
+    if diverged:
+        out.append(f"completed requests {diverged} differ from the clean run")
+    victims = [r["rid"] for r in recs if (r["status"], r["reason"]) == ("failed", "non_finite")]
+    if not (st["quarantined"] == st["nan_injections"] == 1 and len(victims) == 1):
+        out.append(f"quarantined {st['quarantined']}, nan_injections "
+                   f"{st['nan_injections']}, non_finite records {victims}")
+    fired = st["faults"]["fired"]
+    injected = fired.get("engine.step", 0) + fired.get("dist.collective_timeout", 0)
+    if st["step_failures"] != injected:
+        out.append(f"step_failures {st['step_failures']} != {injected} injected: an "
+                   "organic failure")
+    if st.get("audit_failures") or not st["page_audit"]["ok"]:
+        out.append(f"audits {st.get('audit_failures')} exit {st['page_audit']}")
+    if st["drained"] != "preempted" or not any(r["reason"] == "preempted" for r in recs):
+        out.append(f"drained {st['drained']}, no request rejected by the drain")
+    got = {k: st[k] for k in _SCHEDULE}
+    want = {k: expect[k] for k in _SCHEDULE}
+    if got != want or st["faults"] != expect["faults"]:
+        out.append(f"schedule {got} faults {st['faults']} != the stub's {want} "
+                   f"{expect['faults']}")
+    return out
+
+
 def engine_checks(cfg, params, torch, what="engine",
                   used=("lords_matmul", "lords_decode", "attn_prefill", "attn_decode_paged"),
-                  unused=()):
+                  unused=(), chaos=False):
     """Phases 4 and 12: the paged continuous-batching engine with an int8
     pool at full width; every kernel of ``used`` must launch in the engine
-    run, none of ``unused``.  Returns the kernels' launch counts."""
+    run, none of ``unused``.  Returns the kernels' launch counts; with
+    ``chaos``, also those of the chaos replay (``engine_chaos``) on the same
+    engine."""
     from repro_torch.launch.engine import Engine
 
     cfg = cfg.with_(kv_cache_dtype="int8")
@@ -1481,8 +1584,40 @@ def engine_checks(cfg, params, torch, what="engine",
     stray = {n: launches[n] for n in unused if launches[n]}
     if stray:
         raise AssertionError(f"{what}: kernels off this path launched {stray}")
+    chaos_launches = engine_chaos(eng, reqs, got, used) if chaos else None
     for kv in ("bf16", "int8"):
         paged_teacher_forced(cfg.with_(kv_cache_dtype=kv), params, torch, what)
+    return (launches, chaos_launches) if chaos else launches
+
+
+def engine_chaos(eng, reqs, clean_tokens, used):
+    """Phase 4's chaos replay: the clean run's trace again on the same
+    engine (same weights, no new warm-up) under ``chaos_plan()`` with the
+    page pool audited after every recovery; fails unless
+    ``chaos_problems`` finds nothing and exactly the kernels of ``used``
+    launch.  Returns the launch counts."""
+    from repro_torch.robustness import NO_FAULTS
+
+    expect = stub_engine(ENGINE, faults=chaos_plan()).run(reqs)
+    eng.faults, eng.audit_every = chaos_plan(), True
+    t0 = time.perf_counter()
+    try:
+        st, launches = counted(lambda: eng.run(reqs, timeout_s=600.0))
+    finally:
+        eng.faults, eng.audit_every = NO_FAULTS, False
+    secs = time.perf_counter() - t0
+    counters = {k: st[k] for k in _SCHEDULE if k != "statuses"}
+    log(f"[engine chaos] statuses {st['statuses']}, counters {counters}, fires "
+        f"{st['faults']['fired']}, launches {launches}, wall {st['wall_s']:.2f} s, "
+        f"{secs:.1f} s in all; completed {st['completed']} of {len(reqs)}, "
+        f"{st['generated_tokens']} tokens")
+    problems = chaos_problems(st, clean_tokens, len(reqs), expect)
+    missing = [n for n in used if launches[n] == 0]
+    stray = {n: c for n, c in launches.items() if n not in used and c}
+    if missing or stray:
+        problems.append(f"kernels not launched {missing}, off the path {stray}")
+    if problems:
+        raise AssertionError("engine chaos: " + "; ".join(problems))
     return launches
 
 
@@ -2046,8 +2181,9 @@ def main() -> int:
             profile_decode(cfg.with_(kv_cache_dtype=kv), params, torch, f"serve {kv}")
         log(f"[serve {kv}] phase time {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    paths["engine int8"] = engine_checks(cfg, params, torch)
-    depths["engine int8"] = cfg.num_layers
+    paths["engine int8"], paths["engine chaos int8"] = engine_checks(cfg, params, torch,
+                                                                     chaos=True)
+    depths["engine int8"] = depths["engine chaos int8"] = cfg.num_layers
     log(f"[engine] phase time {time.perf_counter() - t0:.1f} s")
 
     # phases 5 and 6: training; phase 5 trains the loaded model's B and A in
@@ -2126,10 +2262,12 @@ def main() -> int:
         profile_decode(mcfg.with_(kv_cache_dtype=kv), params, torch, what)
         log(f"[{what}] phase time {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    ecfg = mcfg.with_(num_layers=MLA_ENGINE_LAYERS)
     paths["engine mla int8"] = engine_checks(
-        mcfg, params, torch, what="engine mla", used=MLA_ENGINE,
+        ecfg, {**params, "layers": params["layers"][:MLA_ENGINE_LAYERS]}, torch,
+        what="engine mla", used=MLA_ENGINE,
         unused=BLOCK_KERNELS + GQA_DECODE + ("attn_decode_mla",))
-    depths["engine mla int8"] = mcfg.num_layers
+    depths["engine mla int8"] = ecfg.num_layers
     log(f"[engine mla] phase time {time.perf_counter() - t0:.1f} s")
 
     # phase 13: MLA training, PEFT, on phase 11's model

@@ -8,7 +8,16 @@ The single-device part of the JAX package's checkpointer:
   * content: one ``.npy`` per leaf plus ``spec.json`` (each leaf's kind,
     dtype and shape) — no pickle.  bf16 tensors are stored as their uint16
     bit pattern with the dtype named in the spec (numpy has no bfloat16);
-  * retention: the newest ``keep`` checkpoints stay, older ones are deleted.
+  * retention: the newest ``keep`` checkpoints stay, older ones are deleted;
+  * IO retries: every file write and read goes through
+    :func:`repro_torch.distributed.retry_on_transient` (``io_retries``
+    attempts after the first, ``io_backoff`` seconds doubling, an
+    ``io_jitter`` share of decorrelated jitter), so a transient ``OSError``
+    does not kill a run; a permanent one still raises;
+  * chaos: the ``ckpt.save_crash`` point of ``faults`` is consulted once a
+    leaf; a fire raises :class:`repro_torch.robustness.InjectedFault`
+    mid-save and leaves a stray ``step_<N>.tmp/``, which ``latest_step`` and
+    ``restore`` ignore.
 
 A state is a tree of dicts (any hashable keys, e.g. the tuple paths of
 :func:`repro_torch.core.peft.partition`), lists, tuples (NamedTuples
@@ -24,6 +33,9 @@ import shutil
 
 import numpy as np
 import torch
+
+from repro_torch.distributed.fault_tolerance import retry_on_transient
+from repro_torch.robustness import NO_FAULTS, InjectedFault
 
 __all__ = ["Checkpointer"]
 
@@ -77,10 +89,23 @@ def _decode(arr: np.ndarray, entry: dict, example):
 
 
 class Checkpointer:
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3, io_retries: int = 2,
+                 io_backoff: float = 0.05, io_jitter: float = 0.0,
+                 faults=NO_FAULTS):
         self.dir = directory
         self.keep = keep
+        self.io_retries = io_retries
+        self.io_backoff = io_backoff
+        self.io_jitter = io_jitter
+        self.faults = faults
         os.makedirs(directory, exist_ok=True)
+
+    def _io(self, fn):
+        """``fn()`` behind bounded retries with backoff on ``OSError``."""
+        return retry_on_transient(fn, retries=self.io_retries,
+                                  backoff=self.io_backoff,
+                                  exceptions=(OSError,),
+                                  jitter=self.io_jitter)
 
     def save(self, step: int, state) -> None:
         tmp = os.path.join(self.dir, f"step_{step}.tmp")
@@ -90,24 +115,36 @@ class Checkpointer:
         os.makedirs(tmp)
         entries = []
         for i, leaf in enumerate(_leaves(state)):
+            if self.faults.fires("ckpt.save_crash"):
+                raise InjectedFault(
+                    f"killed mid checkpoint save (step {step}, leaf {i})")
             arr, entry = _encode(leaf)
             entry["file"] = f"leaf_{i:05d}.npy"
-            np.save(os.path.join(tmp, entry["file"]), arr, allow_pickle=False)
+            path = os.path.join(tmp, entry["file"])
+            self._io(lambda: np.save(path, arr, allow_pickle=False))
             entries.append(entry)
-        with open(os.path.join(tmp, "spec.json"), "w") as f:
-            json.dump({"version": 1, "step": step, "leaves": entries}, f)
+
+        def write_spec():
+            with open(os.path.join(tmp, "spec.json"), "w") as f:
+                json.dump({"version": 1, "step": step, "leaves": entries}, f)
+
+        self._io(write_spec)
         if os.path.exists(final):
             shutil.rmtree(final)
-        os.replace(tmp, final)
+        self._io(lambda: os.replace(tmp, final))
         self._write_manifest(step)
         self._gc()
 
     def _write_manifest(self, step: int) -> None:
         man = os.path.join(self.dir, "MANIFEST.json")
         steps = sorted(set(self.all_steps()) | {step})
-        with open(man + ".tmp", "w") as f:
-            json.dump({"steps": steps, "latest": max(steps)}, f)
-        os.replace(man + ".tmp", man)
+
+        def write_man():
+            with open(man + ".tmp", "w") as f:
+                json.dump({"steps": steps, "latest": max(steps)}, f)
+            os.replace(man + ".tmp", man)
+
+        self._io(write_man)
 
     def _gc(self) -> None:
         if not self.keep:
@@ -145,15 +182,19 @@ class Checkpointer:
         if step is None:
             return None
         path = os.path.join(self.dir, f"step_{step}")
-        with open(os.path.join(path, "spec.json")) as f:
-            spec = json.load(f)
+
+        def read_spec():
+            with open(os.path.join(path, "spec.json")) as f:
+                return json.load(f)
+
+        spec = self._io(read_spec)
         examples = _leaves(example_state)
         if len(examples) != len(spec["leaves"]):
             raise ValueError(
                 f"checkpoint has {len(spec['leaves'])} leaves; the target "
                 f"structure has {len(examples)}")
         loaded = [
-            _decode(np.load(os.path.join(path, e["file"]), allow_pickle=False),
-                    e, ex)
+            _decode(self._io(lambda e=e: np.load(os.path.join(path, e["file"]),
+                                                 allow_pickle=False)), e, ex)
             for e, ex in zip(spec["leaves"], examples)]
         return _rebuild(example_state, iter(loaded))

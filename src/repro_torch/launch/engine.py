@@ -1,7 +1,7 @@
 """Continuous-batching serving engine over the block-paged KV cache.
 
-Port of the JAX package's ``launch/engine.py`` without its fault handling.
-It serves a *stream* of requests:
+Port of the JAX package's ``launch/engine.py`` on one device.  It serves a
+*stream* of requests:
 
   * **Page pool** — every layer's KV lives in a global pool of fixed-size
     pages (``models.paged_cache_init``, bf16 or int8); a request holds only
@@ -22,20 +22,65 @@ It serves a *stream* of requests:
 
 Token for token it follows the JAX engine: token 1 is sampled from the
 prefill logits at the prompt's last row, decode step k runs at position
-``prompt_len + k - 1``.  Every request completes; nothing here catches an
-error: a failed kernel launch raises out of :meth:`Engine.run`, and so does
-a non-finite logit (``NONFINITE_TOKEN``), naming the request.  Deadlines,
-retries, overload shedding, drain and quarantine are not ported yet.
+``prompt_len + k - 1``.
+
+**Failure semantics**, as the JAX engine's: every request ends in exactly
+one terminal status — ``completed`` / ``timeout`` / ``rejected`` /
+``failed`` — and :meth:`Engine.run` *returns* its stats dict under every
+fault below instead of raising away completed work:
+
+  * **Deadlines.**  ``Request.deadline_s`` (relative to arrival) cancels a
+    late request wherever it is, queued or mid-decode, reclaiming its pages
+    and recording ``status='timeout', reason='deadline'`` with the tokens it
+    produced.  ``run``'s ``timeout_s`` is a drain guard: on expiry the
+    engine stops admitting, cancels in-flight work keeping partial results,
+    marks unserved requests ``timeout`` and returns.
+  * **Retry and requeue.**  A failed step requeues its participants for
+    recompute with a per-request retry budget (``max_retries``); an
+    exhausted budget ends in ``failed``.  Injected failures
+    (:class:`repro_torch.robustness.InjectedFault`, raised *before* the
+    launch) are request-scoped: bystander slots keep their KV.  An organic
+    failure (any other exception, logged with its traceback) cannot trust
+    the pools the step was writing, so the pool is rebuilt and every active
+    sequence recomputes.
+  * **Overload shedding.**  ``admission_budget`` bounds the admission queue;
+    arrivals beyond it are rejected at once (``reason='overload'``).
+  * **Non-finite quarantine.**  The steps sample through
+    ``sample_token_guarded``: a slot whose logits hold a NaN or Inf emits
+    ``NONFINITE_TOKEN``, and the engine fails *that slot only*
+    (``failed/non_finite``, its pages scrubbed, then reclaimed) while the
+    rest of the batch decodes on.
+  * **Graceful drain.**  A ``PreemptionGuard`` (or the ``engine.preempt``
+    fault point) flips the engine into drain: waiting requests are rejected
+    with ``reason='preempted'``, in-flight requests run to completion.
+
+The ``dist.*`` points are consulted as the JAX engine consults them on a
+one-device mesh: ``dist.device_loss`` has no device to lose (the JAX
+engine's ``_elastic_rebuild`` returns False there), ``dist.collective_timeout``
+is an injected step failure counted in ``collective_timeouts``, and
+``dist.straggler`` (shard 0) and a step-time z-score feed
+``straggler_flags``.  So under one seeded
+:class:`repro_torch.robustness.FaultPlan` both engines consult the same
+points in the same order and show the same ``faults.summary()``.
+
+Every recovery action is counted in ``Engine.stats`` (``evictions``,
+``retries``, ``step_failures``, ``quarantined``, ``shed``,
+``deadline_cancels``, ``collective_timeouts``; ``mesh_rebuilds``,
+``lost_devices`` and ``resharded_restores`` stay 0 on one device), and
+:meth:`Engine.audit_pages` checks the page-pool invariant after each
+recovery when faults are active (or ``audit_every``) and always at exit.
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
 import time
 from collections import deque
 
 import numpy as np
 import torch
 
+from repro_torch.distributed.fault_tolerance import StragglerMonitor
 from repro_torch.kernels import dispatch
 from repro_torch.launch.steps import (
     NONFINITE_TOKEN,
@@ -44,19 +89,28 @@ from repro_torch.launch.steps import (
 )
 from repro_torch.models import model_init, paged_cache_init
 from repro_torch.models.common import resolve_device
+from repro_torch.robustness import NO_FAULTS, InjectedFault
 
-__all__ = ["Request", "Engine"]
+__all__ = ["Request", "Engine", "TERMINAL_STATUSES"]
+
+TERMINAL_STATUSES = ("completed", "timeout", "rejected", "failed")
+
+_log = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass
 class Request:
     """One generation request: ``tokens`` is the prompt (1-D int array),
     ``max_new`` the generation budget, ``arrival`` the trace-relative
-    arrival time in seconds (0 = available immediately)."""
+    arrival time in seconds (0 = available immediately), ``deadline_s`` an
+    optional latency budget relative to arrival (None = none): its expiry
+    cancels the request wherever it is and records a ``timeout`` with the
+    tokens it produced."""
     rid: int
     tokens: np.ndarray
     max_new: int
     arrival: float = 0.0
+    deadline_s: float | None = None
 
 
 _FREE, _PREFILL, _DECODE = "free", "prefill", "decode"
@@ -89,12 +143,22 @@ class Engine:
     ``device`` is ``cuda`` unless named (raising when no card is visible);
     ``backend`` pins the dispatch backend (``fused`` | ``ref``; None = the
     device's default).  ``params`` None draws a random model from ``seed``.
+
+    Robustness knobs: ``faults`` (a :class:`repro_torch.robustness.FaultPlan`;
+    default :data:`NO_FAULTS`, which costs nothing), ``admission_budget``
+    (queued requests before shedding; None = unbounded), ``max_retries``
+    (a request's step-failure budget), ``preemption_guard`` (a
+    :class:`repro_torch.distributed.PreemptionGuard` polled each tick for a
+    graceful drain), ``audit_every`` (audit the page pool after every
+    recovery even without a fault plan).
     """
 
     def __init__(self, cfg, *, slots: int, total_pages: int, page_size: int,
                  max_pages: int, chunk: int, burst: int = 8,
                  backend: str | None = None, temperature: float = 0.0,
-                 seed: int = 0, params=None, device=None):
+                 seed: int = 0, params=None, device=None, faults=None,
+                 admission_budget: int | None = None, max_retries: int = 2,
+                 preemption_guard=None, audit_every: bool = False):
         if cfg.input_kind != "tokens":
             raise ValueError("the paged engine serves token models")
         if chunk % page_size:
@@ -111,21 +175,39 @@ class Engine:
         self.chunk = chunk
         self.burst = max(int(burst), 1)
         self.temperature = temperature
+        self.faults = faults or NO_FAULTS
+        self.admission_budget = admission_budget
+        self.max_retries = max_retries
+        self.preemption_guard = preemption_guard
+        self.audit_every = audit_every
         self.params = (params if params is not None
                        else model_init(cfg, seed, device=self.device))
         self.pools = paged_cache_init(cfg, total_pages, page_size,
                                       device=self.device)
-        self._generator = torch.Generator(device=self.device).manual_seed(
-            seed + 1)
+        # the JAX engine's PRNG key: advanced once a launched step
+        self._key = torch.Generator().manual_seed(seed + 1)
         self._slots = [_Slot() for _ in range(slots)]
         self._free_pages = list(range(1, total_pages))  # page 0 = dummy
         self._admit_seq = 0
         self._warm = False
+        self._poisoned: set = set()     # pages holding injected NaNs
         self._records: list = []
+        self._recorded: set = set()
+        self._retries: dict = {}
+        self._drain_reason: str | None = None
         self.stats: dict = {}
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
+
+    def _split_key(self) -> torch.Generator | None:
+        """The step's generator, drawn from the engine's key (one draw a
+        launched step, as the JAX engine splits its key).  Greedy decoding
+        draws nothing from it, so no device generator is made then."""
+        sub = int(torch.randint(0, 2**62, (), generator=self._key))
+        if self.temperature <= 0.0:
+            return None
+        return torch.Generator(device=self.device).manual_seed(sub)
 
     def _chunk_step(self, tokens, pt, qpos, pos0) -> np.ndarray:
         """One chunk step; returns tok1 (slots,) on the host (the copy
@@ -134,7 +216,7 @@ class Engine:
             tok1, self.pools = prefill_chunk_step(
                 self.params, self.cfg, self._tensor(tokens).long(), self.pools,
                 self._tensor(pt), self._tensor(qpos), self._tensor(pos0),
-                temperature=self.temperature, generator=self._generator)
+                temperature=self.temperature, generator=self._split_key())
         return tok1.cpu().numpy()
 
     def _decode_step(self, tok, pt, pos, n: int) -> np.ndarray:
@@ -143,7 +225,7 @@ class Engine:
             toks, self.pools = paged_generate(
                 self.params, self.cfg, self._tensor(tok), self.pools,
                 self._tensor(pt), self._tensor(pos), n=n,
-                temperature=self.temperature, generator=self._generator)
+                temperature=self.temperature, generator=self._split_key())
         return toks.cpu().numpy()
 
     def warmup(self):
@@ -182,8 +264,29 @@ class Engine:
         if not req.max_new:
             raise ValueError(f"request {req.rid}: max_new must be >= 1")
 
-    def _release(self, slot: _Slot):
+    def _set_pages(self, pages, value: float, floating_only: bool):
+        """Write ``value`` into physical ``pages`` of every layer's pool
+        leaves (only the floating ones when ``floating_only``)."""
+        idx = torch.as_tensor(pages, dtype=torch.long, device=self.device)
+        with torch.inference_mode():
+            for pool in self.pools:
+                for leaf in pool.values():
+                    if floating_only and not leaf.is_floating_point():
+                        continue
+                    leaf.index_fill_(0, idx, value)
+
+    def _free_slot_pages(self, slot: _Slot):
+        """Return a slot's pages to the free pool, scrubbing any that hold
+        injected NaNs first (a reclaimed page must never leak non-finite
+        state into its next owner)."""
+        doomed = [p for p in slot.pages if p in self._poisoned]
+        if doomed:
+            self._set_pages(doomed, 0, floating_only=False)
+            self._poisoned.difference_update(doomed)
         self._free_pages.extend(slot.pages)
+
+    def _release(self, slot: _Slot):
+        self._free_slot_pages(slot)
         self._reset(slot)
 
     def _evict_youngest(self, queue: deque) -> bool:
@@ -197,14 +300,16 @@ class Engine:
         self._release(victim)
         queue.appendleft(req)
         self.stats["evictions"] += 1
+        self._post_recovery_audit("eviction")
         return True
 
     def _try_page(self, slot: _Slot, logical: int) -> bool:
         """Grow the slot's page list through logical index ``logical`` from
         the free pool; False if the pool runs dry (partial growth is kept:
-        it is still valid)."""
+        it is still valid).  The ``engine.page_alloc`` point makes an
+        allocation fail as if the pool were empty."""
         while len(slot.pages) <= logical:
-            if not self._free_pages:
+            if not self._free_pages or self.faults.fires("engine.page_alloc"):
                 return False
             slot.pages.append(self._free_pages.pop())
         return True
@@ -239,6 +344,8 @@ class Engine:
         slot.admit_seq = -1
         slot.first_tok_t = None
 
+    # ---- fault handling and accounting ----------------------------------
+
     def audit_pages(self) -> dict:
         """Page-pool invariant: every page but the dummy is in exactly one
         place (the free list or one slot's table), nothing duplicated."""
@@ -260,42 +367,165 @@ class Engine:
         return {"ok": not issues, "free": len(free), "held": len(held),
                 "total_pages": self.total_pages, "issues": issues}
 
+    def _post_recovery_audit(self, label: str):
+        if not (self.faults.enabled or self.audit_every):
+            return
+        a = self.audit_pages()
+        if not a["ok"]:
+            self.stats.setdefault("audit_failures", []).append(
+                dict(a, after=label))
+
     def _now(self) -> float:
         return time.perf_counter() - self._t0
 
-    def _finish(self, slot: _Slot):
-        req = slot.req
+    def _record(self, req: Request, status: str, *, reason=None,
+                tokens=(), slot: _Slot | None = None):
+        """Append a request's single terminal record (once per rid)."""
+        if req.rid in self._recorded:
+            return
+        self._recorded.add(req.rid)
         t = self._now()
         self._records.append({
             "rid": req.rid,
             "arrival": req.arrival,
-            "status": "completed",
-            "admitted": slot.admit_t,
-            "first_token": slot.first_tok_t,
+            "status": status,
+            "reason": reason,
+            "admitted": slot.admit_t if slot is not None else None,
+            "first_token": slot.first_tok_t if slot is not None else None,
             "finished": t,
             "latency": t - req.arrival,
             "prompt_len": int(len(req.tokens)),
-            "tokens": list(slot.out),
+            "tokens": list(tokens),
         })
+
+    def _finish(self, slot: _Slot):
+        self._record(slot.req, "completed", tokens=slot.out, slot=slot)
         self._release(slot)
 
-    @staticmethod
-    def _check_finite(slot: _Slot, tok: int):
-        if tok == NONFINITE_TOKEN:
-            raise RuntimeError(
-                f"request {slot.req.rid}: non-finite logits at position "
-                f"{slot.pos} (quarantine is not ported; the run stops)")
+    def _quarantine(self, slot: _Slot):
+        """Non-finite logits in this slot only: record the failure with the
+        tokens generated before the poison, scrub and reclaim its pages (its
+        own KV writes are suspect too), and keep every other slot going."""
+        self._poisoned.update(slot.pages)
+        self._record(slot.req, "failed", reason="non_finite",
+                     tokens=slot.out, slot=slot)
+        self._release(slot)
+        self.stats["quarantined"] += 1
+        self._post_recovery_audit("quarantine")
+
+    def _reinit_pools(self):
+        """Rebuild the page pool from scratch (organic step failure: the
+        state of the pools the step was writing is unknown)."""
+        self.pools = paged_cache_init(self.cfg, self.total_pages,
+                                      self.page_size, device=self.device)
+        self._free_pages = list(range(1, self.total_pages))
+        self._poisoned = set()
+
+    def _step_failure(self, participants, queue: deque, *, injected: bool,
+                      phase: str):
+        """Recover from a failed step launch.  Participants are charged a
+        retry (``failed`` once the budget is gone) and requeued at the
+        front for recompute.  Injected faults fire *before* the launch, so
+        bystander slots keep their pages and KV; an organic failure cannot
+        trust the pools, so the pool is rebuilt and every active sequence
+        recomputes."""
+        self.stats["step_failures"] += 1
+        affected = (list(participants) if injected
+                    else [s for s in self._slots if s.state != _FREE])
+        charged = {id(s) for s in participants}
+        # appendleft in reverse admission order keeps the oldest frontmost
+        for s in sorted(affected, key=lambda s: s.admit_seq, reverse=True):
+            req = s.req
+            if id(s) in charged:
+                n = self._retries[req.rid] = self._retries.get(req.rid, 0) + 1
+                self.stats["retries"] += 1
+                if n > self.max_retries:
+                    self._record(req, "failed",
+                                 reason=f"{phase}_step_failure",
+                                 tokens=s.out, slot=s)
+                    if injected:
+                        self._free_slot_pages(s)
+                    self._reset(s)
+                    continue
+            if injected:
+                self._free_slot_pages(s)
+            self._reset(s)
+            queue.appendleft(req)
+        if not injected:
+            self._reinit_pools()
+        self._post_recovery_audit(f"{phase}_step_failure")
+
+    def _launch(self, phase: str, participants, queue: deque, step):
+        """Run ``step()`` behind the ``dist.collective_timeout`` and
+        ``engine.step`` points (consulted in that order, before the
+        launch); returns its tokens, or None after a failure was
+        recovered."""
+        try:
+            if self.faults.fires("dist.collective_timeout"):
+                self.stats["collective_timeouts"] += 1
+                raise InjectedFault(f"injected collective timeout ({phase})")
+            if self.faults.fires("engine.step"):
+                raise InjectedFault(f"injected {phase}-step failure")
+            return step()
+        except InjectedFault:
+            self._step_failure(participants, queue, injected=True,
+                               phase=phase)
+        except Exception:
+            _log.exception("organic %s-step failure: requeueing every "
+                           "active request on a rebuilt pool", phase)
+            self._step_failure(participants, queue, injected=False,
+                               phase=phase)
+        return None
+
+    def _enforce_deadlines(self, queue: deque):
+        """Cancel deadline-expired requests wherever they are: queued ones
+        are recorded unserved; in-flight ones free their pages and keep the
+        tokens they produced."""
+        expired = [r for r in queue
+                   if r.deadline_s is not None
+                   and self._now() - r.arrival > r.deadline_s]
+        for r in expired:
+            queue.remove(r)
+            self._record(r, "timeout", reason="deadline")
+            self.stats["deadline_cancels"] += 1
+        for s in self._slots:
+            if s.state == _FREE or s.req.deadline_s is None:
+                continue
+            if self._now() - s.req.arrival > s.req.deadline_s:
+                self._record(s.req, "timeout", reason="deadline",
+                             tokens=s.out, slot=s)
+                self._release(s)
+                self.stats["deadline_cancels"] += 1
+                self._post_recovery_audit("deadline_cancel")
+
+    def _drain_all(self, pending: deque, queue: deque, reason: str):
+        """Global-timeout drain: cancel in-flight work keeping partial
+        output, mark everything still waiting unserved.  Nothing raises."""
+        for s in self._slots:
+            if s.state != _FREE:
+                self._record(s.req, "timeout", reason=reason,
+                             tokens=s.out, slot=s)
+                self._release(s)
+        while queue:
+            self._record(queue.popleft(), "timeout", reason="unserved")
+        while pending:
+            self._record(pending.popleft(), "timeout", reason="unserved")
+        self._post_recovery_audit("drain")
 
     # ---- run loop -------------------------------------------------------
 
-    def run(self, requests) -> dict:
-        """Serve ``requests`` (any order; sorted by arrival) to completion.
+    def run(self, requests, *, timeout_s: float = 300.0) -> dict:
+        """Serve ``requests`` (any order; sorted by arrival) to completion
+        or controlled degradation.
 
-        Returns a stats dict: one record per request, goodput (generated
-        tokens / wall second), latency percentiles, per-phase prefill /
-        decode milliseconds (host clock around each step, ending when its
-        tokens reach the host), step and eviction counts, and the exit
-        page-pool audit.  An error in a step propagates.
+        Returns a stats dict: one terminal record per request (status in
+        ``TERMINAL_STATUSES``), goodput (completed requests' tokens / wall
+        second), latency percentiles over completed requests, per-phase
+        prefill / decode milliseconds (host clock around each step, ending
+        when its tokens reach the host), step, eviction and recovery
+        counters, the fault plan's summary and the exit page-pool audit.
+        ``timeout_s`` is a drain guard, not an exception: on expiry the
+        engine stops admitting, keeps partial results and returns.
         """
         for r in requests:
             self._validate(r)
@@ -303,14 +533,73 @@ class Engine:
         pending = deque(sorted(requests, key=lambda r: r.arrival))
         queue: deque = deque()
         self._records = []
+        self._recorded = set()
+        self._retries = {}
+        self._poisoned = set()
+        self._drain_reason = None
         self.stats = {"evictions": 0, "chunk_steps": 0, "decode_steps": 0,
-                      "prefill_ms": 0.0, "decode_ms": 0.0}
+                      "prefill_ms": 0.0, "decode_ms": 0.0,
+                      "step_failures": 0, "retries": 0, "quarantined": 0,
+                      "shed": 0, "deadline_cancels": 0, "nan_injections": 0,
+                      "preempted": False, "mesh_rebuilds": 0,
+                      "lost_devices": 0, "resharded_restores": 0,
+                      "collective_timeouts": 0, "straggler_flags": []}
         self._t0 = time.perf_counter()
         now = self._now
+        tick = 0
+        mon = StragglerMonitor(warmup_steps=5)
+        guard = self.preemption_guard
 
         while pending or queue or any(s.state != _FREE for s in self._slots):
+            # the drain guard; and when nothing is runnable and the next
+            # arrival lands past it, declare the timeout now instead of
+            # sleeping into it
+            if now() > timeout_s or (
+                    not queue and pending
+                    and all(s.state == _FREE for s in self._slots)
+                    and pending[0].arrival > timeout_s):
+                self._drain_reason = "timeout"
+                self._drain_all(pending, queue, "global_timeout")
+                break
+
+            if self._drain_reason is None and (
+                    (guard is not None and guard.preempted)
+                    or self.faults.fires("engine.preempt")):
+                # graceful drain: reject everything waiting, let in-flight
+                # slots run to completion
+                self._drain_reason = "preempted"
+                self.stats["preempted"] = True
+                while queue:
+                    self._record(queue.popleft(), "rejected",
+                                 reason="preempted")
+                while pending:
+                    self._record(pending.popleft(), "rejected",
+                                 reason="preempted")
+
+            if self.faults.enabled:
+                # one device: nothing to lose, so no rebuild follows a fire
+                self.faults.fires("dist.device_loss")
+
+            self.faults.fires("engine.straggler")   # sleeps when it fires
+            # straggler watchdog: the one shard's injection stream plus an
+            # EMA z-score over tick wall time that flags organic slowness
+            tick += 1
+            mon.start_step()
+            slow_shards = []
+            if self.faults.enabled and self.faults.fires("dist.straggler",
+                                                         index=0):
+                slow_shards.append(0)   # fires() slept in line
+
             while pending and pending[0].arrival <= now():
-                queue.append(pending.popleft())
+                r = pending.popleft()
+                if (self.admission_budget is not None
+                        and len(queue) >= self.admission_budget):
+                    self._record(r, "rejected", reason="overload")
+                    self.stats["shed"] += 1
+                else:
+                    queue.append(r)
+
+            self._enforce_deadlines(queue)
 
             # admission: FIFO while a slot is free and the pool can cover
             # the whole prompt (pages past the first chunk are still
@@ -349,22 +638,36 @@ class Engine:
                                for s in decoding))
                 self._run_decode(decoding, max(n, 1), queue)
 
+            if (prefilling or decoding) and (
+                    mon.end_step(tick) or slow_shards):
+                flagged = mon.flags[-1] if mon.flags else None
+                self.stats["straggler_flags"].append({
+                    "tick": tick, "shards": slow_shards,
+                    "injected": bool(slow_shards),
+                    "dt_s": flagged[1] if flagged else None,
+                    "zscore": flagged[2] if flagged else None})
+
             if not prefilling and not decoding and not queue and pending:
                 time.sleep(min(max(pending[0].arrival - now(), 0.0), 0.05))
 
         wall = now()
         records = self._records
-        lat = sorted(r["latency"] for r in records)
+        completed = [r for r in records if r["status"] == "completed"]
+        lat = sorted(r["latency"] for r in completed)
 
         def pct(p):
             return lat[min(int(p * len(lat)), len(lat) - 1)] if lat else 0.0
 
-        gen_tokens = sum(len(r["tokens"]) for r in records)
+        statuses: dict = {}
+        for r in records:
+            statuses[r["status"]] = statuses.get(r["status"], 0) + 1
+        gen_tokens = sum(len(r["tokens"]) for r in completed)
         self.stats.update({
             "requests": len(records),
-            "completed": len(records),
-            "statuses": {"completed": len(records)} if records else {},
-            "all_completed": len(records) == len(requests),
+            "completed": len(completed),
+            "statuses": statuses,
+            "all_completed": len(completed) == len(requests),
+            "drained": self._drain_reason,
             "wall_s": wall,
             "goodput_tok_s": gen_tokens / max(wall, 1e-9),
             "generated_tokens": gen_tokens,
@@ -372,6 +675,7 @@ class Engine:
             "latency_p99_s": pct(0.99),
             "records": records,
             "page_audit": self.audit_pages(),
+            "faults": self.faults.summary(),
         })
         return dict(self.stats)
 
@@ -410,7 +714,10 @@ class Engine:
             pos0[i] = s.chunk_done
         pt = self._page_table({id(s) for s in prefilling})
         t0 = time.perf_counter()
-        tok1 = self._chunk_step(tokens, pt, qpos, pos0)
+        tok1 = self._launch("prefill", prefilling, queue,
+                            lambda: self._chunk_step(tokens, pt, qpos, pos0))
+        if tok1 is None:
+            return
         self.stats["prefill_ms"] += (time.perf_counter() - t0) * 1e3
         self.stats["chunk_steps"] += 1
         for s in prefilling:
@@ -418,7 +725,9 @@ class Engine:
             s.chunk_done += cs
             if s.chunk_done < len(s.req.tokens):
                 continue
-            self._check_finite(s, int(tok1[i]))
+            if int(tok1[i]) == NONFINITE_TOKEN:
+                self._quarantine(s)
+                continue
             s.state = _DECODE
             s.tok = int(tok1[i])
             s.pos = len(s.req.tokens)
@@ -426,6 +735,14 @@ class Engine:
             s.first_tok_t = self._now()
             if len(s.out) >= s.req.max_new:
                 self._finish(s)
+
+    def _poison_page(self, page: int):
+        """Write NaNs into one physical page of every floating pool leaf
+        (bf16 K/V directly; an int8 pool through its f32 scales), so the
+        real non-finite guard trips on the next read."""
+        self._set_pages([page], float("nan"), floating_only=True)
+        self._poisoned.add(int(page))
+        self.stats["nan_injections"] += 1
 
     def _run_decode(self, decoding, n, queue):
         def pages_for_burst(s):
@@ -440,6 +757,10 @@ class Engine:
                                can_wait=False)
         if not decoding:
             return
+        if self.faults.fires("engine.nan_logits"):
+            victim = min(decoding, key=lambda s: s.admit_seq)
+            if victim.pages:
+                self._poison_page(victim.pages[0])
         tok = np.zeros((self.slots,), np.int32)
         pos = np.zeros((self.slots,), np.int32)
         for s in decoding:
@@ -450,18 +771,26 @@ class Engine:
         if n != self.burst:
             n = 1  # a burst runs whole or not at all, as in the JAX engine
         t0 = time.perf_counter()
-        toks = self._decode_step(tok, pt, pos, n)
+        toks = self._launch("decode", decoding, queue,
+                            lambda: self._decode_step(tok, pt, pos, n))
+        if toks is None:
+            return
         self.stats["decode_ms"] += (time.perf_counter() - t0) * 1e3
         self.stats["decode_steps"] += n
         for s in decoding:
             i = self._slots.index(s)
+            poisoned = False
             for j in range(n):
                 if len(s.out) >= s.req.max_new:
                     break
                 t = int(toks[i, j])
-                self._check_finite(s, t)
+                if t == NONFINITE_TOKEN:
+                    poisoned = True
+                    break
                 s.out.append(t)
                 s.tok = t
                 s.pos += 1
-            if len(s.out) >= s.req.max_new:
+            if poisoned:
+                self._quarantine(s)
+            elif len(s.out) >= s.req.max_new:
                 self._finish(s)

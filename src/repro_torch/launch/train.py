@@ -1,12 +1,14 @@
-"""Training entry point (PEFT / QAT) on one device, with the spike guard and
-checkpoint rollback.
+"""Training entry point (PEFT / QAT) on one device, with the spike guard,
+checkpoint rollback and the JAX package's single-device fault paths.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \\
         --smoke --device cpu --steps 3 [--mode qat] [--backend fused]
 
 Without ``--device`` it runs on the card (and raises when there is none).
-The JAX package's mesh, elastic-recovery, desync and fault-injection paths
-are not part of this module.
+The fault points of a :class:`repro_torch.robustness.FaultPlan` are
+consulted as the JAX ``run_training`` consults them on a one-device mesh;
+the mesh rebuild and the cross-replica desync digest need more than one
+device and are not part of this module.
 """
 from __future__ import annotations
 
@@ -21,11 +23,16 @@ from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import SHAPES, ShapeCfg, get_config, smoke_variant
 from repro_torch.core import peft
 from repro_torch.data import SyntheticLM, make_batch_iterator
+from repro_torch.distributed.fault_tolerance import (
+    PreemptionGuard,
+    StragglerMonitor,
+)
 from repro_torch.kernels import dispatch
 from repro_torch.launch.steps import train_step
 from repro_torch.models import model_init
 from repro_torch.models.common import resolve_device
 from repro_torch.optim import adamw_init
+from repro_torch.robustness import NO_FAULTS, InjectedFault
 
 __all__ = ["run_training", "batch_tensors", "main"]
 
@@ -46,7 +53,10 @@ def run_training(cfg, shape_cfg, *, steps: int, lr: float = 1e-4,
                  ckpt_dir: str | None = None, ckpt_every: int = 50,
                  seed: int = 0, log_every: int = 10,
                  backend: str | None = None, device=None,
-                 params=None) -> dict:
+                 params=None, faults=None, desync_every: int = 0,
+                 collective_retries: int = 2, io_retries: int = 2,
+                 io_backoff: float = 0.05, io_jitter: float = 0.0,
+                 preemption_guard=None) -> dict:
     """Train ``cfg`` for ``steps`` steps of ``shape_cfg``'s batches.
 
     ``params`` (default: :func:`repro_torch.models.model_init` from
@@ -55,20 +65,44 @@ def run_training(cfg, shape_cfg, *, steps: int, lr: float = 1e-4,
     backend for the forward, the backward and the remat recompute.
 
     Every update goes through :func:`repro_torch.optim.guarded_update`
-    behind the spike threshold above: a non-finite or spiking gradient skips
-    the update (counted in ``skipped_steps``), and after ``ROLLBACK_AFTER``
-    consecutive skips the latest checkpoint is restored, the data position
-    included (``rollbacks``).  With ``ckpt_dir`` the run resumes from the
-    latest checkpoint there and saves every ``ckpt_every`` steps.
+    behind the spike threshold above: a non-finite or spiking gradient
+    skips the update (counted in ``skipped_steps``), and after
+    ``ROLLBACK_AFTER`` consecutive skips the latest checkpoint is restored,
+    the data position included (``rollbacks``).  With ``ckpt_dir`` the run
+    resumes from the latest checkpoint there and saves every ``ckpt_every``
+    steps; the checkpointer retries its IO (``io_retries``, ``io_backoff``,
+    ``io_jitter``).
+
+    Fault points of ``faults`` (a :class:`repro_torch.robustness.FaultPlan`;
+    default none), a step at a time in the JAX package's order:
+    ``dist.device_loss`` (one device: nothing to lose, no rebuild),
+    ``dist.host_crash`` (raises :class:`InjectedFault` with no save; a
+    second ``run_training`` on the same ``ckpt_dir`` resumes),
+    ``dist.straggler`` for the one data shard, ``train.grad_spike`` (the
+    threshold drops to -1, so the guard skips the step) and
+    ``dist.collective_timeout`` (the launch is retried; past
+    ``collective_retries`` fires in a row it raises :class:`InjectedFault`).
+    A preemption (``preemption_guard``, default a
+    :class:`repro_torch.distributed.PreemptionGuard` on SIGTERM / SIGINT
+    for the run) saves a checkpoint after the step and ends the run with
+    ``status="preempted"``.  ``desync_every`` > 0 needs the cross-replica
+    digest, which is not ported yet, and raises.
 
     Returns {"losses", "step_ms", "trainable", "frozen", "opt",
-    "skipped_steps", "rollbacks"}; ``step_ms`` is the host time of each
-    step, ending when its loss reaches the host.
+    "skipped_steps", "rollbacks", "status", "collective_timeouts",
+    "straggler_flags", "straggler_injected", "mesh_rebuilds",
+    "lost_devices", "resharded_restores"}; ``step_ms`` is the host time of
+    each step, ending when its loss reaches the host.
     """
     if cfg.input_kind != "tokens":
         raise ValueError(f"{cfg.name} takes embeddings and run_training draws "
                          "token batches: train it through train_step with an "
                          "embeds batch")
+    if desync_every > 0:
+        raise ValueError("desync_every needs the cross-replica state digest "
+                         "(desync.py), which is not ported yet (ROADMAP "
+                         "queue 1, item 6)")
+    faults = faults or NO_FAULTS
     device = resolve_device(device)
     if params is None:
         params = model_init(cfg, seed, device=device)
@@ -79,7 +113,9 @@ def run_training(cfg, shape_cfg, *, steps: int, lr: float = 1e-4,
           f"device={device} trainable={sum(t.numel() for t in trainable.values())}",
           flush=True)
 
-    ckpt = Checkpointer(ckpt_dir) if ckpt_dir else None
+    ckpt = (Checkpointer(ckpt_dir, io_retries=io_retries,
+                         io_backoff=io_backoff, io_jitter=io_jitter)
+            if ckpt_dir else None)
     start_step = 0
     if ckpt is not None:
         restored = ckpt.restore({"trainable": trainable, "opt": opt,
@@ -94,51 +130,96 @@ def run_training(cfg, shape_cfg, *, steps: int, lr: float = 1e-4,
     it = make_batch_iterator(source, start_step)
     losses, step_ms = [], []
     gnorm_ema, accepted, consecutive_skips = None, 0, 0
-    skipped_steps = rollbacks = 0
+    skipped_steps = rollbacks = collective_timeouts = 0
+    straggler_injected: list[tuple[int, int]] = []
+    status = "complete"
+    own_guard = preemption_guard is None
+    guard = PreemptionGuard() if own_guard else preemption_guard
+    mon = StragglerMonitor()
+    dist_on = faults.enabled  # no dist.* consult without a plan
 
-    for _ in range(steps):
-        step, batch = next(it)
-        if gnorm_ema is None or accepted < SPIKE_WARMUP:
-            thr = math.inf  # no baseline yet
-        else:
-            thr = SPIKE_FACTOR * gnorm_ema
-        t0 = time.perf_counter()
-        trainable, opt, metrics = train_step(
-            trainable, frozen, opt, batch_tensors(batch, device), cfg=cfg,
-            lr=lr, backend=backend, max_gnorm=thr)
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        if metrics["update_skipped"]:
-            skipped_steps += 1
-            consecutive_skips += 1
-            print(f"[train] step {step:5d} SKIPPED (grad_norm "
-                  f"{metrics['grad_norm']:.3g} > threshold {thr:.3g})",
-                  flush=True)
-            if (consecutive_skips >= ROLLBACK_AFTER and ckpt is not None
-                    and ckpt.latest_step() is not None):
-                restored = ckpt.restore({"trainable": trainable, "opt": opt,
-                                         "data_step": 0})
-                trainable, opt = restored["trainable"], restored["opt"]
-                it = make_batch_iterator(source, restored["data_step"])
-                gnorm_ema, accepted, consecutive_skips = None, 0, 0
-                rollbacks += 1
-                print(f"[train] {ROLLBACK_AFTER} consecutive skips — restored "
-                      f"step {restored['data_step']}", flush=True)
-            continue
-        consecutive_skips = 0
-        gn = metrics["grad_norm"]
-        if math.isfinite(gn):
-            gnorm_ema = gn if gnorm_ema is None else 0.9 * gnorm_ema + 0.1 * gn
-            accepted += 1
-        losses.append(metrics["loss"])
-        if step % log_every == 0:
-            print(f"[train] step {step:5d} loss {metrics['loss']:.4f}",
-                  flush=True)
-        if ckpt is not None and (step + 1) % ckpt_every == 0:
-            ckpt.save(step + 1, {"trainable": trainable, "opt": opt,
-                                 "data_step": step + 1})
+    try:
+        for done in range(steps):
+            if dist_on:
+                # one device: nothing to lose, so no rebuild follows a fire
+                faults.fires("dist.device_loss")
+                if faults.fires("dist.host_crash"):
+                    # a whole-process crash: no save; a new run_training on
+                    # the same ckpt_dir resumes
+                    raise InjectedFault(
+                        f"injected host crash at step count {done}")
+            step, batch = next(it)
+            mon.start_step()
+            if dist_on and faults.fires("dist.straggler", index=0):
+                straggler_injected.append((step, 0))  # fires() slept
+            if faults.fires("train.grad_spike"):
+                thr = -1.0          # the guard skips this step
+            elif gnorm_ema is None or accepted < SPIKE_WARMUP:
+                thr = math.inf      # no baseline yet
+            else:
+                thr = SPIKE_FACTOR * gnorm_ema
+            attempts = 0
+            while dist_on and faults.fires("dist.collective_timeout"):
+                collective_timeouts += 1
+                attempts += 1
+                if attempts > collective_retries:
+                    raise InjectedFault(
+                        "collective timeout persisted past "
+                        f"{collective_retries} retries (step {step})")
+            t0 = time.perf_counter()
+            trainable, opt, metrics = train_step(
+                trainable, frozen, opt, batch_tensors(batch, device), cfg=cfg,
+                lr=lr, backend=backend, max_gnorm=thr)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            mon.end_step(step)
+            if metrics["update_skipped"]:
+                skipped_steps += 1
+                consecutive_skips += 1
+                print(f"[train] step {step:5d} SKIPPED (grad_norm "
+                      f"{metrics['grad_norm']:.3g} > threshold {thr:.3g})",
+                      flush=True)
+                if (consecutive_skips >= ROLLBACK_AFTER and ckpt is not None
+                        and ckpt.latest_step() is not None):
+                    restored = ckpt.restore({"trainable": trainable,
+                                             "opt": opt, "data_step": 0})
+                    trainable, opt = restored["trainable"], restored["opt"]
+                    it = make_batch_iterator(source, restored["data_step"])
+                    gnorm_ema, accepted, consecutive_skips = None, 0, 0
+                    rollbacks += 1
+                    print(f"[train] {ROLLBACK_AFTER} consecutive skips — "
+                          f"restored step {restored['data_step']}",
+                          flush=True)
+                continue
+            consecutive_skips = 0
+            gn = metrics["grad_norm"]
+            if math.isfinite(gn):
+                gnorm_ema = gn if gnorm_ema is None else 0.9 * gnorm_ema + 0.1 * gn
+                accepted += 1
+            losses.append(metrics["loss"])
+            if step % log_every == 0:
+                print(f"[train] step {step:5d} loss {metrics['loss']:.4f}",
+                      flush=True)
+            if ckpt is not None and (step + 1) % ckpt_every == 0:
+                ckpt.save(step + 1, {"trainable": trainable, "opt": opt,
+                                     "data_step": step + 1})
+            if guard.preempted:
+                print("[train] preemption signal — checkpoint and clean exit",
+                      flush=True)
+                if ckpt is not None:
+                    ckpt.save(step + 1, {"trainable": trainable, "opt": opt,
+                                         "data_step": step + 1})
+                status = "preempted"
+                break
+    finally:
+        if own_guard:
+            guard.restore()
     return {"losses": losses, "step_ms": step_ms, "trainable": trainable,
             "frozen": frozen, "opt": opt, "skipped_steps": skipped_steps,
-            "rollbacks": rollbacks}
+            "rollbacks": rollbacks, "status": status,
+            "collective_timeouts": collective_timeouts,
+            "straggler_flags": mon.flags,
+            "straggler_injected": straggler_injected,
+            "mesh_rebuilds": 0, "lost_devices": 0, "resharded_restores": 0}
 
 
 def main(argv=None):

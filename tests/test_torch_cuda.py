@@ -1090,6 +1090,58 @@ def test_paged_split_kv_reads_no_page_past_pos(dev, kv, ps, g):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_paged_decode_carries_a_poisoned_page_to_its_rows(dev, kv):
+    """The engine's ``_poison_page``: every floating leaf of one page NaN
+    (bf16 K and V; int8 through its f32 scales, the codes kept).  At the
+    engine's geometry (8 slots, pages of 64, 20-page tables, llama3-8b's
+    8 KV heads of 4 queries at hd 128): a row that reads a poisoned slot
+    comes out non-finite in every element (the page first in a 16-page row,
+    whose split-KV merge then carries it; last in a row whose pos lies
+    inside it), as the plain version's does; every other row is finite and
+    within 1e-4 of the plain version on the pools before the poison, also
+    the row that maps the page only past pos: the kernel reads no slot past
+    pos (the plain version's gather multiplies those slots' NaN values by
+    a zero weight, so it is not the yardstick there)."""
+    rng = np.random.default_rng(25)
+    b, nkv, g, hd, ps, npages, total = 8, 8, 4, 128, 64, 20, 49
+    q = _bf16(rng, dev, b, nkv, g, hd)
+    pools = [_bf16(rng, dev, total, ps, nkv, hd) for _ in range(2)]
+    if kv == "int8":
+        (kc, ks), (vc, vs) = kv_quantize(pools[0]), kv_quantize(pools[1])
+        pools = [kc, vc, ks, vs]
+    page = 17
+    others = rng.permutation([p for p in range(1, total) if p != page])
+    pos_np = np.array([1000, 300, 5 * ps + 10, 64, 7 * ps - 1, 640, 1279, 5], np.int32)
+    pt_np = np.zeros((b, npages), np.int32)
+    at = 0
+    for i, p in enumerate(pos_np):
+        used = p // ps + 1 + (i == 4)  # row 4 maps one page past pos
+        pt_np[i, :used] = np.resize(others, at + used)[at:]
+        at = (at + used) % len(others)
+    pt_np[0, 0] = pt_np[2, 5] = pt_np[4, 7] = page
+    clean = [t.clone() for t in pools]
+    for leaf in pools:
+        if leaf.is_floating_point():
+            leaf[page] = float("nan")
+    pt, pos = torch.from_numpy(pt_np).to(dev), torch.from_numpy(pos_np).to(dev)
+    before = attn_decode_paged.launches
+    y = attn_decode_paged(q, *pools[:2], pt, pos, *pools[2:], logit_scale=hd**-0.5)
+    assert attn_decode_paged.launches == before + 1
+    y_ref, y_clean = (
+        ref.attn_decode_paged_ref(pt, q.reshape(b, nkv * g, hd), *p[:2], pos, *p[2:],
+                                  logit_scale=hd**-0.5).reshape(y.shape)
+        for p in (pools, clean))
+    for i in range(b):
+        if i in (0, 2):
+            assert not torch.isfinite(y[i]).any(), (kv, i)
+            assert not torch.isfinite(y_ref[i]).any(), (kv, i)
+        else:
+            assert torch.isfinite(y[i]).all(), (kv, i)
+            torch.testing.assert_close(y[i], y_clean[i], rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
 def test_lords_matmul_t_stages_s_from_memory_only_at_large_ranks(dev):
     """The LoRDS dx kernel keeps 3xTF32 S in the kernel at every width up to
     r = 40 and stages an f32 S from memory at r = 72: its scratch is the

@@ -412,20 +412,42 @@ def test_engine_rejects_oversized_request(models):
 
 
 def test_engine_step_errors_propagate(models, monkeypatch):
-    """No handler around the steps: an error in a decode step leaves
-    ``run``, and a non-finite logit stops the run naming its request."""
+    """An organic error in a decode step propagates into the engine's
+    retry path, not out of ``run``: it is logged, the pool is rebuilt,
+    every active request recomputes (each decode participant charged one
+    retry), and the tokens equal a clean run's, as in the JAX engine
+    (``_step_failure`` with ``injected=False``)."""
     _, _, cfg, _ = models
     reqs = _requests(Request, cfg, [10, 6], 7, 4, 0.0)
     eng = _small_engine(models, burst=2)
-    eng.warmup()
+    clean = eng.run(reqs)
     real = steps.forward_decode_paged
+    calls = []
 
-    def boom(*args, **kwargs):
-        raise RuntimeError("decode kernel failed")
+    def boom_once(*args, **kwargs):
+        calls.append(1)
+        if len(calls) == 1:
+            raise RuntimeError("decode kernel failed")
+        return real(*args, **kwargs)
 
-    monkeypatch.setattr(steps, "forward_decode_paged", boom)
-    with pytest.raises(RuntimeError, match="decode kernel failed"):
-        eng.run(reqs)
+    monkeypatch.setattr(steps, "forward_decode_paged", boom_once)
+    stats = eng.run(reqs)
+    assert stats["all_completed"] and stats["step_failures"] == 1
+    assert stats["retries"] == 2 and stats["page_audit"]["ok"]
+    assert _tokens(stats) == _tokens(clean)
+    tok = steps.sample_token_guarded(torch.tensor([[0.0, 1.0], [float("inf"), 0.0]]), 0.0)
+    assert tok.tolist() == [1, steps.NONFINITE_TOKEN]
+
+
+def test_engine_nonfinite_logit_quarantines_one_request(models, monkeypatch):
+    """A non-finite logit fails only the request of its row
+    (``failed/non_finite`` with the tokens before it, its pages reclaimed);
+    the other request completes with the clean run's tokens."""
+    _, _, cfg, _ = models
+    reqs = _requests(Request, cfg, [10, 6], 7, 4, 0.0)
+    eng = _small_engine(models, burst=2)
+    clean = _tokens(eng.run(reqs))
+    real = steps.forward_decode_paged
 
     def poisoned(*args, **kwargs):
         logits, pools = real(*args, **kwargs)
@@ -433,11 +455,13 @@ def test_engine_step_errors_propagate(models, monkeypatch):
         return logits, pools
 
     monkeypatch.setattr(steps, "forward_decode_paged", poisoned)
-    eng = _small_engine(models, burst=2)
-    with pytest.raises(RuntimeError, match="request 0: non-finite"):
-        eng.run(reqs)
-    tok = steps.sample_token_guarded(torch.tensor([[0.0, 1.0], [float("inf"), 0.0]]), 0.0)
-    assert tok.tolist() == [1, steps.NONFINITE_TOKEN]
+    stats = eng.run(reqs)
+    rec = {r["rid"]: r for r in stats["records"]}
+    assert (rec[0]["status"], rec[0]["reason"]) == ("failed", "non_finite")
+    assert rec[0]["tokens"] == clean[0][:1]  # token 1 came from the prefill
+    assert rec[1]["status"] == "completed" and rec[1]["tokens"] == clean[1]
+    assert stats["quarantined"] == 1 and stats["page_audit"]["ok"]
+    assert stats["page_audit"]["free"] == eng.total_pages - 1
 
 
 def _chip_smoke():
@@ -455,14 +479,12 @@ def _chip_smoke():
 def test_chip_smoke_engine_trace_evicts(models, total_pages, evictions):
     """The schedule of chip_smoke.py's phase 4 (its geometry and its
     16-request trace, every arrival at 0) depends only on the lengths, so
-    the scheduler alone, with steps that return token 0, shows it: a pool
+    the scheduler alone, with steps that return token 0
+    (``chip_smoke.stub_engine``), shows it: a pool
     of 65 pages never evicts, 49 pages evict once."""
     smoke = _chip_smoke()
-    _, _, cfg, params = models
-    geom = {**smoke.ENGINE, "total_pages": total_pages}
-    eng = Engine(cfg.with_(kv_cache_dtype="int8"), params=params, device="cpu", **geom)
-    eng._chunk_step = lambda tokens, *a: np.zeros(tokens.shape[0], np.int32)
-    eng._decode_step = lambda tok, pt, pos, n: np.zeros((tok.shape[0], n), np.int32)
+    _, _, cfg, _ = models
+    eng = smoke.stub_engine({**smoke.ENGINE, "total_pages": total_pages})
     reqs = smoke.engine_trace(cfg, smoke.N_REQUESTS)
     stats = eng.run(reqs)
     assert stats["all_completed"] and stats["page_audit"]["ok"]
