@@ -62,7 +62,15 @@ Mamba, attention at layer 4, MoE every 2nd layer, 16 experts) at full width
 with the routing pinned as phase 15, each with exact launch counts (every
 quantized linear once in the prefill and once a decode step) and one
 profiled decode step; phase 18 trains xlstm's first period (8 layers) as
-phase 5 does, its gradient check over the whole period.  Each path runs
+phase 5 does, its gradient check over the whole period.  Phase 19 runs
+two ranks on the one card (``repro_torch.launch.ranks.run_ranks``, gloo):
+llama3-8b at full width and 4 layers served at 1×2 (tensor parallel, each
+rank's launch counts and linear rows checked, teacher-forced logits against
+one rank's fused and ref runs) and trained (PEFT) at 2×1 and 1×2 under a
+seeded desync plan (losses and gradient norms against one rank's; on each
+rank one step's gradients at the shard shapes, fused against ref), its
+sharded checkpoint restored at 2×1 and on one rank byte for byte.  Phase 2 also holds the attention kernels at
+kimi-k2's head dim 112.  Each path runs
 with the launch counts set to 0 just before it, must launch every kernel
 it uses (and none of another path's linears or decode kernels), and must hold
 its outputs (teacher-forced logits, or one step's gradients) within a
@@ -84,6 +92,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.perf_counter()  # the script's start: the ranks' deadline counts from it
 HBM_BYTES_S = 3.35e12    # H100 SXM HBM3
 BF16_FLOP_S = 989e12     # dense bf16 tensor cores
 FP32_FLOP_S = 67e12      # FP32 outside the tensor cores
@@ -135,6 +144,8 @@ MLA_LAYERS = 31
 MLA_ENGINE_LAYERS = 8
 EMBEDS_ARCHS = ("internvl2-1b", "musicgen-medium")
 MOE_ARCH = "phi3.5-moe-42b-a6.6b"
+# phase 2's head dim 112 checks: kimi-k2's attention (64 heads, 8 KV heads)
+KIMI_ARCH = "kimi-k2-1t-a32b"
 MOE_TRAIN_LAYERS = 4
 # phases 16-18: the recurrent archs.  jamba runs one period, 8 of its 72
 # layers: ≈ 22 GB of nf4 codes a period, ≈ 200 GB at full depth, past the
@@ -143,6 +154,17 @@ MOE_TRAIN_LAYERS = 4
 # many of them under autograd)
 SSM_ARCH = "xlstm-1.3b"
 HYBRID_ARCH = "jamba-1.5-large-398b"
+# phase 19: two ranks on the one card (gloo), llama3-8b LoRDS nf4 at full
+# width and 4 layers; serve_batch at 1×2 (batch 4, prompt 512, gen 8) and
+# run_training PEFT at 2×1 and 1×2 (4096 tokens: 2 sequences of 2048, so
+# the batch divides the data axis), 2 steps, a desync digest every step
+SHARD_LAYERS, SHARD_GEN = 4, 8
+SHARD_SEQ, SHARD_BATCH, SHARD_STEPS = 2048, 2, 2
+SHARD_DESYNC = {"dist.replica_desync": {"prob": 1.0, "max_fires": 1, "only_index": 1}}
+# a collective of the ranks fails after SHARD_COLLECTIVE_S; the ranks'
+# call as a whole (they start with the script and wait through phases
+# 1-18, which is no collective) ends within the script's 1200 s
+SHARD_COLLECTIVE_S, SHARD_DEADLINE_S = 120, 1150
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "lords_matmul": ("lords_matmul", "src/repro/kernels/lords_matmul.py:140"),
     "lords_decode": ("lords_decode", "src/repro/kernels/lords_decode.py:84"),
@@ -272,6 +294,7 @@ class KernelCheck:
 def check_kernels(cfg, torch, F):
     """Phase 2: each kernel against its plain version at the main path's
     shapes; returns the per-kernel summaries (times are per layer)."""
+    from repro_torch.configs import get_config
     from repro_torch.core import init_quantized_linear
     from repro_torch.core.lords import dequantize_weight
     from repro_torch.kernels import ref
@@ -325,13 +348,19 @@ def check_kernels(cfg, torch, F):
         del p, w_hat
 
     check_decode_gemvs(cfg, torch, results, gen, flush)
-    check_attention(cfg, torch, F, results, gen, flush)
+    check_attention(torch, F, results, gen, flush, nh=nh, nkv=nkv, hd=hd)
     check_mla_attention(torch, F, results, gen, flush)
     check_train_kernels(cfg, torch, results, gen, flush)
     check_block_kernels(cfg, torch, results, gen, flush)
     # last: the checks above keep the generator's stream, so their inputs
     # are those of every earlier run of this script
     check_expert_gemvs(torch, results, gen, flush)
+    # the head dim 112 builds at kimi-k2's attention (64 heads, 8 KV heads),
+    # on a generator of their own; not primary
+    kimi = get_config(KIMI_ARCH)
+    check_attention(torch, F, results, torch.Generator(device=dev).manual_seed(112), flush,
+                    nh=kimi.num_heads, nkv=kimi.num_kv_heads, hd=kimi.resolved_head_dim,
+                    tag="kimi-k2 ")
     del scratch
     return results
 
@@ -850,10 +879,12 @@ def check_prefill(torch, F, results, gen, flush, rng, *, nh, nkv, hd, hdv, tag,
     del q, k, v, qt, kt, vt, out, mask
 
 
-def check_attention(cfg, torch, F, results, gen, flush):
-    """Phase 2, attention: prefill and decode at serve_batch's shapes (bf16
-    and int8 cache), chunk-mode prefill and paged decode (bf16 and int8
-    pool) at the engine's geometry."""
+def check_attention(torch, F, results, gen, flush, *, nh, nkv, hd, tag=""):
+    """Phase 2, attention at (nh, nkv, hd): prefill and decode at
+    serve_batch's shapes (bf16 and int8 cache), chunk-mode prefill and
+    paged decode (bf16 and int8 pool) at the engine's geometry.  With a
+    ``tag`` (another model's heads) no line is primary and the
+    paged-against-contiguous yardstick is skipped."""
     import numpy as np
 
     from repro_torch.kernels import dispatch, ref
@@ -863,13 +894,12 @@ def check_attention(cfg, torch, F, results, gen, flush):
 
     dev = torch.device("cuda")
     bf16 = torch.bfloat16
-    hd, nh, nkv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
     g = nh // nkv
     scale = 1.0 / hd**0.5
     cap = PROMPT + GEN
     rng = np.random.default_rng(2)
-    check_prefill(torch, F, results, gen, flush, rng, nh=nh, nkv=nkv, hd=hd, hdv=hd, tag="",
-                  chunk_primary=True)
+    check_prefill(torch, F, results, gen, flush, rng, nh=nh, nkv=nkv, hd=hd, hdv=hd, tag=tag,
+                  chunk_primary=not tag)
     slots = ENGINE["slots"]
 
     # serve_batch's decode at its last step: 543 of 544 slots live, bf16 and
@@ -901,12 +931,13 @@ def check_attention(cfg, torch, F, results, gen, flush):
                   + kmask.numel() * 4 + out.numel() * 4)
         b_ms, b_by = bound(nbytes, {"bf16": (4 * hd * nh * n_live * BATCH, BF16_FLOP_S)})
         results["attn_decode"].add(
-            f"{kv} cache b={BATCH} S={cap} nkv={nkv} g={g} hd={hd} live={n_live}", err, 1e-4,
-            timed(lambda: attn_decode(*args, logit_scale=scale), 50, flush),
+            f"{tag}{kv} cache b={BATCH} S={cap} nkv={nkv} g={g} hd={hd} live={n_live}", err,
+            1e-4, timed(lambda: attn_decode(*args, logit_scale=scale), 50, flush),
             timed(lambda: ref.attn_decode_kmask(qd, operands[0], operands[1], kmask, scale,
                                                 *operands[2:]), 5, flush),
-            sdpa_ms if kv == "bf16" else None, b_ms, b_by, primary=primary)
-    log(f"[yardstick] SDPA over the bf16 contiguous cache, live {n_live}: {sdpa_ms:.4f} ms")
+            sdpa_ms if kv == "bf16" else None, b_ms, b_by, primary=primary and not tag)
+    log(f"[yardstick] {tag}SDPA over the bf16 contiguous cache, live {n_live}: "
+        f"{sdpa_ms:.4f} ms")
 
     # the engine's decode: 8 slots, pages of 64, 20-entry page tables into a
     # pool of ENGINE["total_pages"]; scattered tables, unmapped entries 0
@@ -939,12 +970,14 @@ def check_attention(cfg, torch, F, results, gen, flush):
                   + pt.numel() * 4 + ppos.numel() * 4 + out.numel() * 4)
         b_ms, b_by = bound(nbytes, {"bf16": (4 * hd * nh * live_slots, BF16_FLOP_S)})
         results["attn_decode_paged"].add(
-            f"{kv} pool slots={slots} ps={ps} np={npages} pages={total} "
-            f"live_slots={live_slots}", err, 1e-4,
+            f"{tag}{kv} pool slots={slots} ps={ps} np={npages} pages={total} nkv={nkv} "
+            f"g={g} hd={hd} live_slots={live_slots}", err, 1e-4,
             timed(lambda: attn_decode_paged(*args, logit_scale=scale), 50, flush),
-            timed(plain, 5, flush), None, b_ms, b_by, primary=primary)
-    log(f"[yardstick] SDPA over the same live windows gathered into a bf16 contiguous "
+            timed(plain, 5, flush), None, b_ms, b_by, primary=primary and not tag)
+    log(f"[yardstick] {tag}SDPA over the same live windows gathered into a bf16 contiguous "
         f"cache (b={slots}, S={capp}): {sdpa_ms:.4f} ms")
+    if tag:
+        return
 
     # paged against contiguous at one live length: serve_batch's decode
     # (b 4, 543 of 544 slots live) with its cache scattered over pages
@@ -2087,6 +2120,388 @@ def ptq_phase(cfg, torch):
         raise AssertionError("allocate overspent its budget")
 
 
+# ---------------------------------------------------------------------------
+# phase 19: data × tensor parallel on two ranks sharing the card
+# ---------------------------------------------------------------------------
+
+
+class _Recorder:
+    """A LoRDS forward wrapper that records each call's codes' (N, K) and
+    keeps the wrapper's launch count (read and reset through it)."""
+
+    def __init__(self, real, name, seen):
+        self.real, self.name, self.seen = real, name, seen
+
+    def __call__(self, x, q, *rest, **kw):
+        self.seen.add((self.name, q.shape[-2], x.shape[-1]))
+        return self.real(x, q, *rest, **kw)
+
+    @property
+    def launches(self):
+        return self.real.launches
+
+    @launches.setter
+    def launches(self, value):
+        self.real.launches = value
+
+
+def _shape_recorder():
+    """Put a :class:`_Recorder` in place of the two LoRDS forward wrappers
+    the dispatch calls: the rows a rank runs its linears on."""
+    from repro_torch.kernels import lords_decode as dec_mod
+    from repro_torch.kernels import lords_matmul as mm_mod
+
+    seen = set()
+    for mod, name in ((mm_mod, "lords_matmul"), (dec_mod, "lords_decode")):
+        setattr(mod, name, _Recorder(getattr(mod, name), name, seen))
+    return seen
+
+
+def _teacher_forced(cfg, params, torch, tokens, mesh=None):
+    """The logits of prefill and every decode step fed ``tokens`` (the
+    sharded run's), inside ``mesh``'s shard scope on this rank's
+    windows."""
+    import numpy as np
+
+    from repro_torch.distributed.sharding import execution_pspecs, shard_tree
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import cache_init, forward_decode, forward_prefill
+
+    dev = torch.device("cuda")
+    if mesh is not None:
+        params = shard_tree(params, execution_pspecs(params, cfg.quant, mesh), mesh)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (BATCH, PROMPT + SHARD_GEN))
+    window = {"tokens": torch.from_numpy(prompts).to(dev)}
+    col = torch.arange(PROMPT + SHARD_GEN, dtype=torch.int32, device=dev)[None]
+    positions = torch.where(col < PROMPT, col, -1).expand(BATCH, PROMPT + SHARD_GEN)
+    out = []
+    with torch.inference_mode(), dispatch.shard_scope(mesh):
+        cache = cache_init(cfg, BATCH, PROMPT + SHARD_GEN, device=dev)
+        lg, _ = forward_prefill(params, cfg, window, cache, positions)
+        out.append(lg[:, -1, : cfg.vocab_size].float())
+        for step in range(1, SHARD_GEN):
+            tok = torch.from_numpy(np.asarray(tokens[:, step - 1])).to(dev)
+            pos = torch.full((BATCH,), PROMPT + step - 1, dtype=torch.int32, device=dev)
+            lg, _ = forward_decode(params, cfg, {"tokens": tok}, cache, pos)
+            out.append(lg[:, -1, : cfg.vocab_size].float())
+    return torch.stack(out)
+
+
+def _train_shape():
+    from repro_torch.configs import ShapeCfg
+
+    return ShapeCfg("train_4k, cut", SHARD_SEQ, SHARD_BATCH, "train")
+
+
+def _whole_state(trainable, opt, mesh, specs):
+    """A run's (trainable, moments) gathered whole over the model axis, on
+    the host."""
+    from repro_torch.distributed import collectives
+
+    out = {}
+    for name, tree in (("trainable", trainable), ("mu", opt.mu), ("nu", opt.nu)):
+        for path, t in tree.items():
+            node = specs
+            for key in path:
+                node = node[key]
+            if any(e is not None for e in node):
+                t = collectives.all_gather(t.contiguous(), mesh, "model", dim=0)
+            out[(name,) + path] = t.detach().cpu()
+    return out
+
+
+def _sharded_grad_check(cfg, params, mesh, torch):
+    """One ``forward_train`` and its gradients on this rank's windows and
+    rows of the training batch, fused against ref: the kernels at the
+    shard shapes (N/2 rows at 1×2, half the tokens at 2×1) against their
+    plain versions on the same inputs.  Returns the loss's |Δ|/loss and
+    each leaf kind's least cosine (as :func:`grad_check`; the gradients
+    are this rank's, before the step's sum over the data axis)."""
+    from repro_torch.core import peft
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distributed.sharding import execution_pspecs, shard_tree
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.steps import data_rows
+    from repro_torch.launch.train import batch_tensors
+    from repro_torch.models import forward_train
+
+    local = shard_tree(params, execution_pspecs(params, cfg.quant, mesh), mesh)
+    trainable, frozen = peft.partition(local, cfg.quant)
+    paths = [p for p in trainable if p[-1] in ("a", "b")]
+    leaves = [trainable[p].detach().requires_grad_() for p in paths]
+    tree = peft.combine({**trainable, **dict(zip(paths, leaves))}, frozen)
+    batch = batch_tensors(SyntheticLM(cfg.vocab_size, SHARD_SEQ, SHARD_BATCH, seed=1)
+                          .batch_at(0), leaves[0].device)
+    rows, split = data_rows(mesh, SHARD_BATCH)
+    batch = {k: t[rows] for k, t in batch.items()}
+    res = {}
+    for backend in ("fused", "ref"):
+        with dispatch.shard_scope(mesh, tokens_split=split), dispatch.backend_scope(backend):
+            loss, _ = forward_train(tree, cfg, batch)
+            res[backend] = loss.item(), torch.autograd.grad(loss, leaves)
+    (lf, gf), (lr_, gr) = res["fused"], res["ref"]
+    worst = {}
+    for path, a, b in zip(paths, gf, gr):
+        cos = torch.nn.functional.cosine_similarity(a.double().flatten(), b.double().flatten(),
+                                                    dim=0).item()
+        worst[path[-1]] = min(worst.get(path[-1], 2.0), cos)
+    return {"loss": (lf, lr_), "rel": abs(lf - lr_) / abs(lr_), "cos": worst}
+
+
+def sharded_rank(cfg, inputs, go, abort):
+    """Phase 19 on one rank, started with the script: it imports, joins its
+    meshes and waits for ``go`` (raising once ``abort`` is set: an earlier
+    phase failed).  Then (a) serve_batch at 1×2 with each cache, its
+    launch counts, the (N, K) its LoRDS launches ran at, the collectives,
+    and teacher-forced logits on its own tokens; (b) run_training PEFT at
+    2×1 and at 1×2 under the desync plan, with a checkpoint every step;
+    (c) the 1×2 run's sharded checkpoint restored at 2×1 against its state
+    gathered whole."""
+    import torch
+    # the first non-reentrant torch.utils.checkpoint call of a process
+    # imports torch._dynamo: 8-13 s of a rank's first training step on an
+    # H100 machine's host (PERF.md §6), taken here while the rank waits
+    import torch._dynamo  # noqa: F401
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.core import peft
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.sharding import execution_pspecs
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.launch.train import _state_specs, run_training
+    from repro_torch.models import model_init
+    from repro_torch.optim import adamw_init
+    from repro_torch.robustness import FaultPlan
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    meshes = {"1x2": make_host_mesh(1, 2), "2x1": make_host_mesh(2, 1)}
+    mesh = meshes["1x2"]
+    while not go.wait(1.0):
+        if abort.is_set():
+            raise RuntimeError("phase 19 not run: an earlier phase failed")
+    t0 = time.perf_counter()
+    params = model_init(cfg, 0, device=dev)
+    out = {"rank": mesh.rank, "serve": {}, "train": {}}
+    shapes = _shape_recorder()
+    serve_batch(cfg, batch=BATCH, prompt_len=PROMPT, gen=2, params=params,
+                device=dev, mesh=mesh)  # warm-up: first launches, cuBLAS, gloo
+    for kv in ("bf16", "int8"):
+        shapes.clear()
+        collectives.reset_counts()
+        t1 = time.perf_counter()
+        res, launches = counted(lambda: serve_batch(
+            cfg, batch=BATCH, prompt_len=PROMPT, gen=SHARD_GEN, params=params, device=dev,
+            kv_cache=kv, mesh=mesh))
+        wall = time.perf_counter() - t1
+        coll = collectives.counts()
+        logits = _teacher_forced(cfg.with_(kv_cache_dtype=kv), params, torch,
+                                 res["tokens"], mesh)
+        out["serve"][kv] = {"tokens": res["tokens"], "launches": launches,
+                            "shapes": sorted(shapes), "collectives": coll,
+                            "prefill_ms": res["prefill_ms"], "decode_ms": res["decode_ms"],
+                            "wall_s": wall,
+                            "logits": logits.cpu() if mesh.rank == 0 else None}
+    for name, shape in (("2x1", meshes["2x1"]), ("1x2", mesh)):
+        directory = f"{inputs['dir']}/{name}"
+        fresh = model_init(cfg, 0, device=dev)
+        collectives.reset_counts()
+        t1 = time.perf_counter()
+        res, launches = counted(lambda: run_training(
+            cfg, _train_shape(), steps=SHARD_STEPS, lr=PEFT_LR, device=dev, params=fresh,
+            log_every=100, mesh=shape, desync_every=1, ckpt_dir=directory, ckpt_every=1,
+            faults=FaultPlan(0, SHARD_DESYNC)))
+        out["train"][name] = {k: res[k] for k in ("losses", "grad_norms", "status",
+                                                  "desyncs_detected", "desync_rollbacks",
+                                                  "final_mesh", "step_ms", "skipped_steps")}
+        out["train"][name].update(launches=launches, collectives=collectives.counts(),
+                                  wall_s=time.perf_counter() - t1)
+        out["train"][name]["grad_check"] = _sharded_grad_check(cfg, params, shape, torch)
+    # (c) the 1×2 run's last checkpoint (its final state: no rollback on one
+    # replica), restored onto 2×1's layout, against that state gathered whole
+    whole = model_init(cfg, 0, device=dev)
+    specs12 = execution_pspecs(whole, cfg.quant, mesh)
+    trainable, _ = peft.partition(whole, cfg.quant)
+    final = _whole_state(res["trainable"], res["opt"], mesh, specs12)
+    ck = Checkpointer(f"{inputs['dir']}/1x2")
+    m21 = meshes["2x1"]
+    state21 = _state_specs(trainable, execution_pspecs(whole, cfg.quant, m21))
+    got = ck.restore({"trainable": trainable, "opt": adamw_init(trainable), "data_step": 0},
+                     mesh=m21, specs=state21)
+    flat = {("trainable",) + k: v for k, v in got["trainable"].items()}
+    flat.update({("mu",) + k: v for k, v in got["opt"].mu.items()})
+    flat.update({("nu",) + k: v for k, v in got["opt"].nu.items()})
+    out["ckpt"] = {"step": ck.latest_step(), "pspecs": sorted(
+        {p for p in ck.saved_pspecs() if p}),
+        "restored_2x1_equal": all(torch.equal(flat[k].cpu(), v) for k, v in final.items()),
+        "final": final if mesh.rank == 0 else None}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+@contextlib.contextmanager
+def sharded_ranks():
+    """Phase 19's two ranks (run_ranks, gloo, one card), started now in a
+    thread: their imports, CUDA start-up and rendezvous (≈ 20 s on an
+    H100 machine's host, PERF.md §6) overlap the build and phases 2-18, and each
+    waits for the phase.  If the phase is not reached the ranks are told to
+    stop; either way they have ended when the block exits."""
+    import concurrent.futures
+    import tempfile
+    import types
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.ranks import run_ranks
+
+    ctx = mp.get_context("spawn")
+    go, abort = ctx.Event(), ctx.Event()
+    cfg = get_config("llama3-8b").with_(num_layers=SHARD_LAYERS)
+    with (tempfile.TemporaryDirectory(prefix="phase19_") as tmp,
+          concurrent.futures.ThreadPoolExecutor(1) as pool):
+        future = pool.submit(run_ranks, sharded_rank, 2, args=(cfg, {"dir": tmp}, go, abort),
+                             device="cuda", timeout=SHARD_COLLECTIVE_S,
+                             deadline=SHARD_DEADLINE_S - (time.perf_counter() - T_START))
+        try:
+            yield types.SimpleNamespace(future=future, go=go, cfg=cfg, dir=tmp,
+                                        started=time.perf_counter())
+        finally:
+            if not go.is_set():
+                abort.set()
+            with contextlib.suppress(Exception):  # a phase's error is already raised
+                future.result()
+
+
+def sharded_phase(torch, bg):
+    """Phase 19: the ranks started by :func:`sharded_ranks` run on ``go``,
+    the single-rank fused training run here beside them; then the
+    single-rank teacher-forced logits on the ranks' tokens, fused and ref,
+    and the checks.  Returns each rank-0 path's launch counts."""
+    import numpy as np
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.core import peft
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.train import run_training
+    from repro_torch.models import model_init
+    from repro_torch.optim import adamw_init
+
+    dev = torch.device("cuda")
+    cfg, tmp = bg.cfg, bg.dir
+    if bg.future.done():  # a rank failed while waiting
+        bg.future.result()
+    t1 = time.perf_counter()
+    bg.go.set()
+    single_train = run_training(cfg, _train_shape(), steps=SHARD_STEPS, lr=PEFT_LR,
+                             device=dev, params=model_init(cfg, 0, device=dev),
+                             log_every=100, desync_every=1)
+    t_ref = time.perf_counter() - t1
+    ranks = bg.future.result()
+    t_ranks = time.perf_counter() - t1
+    r0 = ranks[0]
+    params = model_init(cfg, 0, device=dev)
+    single = {}
+    for kv in ("bf16", "int8"):
+        for backend in ("fused", "ref"):
+            with dispatch.backend_scope(backend):
+                single[kv, backend] = _teacher_forced(cfg.with_(kv_cache_dtype=kv), params,
+                                                      torch, r0["serve"][kv]["tokens"])
+    del params
+    # (c) the 1×2 checkpoint on one rank, against rank 0's gathered state
+    whole = model_init(cfg, 0, device=dev)
+    trainable, _ = peft.partition(whole, cfg.quant)
+    ck = Checkpointer(f"{tmp}/1x2")
+    got = ck.restore({"trainable": trainable, "opt": adamw_init(trainable),
+                      "data_step": 0})
+    flat = {("trainable",) + k: v for k, v in got["trainable"].items()}
+    flat.update({("mu",) + k: v for k, v in got["opt"].mu.items()})
+    flat.update({("nu",) + k: v for k, v in got["opt"].nu.items()})
+    equal_1x1 = all(torch.equal(flat[k].cpu(), v) for k, v in r0["ckpt"]["final"].items())
+    del whole, trainable, got, flat
+    log(f"[sharded] llama3-8b LoRDS nf4 full width, {SHARD_LAYERS} layers, 2 ranks on one "
+        f"card (gloo), started {t1 - bg.started:.1f} s before the phase: ranks "
+        f"{t_ranks:.1f} s from the phase's start to their results (rank bodies "
+        f"{', '.join(f'{r['seconds']:.1f}' for r in ranks)} s), the single-rank training "
+        f"run beside them {t_ref:.1f} s")
+    paths = {}
+    for kv in ("bf16", "int8"):
+        what = f"sharded serve 1x2 {kv}"
+        for backend in ("fused", "ref"):
+            worst = LogitBound()
+            for step in range(SHARD_GEN):
+                worst.add(torch, r0["serve"][kv]["logits"][step].to(dev),
+                          single[kv, backend][step], f"step {step}")
+            worst.check(f"{what} vs the single-rank {backend} run on its tokens")
+        for r in ranks:
+            sv = r["serve"][kv]
+            la = sv["launches"]
+            log(f"[{what}] rank {r['rank']}: prefill {sv['prefill_ms']:.1f} ms, decode "
+                f"{sv['decode_ms']:.1f} ms for {SHARD_GEN - 1} steps, launches "
+                f"lords_matmul {la['lords_matmul']}, lords_decode {la['lords_decode']}, "
+                f"attn_prefill {la['attn_prefill']}, attn_decode {la['attn_decode']}; "
+                f"(kernel, N, K) {sv['shapes']}; collectives {sv['collectives']} = "
+                f"{sv['collectives']['all_gather'] / (SHARD_LAYERS * SHARD_GEN):g} "
+                "all_gathers a layer and forward")
+            want = {"lords_matmul": 7 * SHARD_LAYERS,
+                    "lords_decode": 7 * SHARD_LAYERS * (SHARD_GEN - 1),
+                    "attn_prefill": SHARD_LAYERS, "attn_decode": SHARD_LAYERS * (SHARD_GEN - 1)}
+            wrong = {n: (la[n], c) for n, c in want.items() if la[n] != c}
+            rows = {(n, k) for _, n, k in sv["shapes"]}
+            want_rows = {(cfg.num_heads * cfg.resolved_head_dim // 2, cfg.d_model),
+                         (cfg.num_kv_heads * cfg.resolved_head_dim // 2, cfg.d_model),
+                         (cfg.d_ff // 2, cfg.d_model), (cfg.d_model // 2, cfg.d_ff),
+                         (cfg.d_model // 2, cfg.num_heads * cfg.resolved_head_dim)}
+            if wrong or rows != want_rows:
+                raise AssertionError(f"{what} rank {r['rank']}: counts (got, want) {wrong}; "
+                                     f"rows {sorted(rows)} != {sorted(want_rows)}")
+            if not (r["serve"][kv]["tokens"] == r0["serve"][kv]["tokens"]).all():
+                raise AssertionError(f"{what}: the ranks sampled different tokens")
+        paths[f"{what} rank 0"] = r0["serve"][kv]["launches"]
+    for name in ("2x1", "1x2"):
+        what = f"sharded train {name}"
+        tr = r0["train"][name]
+        log(f"[{what}] losses {tr['losses']} (single rank {single_train['losses']}), grad "
+            f"norms {tr['grad_norms']} (single rank {single_train['grad_norms']}), status "
+            f"{tr['status']}, desyncs_detected {tr['desyncs_detected']}, desync_rollbacks "
+            f"{tr['desync_rollbacks']}, final_mesh {tr['final_mesh']}, step ms "
+            f"{', '.join(f'{t:.1f}' for t in tr['step_ms'])}, collectives "
+            f"{tr['collectives']}, launches {tr['launches']}, {tr['wall_s']:.1f} s")
+        want_desync = 1 if name == "2x1" else 0  # replica 1 exists only at 2×1
+        for r in ranks:
+            t = r["train"][name]
+            if (t["status"] != "complete" or t["desyncs_detected"] != want_desync
+                    or t["desync_rollbacks"] != want_desync or t["skipped_steps"]):
+                raise AssertionError(f"{what} rank {r['rank']}: {t}")
+            np.testing.assert_allclose(t["losses"], single_train["losses"], rtol=1e-4, atol=1e-5)
+            # the step's sums: the first step's global norm (the same params
+            # and batch) as tests/test_torch_dist.py bounds it; the second's
+            # after an update that moves near-zero gradients' elements by ~lr
+            np.testing.assert_allclose(t["grad_norms"][0], single_train["grad_norms"][0],
+                                       rtol=1e-3)
+            np.testing.assert_allclose(t["grad_norms"], single_train["grad_norms"], rtol=1e-2)
+            gc = t["grad_check"]
+            log(f"[{what}] rank {r['rank']} kernels at the shard shapes, fused vs ref, one "
+                f"step: loss {gc['loss'][0]:.5f} vs {gc['loss'][1]:.5f} (|Δ|/loss "
+                f"{gc['rel']:.2e} <= {LOSS_REL_MAX}); min gradient cosine by leaf "
+                + ", ".join(f"d{k} {c:.6f}" for k, c in gc["cos"].items())
+                + f" (>= {GRAD_COS_MIN})")
+            if gc["rel"] > LOSS_REL_MAX or min(gc["cos"].values()) < GRAD_COS_MIN:
+                raise AssertionError(f"{what} rank {r['rank']}: fused and ref gradients "
+                                     "disagree beyond the bound at the shard shapes")
+        _require(what, tr["launches"], ("lords_matmul", "lords_matmul_t", "lords_grad",
+                                        "attn_prefill"))
+        paths[f"{what} rank 0"] = tr["launches"]
+    ck = r0["ckpt"]
+    log(f"[sharded ckpt] saved at 1x2 (step {ck['step']}, specs {ck['pspecs']}): restored "
+        f"at 2x1 byte for byte {all(r['ckpt']['restored_2x1_equal'] for r in ranks)}, at "
+        f"1x1 {equal_1x1}")
+    if not (equal_1x1 and all(r["ckpt"]["restored_2x1_equal"] for r in ranks)):
+        raise AssertionError("sharded checkpoint: a restore differs from the saved state")
+    return paths
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2141,7 +2556,11 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    with sharded_ranks() as ranks:  # phase 19's ranks start now, beside phases 1-18
+        return run_phases(torch, F, ranks)
 
+
+def run_phases(torch, F, ranks) -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
 
@@ -2349,6 +2768,13 @@ def main() -> int:
     log(f"[train ssm] phase time {time.perf_counter() - t0:.1f} s")
     del params
     torch.cuda.empty_cache()
+
+    # phase 19: two ranks sharing the card, serving and training sharded
+    t0 = time.perf_counter()
+    for path, counts in sharded_phase(torch, ranks).items():
+        paths[path] = counts
+        depths[path] = SHARD_LAYERS
+    log(f"[sharded] phase time {time.perf_counter() - t0:.1f} s")
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [

@@ -56,6 +56,9 @@
 //    value columns are permuted the other way (thread g of a quad owns hd/8
 //    consecutive columns), so its V fragments are one row read each.  P is
 //    split in bf16 hi / lo parts (f32 accuracy, as csrc/attn_prefill.cu).
+//  * hd 112 (kimi-k2) is 7 k16 steps and 14 value columns a quad thread:
+//    its V segment (28 bytes bf16, 14 int8) is read as words or halfwords,
+//    the only code path that differs from the other head dims'.
 //  * The warps' (m, l, acc) meet in shared memory in the fragments' order
 //    (row stride hd + 8: conflict-free stores; in the columns' order the
 //    stores were 32-way bank conflicts that cost the kernel a third of its
@@ -63,7 +66,7 @@
 //    The last CTA's merge takes each row's max and sum over the chunks a
 //    warp per row, then every output over the chunks with independent loads.
 //
-// Shapes: hd in {16, 32, 64, 128}; any g; contiguous: any S; paged: any ps
+// Shapes: hd in {16, 32, 64, 112, 128}; any g; contiguous: any S; paged: any ps
 // (the wrapper asks for a multiple of 8); chunk a multiple of 64 (and of ps
 // on the paged entry).  Launches on one stream run one after another; two
 // launches at once on two streams would share the tickets.
@@ -123,10 +126,12 @@ struct Paged {
   }
 };
 
-// NB bytes (2 .. 32) of shared memory into words
+// NB bytes of shared memory into words: 2, 4, 8 or a multiple of 16 read
+// whole; hd 112's 28 bytes (bf16, 4-byte aligned at gq·28) as words and 14
+// bytes (int8, 2-byte aligned at gq·14) as halfwords
 template <int NB>
 __device__ __forceinline__ void load_row(uint32_t* dst, const unsigned char* src) {
-  if constexpr (NB >= 16) {
+  if constexpr (NB % 16 == 0) {
 #pragma unroll
     for (int i = 0; i < NB / 16; ++i)
       *reinterpret_cast<uint4*>(dst + 4 * i) = *reinterpret_cast<const uint4*>(src + 16 * i);
@@ -134,8 +139,19 @@ __device__ __forceinline__ void load_row(uint32_t* dst, const unsigned char* src
     *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(src);
   } else if constexpr (NB == 4) {
     dst[0] = *reinterpret_cast<const uint32_t*>(src);
-  } else {
+  } else if constexpr (NB == 2) {
     dst[0] = *reinterpret_cast<const uint16_t*>(src);
+  } else if constexpr (NB % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < NB / 4; ++i) dst[i] = reinterpret_cast<const uint32_t*>(src)[i];
+  } else {
+    static_assert(NB % 2 == 0, "a row segment is whole halfwords");
+    const uint16_t* h = reinterpret_cast<const uint16_t*>(src);
+#pragma unroll
+    for (int i = 0; i < (NB + 3) / 4; ++i) {
+      const uint32_t lo = h[2 * i], hi = 2 * i + 1 < NB / 2 ? h[2 * i + 1] : 0u;
+      dst[i] = lo | hi << 16;
+    }
   }
 }
 
@@ -471,6 +487,7 @@ int by_head_dim(int hd, const void* q, const void* k, const void* v, const void*
     HEAD_DIM(16)
     HEAD_DIM(32)
     HEAD_DIM(64)
+    HEAD_DIM(112)
     HEAD_DIM(128)
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -43,8 +43,11 @@
 //    fragment of the next product, so P never leaves registers.
 //
 // Shapes: s % 64 == 0, S % 64 == 0 (the dispatch layer pads with -1
-// positions); (hd, hd_v) in {(16, 16), (32, 32), (64, 64), (128, 128),
-// (96, 64)}.
+// positions); (hd, hd_v) in {(16, 16), (32, 32), (64, 64), (112, 112),
+// (128, 128), (96, 64)}.  hd 112 (kimi-k2) is 7 k16 steps of Q·Kᵀ and 7
+// n16 steps of P·V; nothing here takes hd to be a power of two: the
+// cp.async loops divide by hd / 8 (14), and the 240-byte row stride still
+// puts ldmatrix's eight rows on distinct bank groups.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -328,6 +331,7 @@ extern "C" int attn_prefill_launch(const void* q, const void* k, const void* v,
   PAIR(16, 16)
   PAIR(32, 32)
   PAIR(64, 64)
+  PAIR(112, 112)
   PAIR(128, 128)
   PAIR(96, 64)
 #undef PAIR

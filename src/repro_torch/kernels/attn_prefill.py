@@ -19,7 +19,7 @@ from repro_torch.kernels.ref import attn_prefill_pos
 __all__ = ["attn_prefill", "BQ", "BKV", "HEAD_DIMS", "HEAD_DIM_PAIRS"]
 
 BQ, BKV = 64, 64  # query / key tile; s and S must divide them
-HEAD_DIMS = (16, 32, 64, 128)  # head dims the kernel is built for with hd_v = hd
+HEAD_DIMS = (16, 32, 64, 112, 128)  # head dims built with hd_v = hd (112: kimi-k2)
 # (hd, hd_v) pairs the kernel is built for: the equal ones and MLA's (96, 64)
 HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((96, 64),)
 

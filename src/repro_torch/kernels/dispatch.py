@@ -19,6 +19,20 @@ backends:
   * ``ref`` — the plain PyTorch versions of :mod:`repro_torch.kernels.ref`,
     unpadded (the JAX package's ``ref`` backend).
 
+Sharded execution (:func:`shard_scope`): one process a rank, each holding
+its own windows of the params (:func:`repro_torch.distributed.sharding.
+execution_pspecs`).  A kernel-run linear whose rows are split over the
+model axis (codes, B, the QAT master W, block scales; A replicated) runs
+the same wrappers on its local (tokens × N/p) block — the decode GEMV at
+M ≤ 8 — and returns that block; the model gathers it where the next op
+needs whole rows.  The autograd Functions sum exactly the JAX package's
+cross-shard cotangents: dx over the model axis, dB / dW / ∂s_blk over the
+data axes (when the tokens are the data replica's own slice), dA over
+both; a linear whose N the model axis does not divide holds whole rows and
+takes the unsharded path (its cotangents still summed over the data axes).
+Attention is head-local and batch-local: under the scope the model hands
+``qattention`` its own heads and rows, and nothing is communicated.
+
 Selection: explicit ``backend=`` argument > :func:`backend_scope` >
 platform default, which is ``fused`` for CUDA tensors and ``ref`` for CPU
 tensors.  Nothing falls back from one backend to the other.
@@ -59,6 +73,7 @@ wide and whose ``block_matmul_t`` needs K % 128), and padded scales are
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
 import threading
 
@@ -67,6 +82,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.lords import ADAPTER_METHODS, METHODS, QuantSpec
 from repro_torch.core.quantize import pack_spec
+from repro_torch.distributed import collectives
 from repro_torch.kernels import attn_decode as attn_decode_mod
 from repro_torch.kernels import attn_decode_mla as attn_decode_mla_mod
 from repro_torch.kernels import attn_decode_mla_paged as attn_decode_mla_paged_mod
@@ -88,6 +104,9 @@ __all__ = [
     "resolve_backend",
     "backend_scope",
     "fused_backend_active",
+    "shard_scope",
+    "shard_info",
+    "attn_shard",
     "DECODE_M_MAX",
 ]
 
@@ -130,6 +149,102 @@ def fused_backend_active(like: torch.Tensor, backend: str | None = None) -> bool
     """Whether dispatch for tensors like ``like`` takes the kernel path —
     the predicate the model code routes its attention bodies on."""
     return resolve_backend(backend, like) == "fused"
+
+
+# ---------------------------------------------------------------------------
+# sharded execution: the mesh's model axis (tensor parallel) and data axes
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class Shard:
+    """The active shard scope: the mesh, its model axis, and whether the
+    token dim of every activation in the scope is this data replica's own
+    slice (the caller split the batch over the data axes) or the whole
+    batch on every replica."""
+
+    mesh: object
+    axis: str
+    tokens_split: bool
+
+    @property
+    def model(self) -> int:
+        return self.mesh.shape.get(self.axis, 1)
+
+    @property
+    def data_axes(self) -> tuple:
+        """The axes the tokens are split over: every other axis of more
+        than one rank, when the tokens are split.  Each replica's gradients
+        are then partial sums, which the train step adds over these axes."""
+        if not self.tokens_split:
+            return ()
+        return tuple(a for a, n in self.mesh.shape.items()
+                     if a != self.axis and n > 1)
+
+
+@contextlib.contextmanager
+def shard_scope(mesh, axis: str = "model", *, tokens_split: bool = True):
+    """Run every dispatch inside the scope sharded over ``mesh``.
+
+    ``mesh`` None, or a mesh of one rank, turns sharding off inside the
+    scope (as ``shard_scope(None)`` does in the JAX package, which the MoE
+    expert loop uses).  Unlike the JAX package's scope, a mesh whose model
+    axis has one rank is still active: the forward's token count and the
+    step's gradient sums over the data axes read it.  ``tokens_split``:
+    see :class:`Shard`.  A :class:`Shard` may be passed as ``mesh`` to
+    enter a scope again (the remat recompute runs on the autograd
+    thread)."""
+    prev = getattr(_TLS, "shard", None)
+    if isinstance(mesh, Shard):
+        _TLS.shard = mesh
+    else:
+        active = mesh is not None and mesh.size > 1
+        _TLS.shard = Shard(mesh, axis, tokens_split) if active else None
+    try:
+        yield _TLS.shard
+    finally:
+        _TLS.shard = prev
+
+
+def shard_info() -> Shard | None:
+    """The active :class:`Shard` (its ``mesh`` and model ``axis``), or None
+    outside any scope."""
+    return getattr(_TLS, "shard", None)
+
+
+def _tp_shard(n: int, rows: int) -> Shard | None:
+    """The scope when this (N, K) linear's rows are this rank's N/p of the
+    model axis, None when they are whole (no scope, one model rank, or an N
+    the axis does not divide: the unsharded path, the divisibility
+    fallback of ``resolve_spec``)."""
+    sh = shard_info()
+    if sh is None or sh.model == 1 or rows == n:
+        return None
+    if n % sh.model or rows * sh.model != n:
+        raise ValueError(f"a linear of {n} rows holds {rows} on this rank; the "
+                         f"model axis has {sh.model} ranks")
+    return sh
+
+
+def attn_shard(nh: int, nkv: int) -> bool:
+    """Whether attention runs head-sharded (JAX's ``_attn_shard``): an
+    active scope whose model axis divides both head counts.  Otherwise the
+    model gathers q, k and v and every model rank attends all heads."""
+    sh = shard_info()
+    return (sh is not None and sh.model > 1 and nh % sh.model == 0
+            and nkv % sh.model == 0)
+
+
+def _reduce_grads(tp: Shard | None, dx, da=None):
+    """The cotangent sums over split rows, in place: dx and dA are each
+    rank's partial sums over its N/p rows, added over the model axis (dB,
+    dW and ∂s_blk are row-local).  The data axes' sums are the train
+    step's, once over every gradient."""
+    if tp is None:
+        return
+    for g in (dx, da):
+        if g is not None:
+            collectives.all_reduce(g, tp.mesh, tp.axis)
 
 
 def _round_up(v: int, mult: int) -> int:
@@ -231,12 +346,14 @@ def _lords_grads(g, x2d, q_packed, b, a, w, codebook, backend, *,
 
 
 class _LordsQMatmul(torch.autograd.Function):
-    """y = x2d · dequant(q, b, a)ᵀ with the fused LoRDS backward."""
+    """y = x2d · dequant(q, b, a)ᵀ with the fused LoRDS backward; ``tp``:
+    the shard scope when the rows are this rank's (dx and dA are then
+    summed over the model axis)."""
 
     @staticmethod
-    def forward(ctx, x2d, q_packed, b, a, codebook, backend):
+    def forward(ctx, x2d, q_packed, b, a, codebook, backend, tp=None):
         ctx.save_for_backward(x2d, q_packed, b, a)
-        ctx.codebook, ctx.backend = codebook, backend
+        ctx.codebook, ctx.backend, ctx.tp = codebook, backend, tp
         return _lords_forward(x2d, q_packed, b, a, codebook, backend)
 
     @staticmethod
@@ -246,8 +363,9 @@ class _LordsQMatmul(torch.autograd.Function):
         dx, db, da = _lords_grads(g, x2d, q_packed, b, a, None, ctx.codebook,
                                   ctx.backend, want_dx=need[0],
                                   want_params=need[2] or need[3])
+        _reduce_grads(ctx.tp, dx, da)
         return (_cast(dx, x2d.dtype), None, _cast(db, b.dtype),
-                _cast(da, a.dtype), None, None)
+                _cast(da, a.dtype), None, None, None)
 
 
 def _lords_qat_forward(x2d, w, b, a, codebook, backend):
@@ -271,10 +389,10 @@ class _LordsQatQMatmul(torch.autograd.Function):
     forward's packed codes feed the backward kernels directly."""
 
     @staticmethod
-    def forward(ctx, x2d, w, b, a, codebook, backend):
+    def forward(ctx, x2d, w, b, a, codebook, backend, tp=None):
         y, q_packed = _lords_qat_forward(x2d, w, b, a, codebook, backend)
         ctx.save_for_backward(x2d, w, b, a, q_packed)
-        ctx.codebook, ctx.backend = codebook, backend
+        ctx.codebook, ctx.backend, ctx.tp = codebook, backend, tp
         return y
 
     @staticmethod
@@ -284,8 +402,9 @@ class _LordsQatQMatmul(torch.autograd.Function):
         dx, db, da, dw = _lords_grads(g, x2d, q_packed, b, a, w, ctx.codebook,
                                       ctx.backend, want_dx=need[0],
                                       want_params=any(need[1:4]))
+        _reduce_grads(ctx.tp, dx, da)
         return (_cast(dx, x2d.dtype), _cast(dw, w.dtype), _cast(db, b.dtype),
-                _cast(da, a.dtype), None, None)
+                _cast(da, a.dtype), None, None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -359,9 +478,11 @@ class _BlockQMatmul(torch.autograd.Function):
     (PEQA), not for QLoRA's frozen base."""
 
     @staticmethod
-    def forward(ctx, x2d, q_packed, s_blk, block_size, codebook, backend):
+    def forward(ctx, x2d, q_packed, s_blk, block_size, codebook, backend,
+                tp=None):
         ctx.save_for_backward(x2d, q_packed, s_blk)
         ctx.block_size, ctx.codebook, ctx.backend = block_size, codebook, backend
+        ctx.tp = tp
         return _block_forward(x2d, q_packed, s_blk, block_size, codebook,
                               backend)
 
@@ -372,8 +493,9 @@ class _BlockQMatmul(torch.autograd.Function):
         dx, ds = _block_grads(g, x2d, q_packed, s_blk, ctx.block_size,
                               ctx.codebook, ctx.backend, want_dx=need[0],
                               want_ds=need[2])
+        _reduce_grads(ctx.tp, dx)
         return (_cast(dx, x2d.dtype), None, _cast(ds, s_blk.dtype), None, None,
-                None)
+                None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -401,16 +523,20 @@ def _dense_base(params, x2d, spec):
 
 
 def _epilogue(y: torch.Tensor, x: torch.Tensor, params: dict,
-              spec: QuantSpec) -> torch.Tensor:
+              spec: QuantSpec, sh: Shard | None = None) -> torch.Tensor:
     """The base product ``y`` in the compute dtype, plus the additive adapter
     and the bias: 2-D operands (one matrix) or 3-D ones (an expert stack,
-    every leaf with a leading E axis)."""
+    every leaf with a leading E axis).  ``sh``: the scope when the rows
+    are this rank's (the adapter's B and the bias are then row-split too)."""
     cd = spec.compute_dtype
     y = y.to(cd)
     if spec.method in ADAPTER_METHODS and "lora_a" in params:
         # the unmergeable additive adapter: y += (x · Aᵀ) · Bᵀ, two plain
-        # products (the extra GEMM the paper's Fig. 2 measures)
+        # products (the extra GEMM the paper's Fig. 2 measures); over split
+        # rows x · Aᵀ's cotangent is partial, summed over the model axis
         xa = torch.matmul(x, params["lora_a"].to(cd).transpose(-1, -2))
+        if sh is not None:
+            xa = collectives.reduce_grad(xa, sh.mesh, sh.axis)
         y = y + torch.matmul(xa, params["lora_b"].to(cd).transpose(-1, -2))
     if "bias" in params:
         bias = params["bias"].to(y.dtype)
@@ -424,7 +550,9 @@ def qmatmul(params: dict, x: torch.Tensor, spec: QuantSpec, n: int, m: int, *,
     compute dtype, differentiable in x and in every trainable leaf.
 
     ``x`` may carry any leading batch dims over the in-features axis ``m``;
-    the result replaces that axis with ``n``.
+    the result replaces that axis with ``n`` (inside a :func:`shard_scope`
+    whose model axis splits this linear's rows: with this rank's ``n / p``
+    outputs).
     """
     if spec.method not in METHODS:
         raise ValueError(f"unknown quant method {spec.method!r}; "
@@ -433,6 +561,7 @@ def qmatmul(params: dict, x: torch.Tensor, spec: QuantSpec, n: int, m: int, *,
     cd = spec.compute_dtype
     lead = x.shape[:-1]
     x2d = x.reshape(-1, m).to(cd).contiguous()
+    tp = None
     if not _fused_supported(params, spec):
         y2d = _dense_base(params, x2d, spec)
     elif spec.method == "lords":
@@ -443,16 +572,24 @@ def qmatmul(params: dict, x: torch.Tensor, spec: QuantSpec, n: int, m: int, *,
             plain = lambda *args: _lords_qat_forward(*args)[0]  # noqa: E731
         else:
             base, fn, plain = params["q"], _LordsQMatmul, _lords_forward
+        tp = _tp_shard(n, base.shape[0])
         args = (x2d, base, b, a, spec.codebook, backend)
-        y2d = fn.apply(*args) if _needs_grad(x2d, base, b, a) else plain(*args)
+        if _needs_grad(x2d, base, b, a):
+            y2d = fn.apply(*args, tp)
+        else:
+            y2d = plain(*args)
     else:  # block-wise base (also the qlora / loftq / qpissa frozen base)
         from repro_torch.core.baselines import baseline_block_operands
 
         q_packed, s_blk, bs = baseline_block_operands(params, m)
+        tp = _tp_shard(n, q_packed.shape[0])
         args = (x2d, q_packed, s_blk, bs, spec.codebook, backend)
-        y2d = (_BlockQMatmul.apply(*args) if _needs_grad(x2d, s_blk)
-               else _block_forward(*args))
-    return _epilogue(y2d, x2d, params, spec).reshape(*lead, n)
+        if _needs_grad(x2d, s_blk):
+            y2d = _BlockQMatmul.apply(*args, tp)
+        else:
+            y2d = _block_forward(*args)
+    y2d = _epilogue(y2d, x2d, params, spec, tp)
+    return y2d.reshape(*lead, y2d.shape[-1])
 
 
 def qmatmul_stack(params: dict, xd: torch.Tensor, spec: QuantSpec, n: int,
@@ -471,13 +608,16 @@ def qmatmul_stack(params: dict, xd: torch.Tensor, spec: QuantSpec, n: int,
     """
     backend = resolve_backend(backend, xd)
     e, c = xd.shape[0], xd.shape[1]
-    # qat's per-call quantization and the dense bases go expert by expert
+    # qat's per-call quantization and the dense bases go expert by expert,
+    # each unsharded (as the JAX package pins shard_scope(None) here: the
+    # experts shard over their own axis, not by rows)
     if (backend == "ref" or c > DECODE_M_MAX or spec.mode == "qat"
             or not _fused_supported(params, spec)
             or _needs_grad(xd, *params.values())):
-        return torch.stack([
-            qmatmul({k: v[i] for k, v in params.items()}, xd[i], spec, n, m,
-                    backend=backend) for i in range(e)])
+        with shard_scope(None):
+            return torch.stack([
+                qmatmul({k: v[i] for k, v in params.items()}, xd[i], spec, n, m,
+                        backend=backend) for i in range(e)])
     cd = spec.compute_dtype
     x3 = xd.reshape(e, c, m).to(cd).contiguous()
     if spec.method == "lords":
@@ -605,6 +745,10 @@ def qattention(kind: str, *args, logit_scale: float,
                           c_pool, k_rope_pool, pt, pos, c_scale=None, ...)
                           with pools (P, ps, L) [+ (P, ps)] and (P, ps, R)
                           → (b, nh, L).
+
+    Inside a :func:`shard_scope` the operands are this rank's heads (the
+    model splits them when :func:`attn_shard` says so) and its rows of the
+    batch; every kind runs on them as given, with no collective.
     """
     if kind not in _ATTN_KINDS:
         raise ValueError(f"unknown attention kind {kind!r}; "

@@ -2,13 +2,16 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
         [--smoke] [--device cpu] [--batch 4 --prompt-len 64 --gen 32] \
-        [--kv-cache int8]
+        [--kv-cache int8] [--mesh DxM]
 
 A batch of prompts fills a window of ``capacity = prompt_len + gen``
 columns; the whole window is prefilled once with positions -1 on the dead
 columns, then ``gen - 1`` decode steps run on the device.  By default it runs
 on the card with the hand-written kernels; ``--device cpu`` runs the plain
-versions on the CPU.
+versions on the CPU.  ``--mesh DATAxMODEL`` serves on that many ranks
+(processes of :func:`repro_torch.launch.ranks.run_ranks`: gloo on the CPU
+and on one shared card, nccl with a card a rank), the batch split over the
+data axis and GQA and the dense MLP tensor-parallel over the model axis.
 """
 from __future__ import annotations
 
@@ -20,12 +23,16 @@ import torch
 
 from repro_torch.configs import get_config, smoke_variant
 from repro_torch.configs.base import KV_CACHE_DTYPES
+from repro_torch.distributed import collectives
+from repro_torch.distributed.sharding import execution_pspecs, shard_tree
 from repro_torch.kernels import dispatch
-from repro_torch.launch.steps import generate, sample_token
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.ranks import run_ranks
+from repro_torch.launch.steps import data_rows, generate, sample_token
 from repro_torch.models import cache_init, forward_prefill, model_init
 from repro_torch.models.common import resolve_device
 
-__all__ = ["serve_batch", "main"]
+__all__ = ["serve_batch", "parse_mesh", "main"]
 
 
 def _sync(device: torch.device) -> None:
@@ -36,7 +43,7 @@ def _sync(device: torch.device) -> None:
 def serve_batch(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
                 params=None, prompts=None, backend: str | None = None,
                 temperature: float = 0.0, device=None,
-                kv_cache: str | None = None) -> dict:
+                kv_cache: str | None = None, mesh=None) -> dict:
     """Prefill ``batch`` prompts and decode ``gen`` tokens each.
 
     ``params`` None draws a random model from ``seed``; ``prompts`` None
@@ -49,8 +56,14 @@ def serve_batch(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
     packages' windows differ).  ``backend`` pins the dispatch
     backend (``fused`` | ``ref``; None = the device's default).
     ``kv_cache`` overrides ``cfg.kv_cache_dtype`` (``bf16`` | ``int8``).
-    Returns the tokens (b, gen) and host-clock timings of prefill and
-    decode.
+    ``mesh`` (a :class:`repro_torch.launch.mesh.Mesh`, on each of its
+    ranks): the whole ``params`` (or the drawn model) are cut to this
+    rank's windows (:func:`repro_torch.distributed.sharding.
+    execution_pspecs`), the batch to this data replica's rows when the
+    data axis divides it, and prefill and decode run in its shard scope;
+    the tokens are gathered over the data axis, so every rank returns the
+    whole batch's.  Returns the tokens (b, gen) and host-clock timings of
+    prefill and decode (this rank's).
     """
     if kv_cache is not None:
         cfg = cfg.with_(kv_cache_dtype=kv_cache)
@@ -58,9 +71,15 @@ def serve_batch(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
     capacity = prompt_len + gen
     if params is None:
         params = model_init(cfg, seed, device=device)
-    cache = cache_init(cfg, batch, capacity, device=device)
+    sharded = mesh is not None and mesh.size > 1
+    if sharded:
+        params = shard_tree(params, execution_pspecs(params, cfg.quant, mesh), mesh)
+    rows, split = data_rows(mesh, batch)
+    b_local = rows.stop - rows.start
+    with dispatch.shard_scope(mesh if sharded else None):
+        cache = cache_init(cfg, b_local, capacity, device=device)
     col = torch.arange(capacity, dtype=torch.int32, device=device)[None]
-    positions = torch.where(col < prompt_len, col, -1).expand(batch, capacity)
+    positions = torch.where(col < prompt_len, col, -1).expand(b_local, capacity)
     step_embeds = None
     if cfg.input_kind == "tokens":
         if prompts is None:
@@ -69,18 +88,19 @@ def serve_batch(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
         else:
             pad = np.zeros((batch, capacity - prompts.shape[1]), np.int32)
             prompts = np.concatenate([prompts, pad], axis=1).astype(np.int32)
-        window = {"tokens": torch.from_numpy(prompts).to(device=device,
-                                                         dtype=torch.long)}
+        window = {"tokens": torch.from_numpy(prompts[rows]).to(
+            device=device, dtype=torch.long)}
     else:
         draw = torch.Generator(device=device).manual_seed(seed)
         window = {"embeds": torch.randn(
             (batch, capacity, cfg.d_model), generator=draw,
-            device=device).to(torch.bfloat16)}
+            device=device).to(torch.bfloat16)[rows]}
         step_embeds = torch.randn((batch, 1, cfg.d_model), generator=draw,
-                                  device=device).to(torch.bfloat16)
+                                  device=device).to(torch.bfloat16)[rows]
     generator = torch.Generator(device=device).manual_seed(seed + 1)
 
-    with torch.inference_mode(), dispatch.backend_scope(backend):
+    with (torch.inference_mode(), dispatch.backend_scope(backend),
+          dispatch.shard_scope(mesh if sharded else None, tokens_split=split)):
         _sync(device)
         t0 = time.perf_counter()
         logits, cache = forward_prefill(params, cfg, window, cache, positions)
@@ -91,7 +111,7 @@ def serve_batch(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
         toks = [tok[:, None]]
         t_decode = 0.0
         if gen > 1:
-            pos0 = torch.full((batch,), prompt_len, dtype=torch.int32,
+            pos0 = torch.full((b_local,), prompt_len, dtype=torch.int32,
                               device=device)
             t0 = time.perf_counter()
             rest, cache = generate(params, cfg, tok, cache, pos0, gen=gen - 1,
@@ -100,8 +120,13 @@ def serve_batch(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
             _sync(device)
             t_decode = time.perf_counter() - t0
             toks.append(rest)
+        tokens = torch.cat(toks, dim=1)
+        if split:
+            tokens = collectives.all_gather(
+                tokens, mesh, tuple(a for a in mesh.axis_names if a != "model"),
+                dim=0)
     return {
-        "tokens": torch.cat(toks, dim=1).cpu().numpy(),
+        "tokens": tokens.cpu().numpy(),
         "prefill_ms": t_prefill * 1e3,
         "prefill_tok_s": batch * prompt_len / max(t_prefill, 1e-9),
         "decode_ms": t_decode * 1e3,
@@ -111,6 +136,28 @@ def serve_batch(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
         "kv_cache": cfg.kv_cache_dtype,
         "device": str(device),
     }
+
+
+def parse_mesh(text: str | None) -> tuple[int, int]:
+    """``"DxM"`` → (D, M); None → (1, 1)."""
+    if not text:
+        return 1, 1
+    data, model = (int(v) for v in text.lower().split("x"))
+    return data, model
+
+
+def _cli_config(args):
+    cfg = get_config(args.arch)
+    return smoke_variant(cfg) if args.smoke else cfg
+
+
+def _serve_rank(args, data: int = 1, model: int = 1) -> dict:
+    """The CLI's serve_batch on one rank of a ``data`` × ``model`` mesh."""
+    return serve_batch(_cli_config(args), batch=args.batch,
+                       prompt_len=args.prompt_len, gen=args.gen,
+                       backend=args.backend, temperature=args.temperature,
+                       device=args.device, kv_cache=args.kv_cache,
+                       mesh=make_host_mesh(data, model))
 
 
 def main(argv=None):
@@ -130,15 +177,18 @@ def main(argv=None):
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--kv-cache", default=None, choices=KV_CACHE_DTYPES,
                     help="KV-cache storage (default: cfg.kv_cache_dtype)")
+    ap.add_argument("--mesh", default=None, metavar="DATAxMODEL",
+                    help="serve on DATA x MODEL ranks, one process each")
     args = ap.parse_args(argv)
 
-    cfg = get_config(args.arch)
-    if args.smoke:
-        cfg = smoke_variant(cfg)
-    out = serve_batch(cfg, batch=args.batch, prompt_len=args.prompt_len,
-                      gen=args.gen, backend=args.backend,
-                      temperature=args.temperature, device=args.device,
-                      kv_cache=args.kv_cache)
+    data, model = parse_mesh(args.mesh)
+    if data * model > 1:
+        device = args.device or "cuda"
+        out = run_ranks(_serve_rank, data * model, args=(args, data, model),
+                        device=device)[0]
+    else:
+        out = _serve_rank(args)
+    cfg = _cli_config(args)
     print(f"[serve] {cfg.name} layers={cfg.num_layers} device={out['device']} "
           f"backend={out['backend']} kv={out['kv_cache']} prefill "
           f"{out['prefill_ms']:.1f} ms "

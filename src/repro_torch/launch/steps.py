@@ -10,14 +10,21 @@ accumulation and the guarded AdamW update.
 ``paged_generate`` are the bodies of the JAX package's fixed-shape engine
 step plans (``build_prefill_chunk_plan``, ``build_paged_generate_plan``) as
 plain functions: no jit, plans or shardings.
+
+Under a mesh (``mesh=``, one process a rank) ``train_step`` splits the
+global batch over the data axes when they divide it and runs inside
+:func:`repro_torch.kernels.dispatch.shard_scope`; ``generate`` runs the
+decode steps inside the scope on the rows and caches its caller split.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 
 from repro_torch.core import peft
+from repro_torch.distributed import collectives
 from repro_torch.kernels import dispatch
 from repro_torch.models import (
     forward_decode,
@@ -29,7 +36,7 @@ from repro_torch.optim import guarded_update
 
 __all__ = ["sample_token", "sample_token_guarded", "NONFINITE_TOKEN",
            "pick_microbatches", "train_step", "generate",
-           "prefill_chunk_step", "paged_generate"]
+           "prefill_chunk_step", "paged_generate", "data_rows"]
 
 NONFINITE_TOKEN = -1
 
@@ -45,9 +52,38 @@ def pick_microbatches(global_batch: int, seq: int,
     return global_batch
 
 
+def data_rows(mesh, n: int, axis: str = "model") -> tuple[slice, bool]:
+    """This data replica's rows of a global batch of ``n`` rows, and
+    whether the batch is split: over every axis but ``axis`` when their
+    product divides ``n`` (else every replica takes the whole batch, as
+    the JAX package replicates a token dim that does not divide)."""
+    if mesh is None:
+        return slice(0, n), False
+    axes = tuple(a for a in mesh.axis_names if a != axis)
+    d = mesh.axis_size(axes)
+    if d == 1 or n % d:
+        return slice(0, n), False
+    i = mesh.axis_index(axes)
+    return slice(i * n // d, (i + 1) * n // d), True
+
+
+def _sharded_norm(grads: dict, sharded, mesh) -> torch.Tensor:
+    """The global gradient norm over every rank's windows: squares of the
+    leaves split over the model axis summed over it, the replicated ones
+    counted once."""
+    sq = {True: 0.0, False: 0.0}
+    for k, g in grads.items():
+        sq[k in sharded] = sq[k in sharded] + g.to(torch.float32).square().sum()
+    sq_sh = torch.as_tensor(sq[True], dtype=torch.float32,
+                            device=next(iter(grads.values())).device)
+    collectives.all_reduce(sq_sh, mesh, "model")
+    return torch.sqrt(sq[False] + sq_sh + 1e-12)
+
+
 def train_step(trainable: dict, frozen: dict, opt, batch: dict, *, cfg,
                lr: float, backend: str | None = None,
-               max_gnorm: float | None = None):
+               max_gnorm: float | None = None, mesh=None,
+               sharded=frozenset()):
     """One optimizer step; returns (trainable, opt, metrics).
 
     ``trainable`` / ``frozen`` are the path dicts of
@@ -60,7 +96,23 @@ def train_step(trainable: dict, frozen: dict, opt, batch: dict, *, cfg,
     non-finite norm skips).  The params and moments are updated in place.
     metrics: {"loss", "aux_loss", "grad_norm", "update_skipped"} as floats
     (``aux_loss``: the MoE router's, 0 for other models).
+
+    ``mesh`` (a :class:`repro_torch.launch.mesh.Mesh` of more than one
+    rank): ``trainable`` / ``frozen`` are this rank's windows
+    (:func:`repro_torch.distributed.sharding.shard_tree`), ``batch`` the
+    global batch on every rank, of which this data replica takes its rows
+    (:func:`data_rows`); ``sharded`` holds the paths of the trainable
+    leaves split over the model axis.  The gradients are the global mean's:
+    the quantized linears' Functions sum dx and dA over the model axis,
+    and every leaf's gradient is summed over the data axes here; the norm
+    of the guard spans every rank's windows, so every rank takes the same
+    decision.
     """
+    scope = contextlib.nullcontext()
+    if mesh is not None and mesh.size > 1:
+        rows, split = data_rows(mesh, batch["labels"].shape[0])
+        batch = {k: t[rows] for k, t in batch.items()}
+        scope = dispatch.shard_scope(mesh, tokens_split=split)
     labels = batch["labels"]
     n_micro = pick_microbatches(labels.shape[0], labels.shape[1],
                                 min(8192, cfg.micro_tokens))
@@ -71,26 +123,36 @@ def train_step(trainable: dict, frozen: dict, opt, batch: dict, *, cfg,
     loss_sum = torch.zeros((), dtype=torch.float32, device=labels.device)
     aux_sum = torch.zeros((), dtype=torch.float32, device=labels.device)
     parts = {k: t.chunk(n_micro) for k, t in batch.items()}
-    for i in range(n_micro):
-        mb = {k: p[i] for k, p in parts.items()}
-        loss, metrics = forward_train(params, cfg, mb, backend=backend)
-        g = torch.autograd.grad(loss, leaves, allow_unused=True)
-        g = [torch.zeros_like(p) if gi is None else gi
-             for gi, p in zip(g, leaves)]
-        if n_micro == 1:
-            grads = g
-        elif grads is None:
-            grads = [gi.to(torch.float32) for gi in g]
-        else:
-            for acc, gi in zip(grads, g):
-                acc += gi.to(torch.float32)
-        loss_sum += loss.detach()
-        aux_sum += metrics["aux_loss"].detach()
+    with scope as sh:
+        for i in range(n_micro):
+            mb = {k: p[i] for k, p in parts.items()}
+            loss, metrics = forward_train(params, cfg, mb, backend=backend)
+            g = torch.autograd.grad(loss, leaves, allow_unused=True)
+            g = [torch.zeros_like(p) if gi is None else gi
+                 for gi, p in zip(g, leaves)]
+            if n_micro == 1:
+                grads = g
+            elif grads is None:
+                grads = [gi.to(torch.float32) for gi in g]
+            else:
+                for acc, gi in zip(grads, g):
+                    acc += gi.to(torch.float32)
+            loss_sum += metrics["loss"]
+            aux_sum += metrics["aux_loss"].detach()
     if n_micro > 1:
         grads = [gi / n_micro for gi in grads]
+    gnorm = None
+    if sh is not None:
+        if sh.data_axes:
+            # each replica's gradients are its tokens' share of the global
+            # mean's: every leaf's summed over the data axes once, in f32
+            # (the sums GSPMD inserts in the JAX package)
+            grads = [collectives.all_reduce(g.to(torch.float32), sh.mesh,
+                                            sh.data_axes) for g in grads]
+        gnorm = _sharded_norm(dict(zip(keys, grads)), sharded, sh.mesh)
     thr = math.inf if max_gnorm is None else max_gnorm
     trainable, opt, gnorm, ok = guarded_update(
-        trainable, dict(zip(keys, grads)), opt, lr, thr)
+        trainable, dict(zip(keys, grads)), opt, lr, thr, gnorm=gnorm)
     return trainable, opt, {"loss": float(loss_sum / n_micro),
                             "aux_loss": float(aux_sum / n_micro),
                             "grad_norm": float(gnorm),
@@ -119,18 +181,24 @@ def sample_token_guarded(logits, temperature: float,
 
 def generate(params, cfg, tok0, cache, pos0, *, gen: int,
              temperature: float = 0.0, generator=None,
-             backend: str | None = None, embeds0=None):
+             backend: str | None = None, embeds0=None, mesh=None):
     """Run ``gen`` decode steps from ``tok0`` (b,) at positions ``pos0`` (b,)
     (may be ragged).  Returns (tokens (b, gen) int32, cache).
 
     ``embeds0`` (b, 1, d) is the fixed input of every step of an
     embedding-input model (its frontend is stubbed), as in the JAX
-    package; token models feed back the sampled token."""
+    package; token models feed back the sampled token.  ``mesh``: the
+    steps run inside its shard scope (None: the ambient one), on this
+    rank's windows of the params and caches and this data replica's rows
+    (the caller's split, :func:`data_rows`); every model rank samples the
+    same tokens from the same replicated logits."""
     if cfg.input_kind != "tokens" and embeds0 is None:
         raise ValueError(f"{cfg.name} takes embeddings: pass embeds0")
     toks = []
     tok, pos = tok0, pos0
-    with dispatch.backend_scope(backend):
+    scope = (dispatch.shard_scope(mesh) if mesh is not None
+             else contextlib.nullcontext())
+    with dispatch.backend_scope(backend), scope:
         for _ in range(gen):
             step_in = ({"tokens": tok} if cfg.input_kind == "tokens"
                        else {"embeds": embeds0})

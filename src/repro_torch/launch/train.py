@@ -1,14 +1,18 @@
-"""Training entry point (PEFT / QAT) on one device, with the spike guard,
-checkpoint rollback and the JAX package's single-device fault paths.
+"""Training entry point (PEFT / QAT) on one device or a mesh of ranks, with
+the spike guard, checkpoint rollback, the cross-replica desync digest and
+the JAX package's fault paths.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \\
-        --smoke --device cpu --steps 3 [--mode qat] [--backend fused]
+        --smoke --device cpu --steps 3 [--mode qat] [--backend fused] \\
+        [--mesh DxM] [--desync-every N]
 
 Without ``--device`` it runs on the card (and raises when there is none).
-The fault points of a :class:`repro_torch.robustness.FaultPlan` are
-consulted as the JAX ``run_training`` consults them on a one-device mesh;
-the mesh rebuild and the cross-replica desync digest need more than one
-device and are not part of this module.
+``--mesh DATAxMODEL`` trains on that many ranks (processes of
+:func:`repro_torch.launch.ranks.run_ranks`).  The fault points of a
+:class:`repro_torch.robustness.FaultPlan` are consulted as the JAX
+``run_training`` consults them; the elastic mesh rebuild after
+``dist.device_loss`` is not ported yet (a fire on a mesh of more than one
+rank raises).
 """
 from __future__ import annotations
 
@@ -23,15 +27,23 @@ from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import SHAPES, ShapeCfg, get_config, smoke_variant
 from repro_torch.core import peft
 from repro_torch.data import SyntheticLM, make_batch_iterator
+from repro_torch.distributed.desync import desync_spread, replica_digests
 from repro_torch.distributed.fault_tolerance import (
     PreemptionGuard,
     StragglerMonitor,
 )
+from repro_torch.distributed.sharding import (
+    execution_pspecs,
+    shard_tree,
+)
 from repro_torch.kernels import dispatch
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.ranks import run_ranks
+from repro_torch.launch.serve import parse_mesh
 from repro_torch.launch.steps import train_step
 from repro_torch.models import model_init
 from repro_torch.models.common import resolve_device
-from repro_torch.optim import adamw_init
+from repro_torch.optim import AdamWState, adamw_init
 from repro_torch.robustness import NO_FAULTS, InjectedFault
 
 __all__ = ["run_training", "batch_tensors", "main"]
@@ -41,6 +53,20 @@ def batch_tensors(batch: dict, device) -> dict:
     """A pipeline batch (numpy) as int64 tensors on ``device``."""
     return {k: torch.from_numpy(np.asarray(v, np.int64)).to(device)
             for k, v in batch.items()}
+
+
+def _spec_at(specs, path: tuple):
+    for key in path:
+        specs = specs[key]
+    return specs
+
+
+def _state_specs(trainable: dict, specs) -> dict:
+    """The checkpoint state's spec tree: the trainable leaves' specs, the
+    moments' the same, the rest replicated."""
+    ts = {k: _spec_at(specs, k) for k in trainable}
+    return {"trainable": ts, "opt": AdamWState(mu=ts, nu=dict(ts), step=None),
+            "data_step": None}
 
 
 # the spike guard: a threshold of SPIKE_FACTOR x the EMA of accepted grad
@@ -56,13 +82,21 @@ def run_training(cfg, shape_cfg, *, steps: int, lr: float = 1e-4,
                  params=None, faults=None, desync_every: int = 0,
                  collective_retries: int = 2, io_retries: int = 2,
                  io_backoff: float = 0.05, io_jitter: float = 0.0,
-                 preemption_guard=None) -> dict:
+                 preemption_guard=None, mesh=None) -> dict:
     """Train ``cfg`` for ``steps`` steps of ``shape_cfg``'s batches.
 
     ``params`` (default: :func:`repro_torch.models.model_init` from
     ``seed``) is split by :func:`repro_torch.core.peft.partition`; the
     trainable leaves are updated in place.  ``backend`` pins the dispatch
     backend for the forward, the backward and the remat recompute.
+
+    ``mesh`` (a :class:`repro_torch.launch.mesh.Mesh`, on each of its
+    ranks): the whole ``params`` are cut to this rank's windows
+    (:func:`repro_torch.distributed.sharding.execution_pspecs`: the
+    quantized linears' rows over the model axis), every step splits the
+    global batch over the data axis and runs sharded
+    (:func:`repro_torch.launch.steps.train_step`), and checkpoints are
+    saved a shard a file and restored onto this mesh's layout.
 
     Every update goes through :func:`repro_torch.optim.guarded_update`
     behind the spike threshold above: a non-finite or spiking gradient
@@ -85,33 +119,49 @@ def run_training(cfg, shape_cfg, *, steps: int, lr: float = 1e-4,
     A preemption (``preemption_guard``, default a
     :class:`repro_torch.distributed.PreemptionGuard` on SIGTERM / SIGINT
     for the run) saves a checkpoint after the step and ends the run with
-    ``status="preempted"``.  ``desync_every`` > 0 needs the cross-replica
-    digest, which is not ported yet, and raises.
+    ``status="preempted"``.  ``desync_every`` > 0 compares the data
+    replicas' state digests (:mod:`repro_torch.distributed.desync`) every
+    that many completed steps: a spread counts in ``desyncs_detected`` and
+    rolls back to the latest checkpoint (``desync_rollbacks``), or without
+    one ends the run with ``status="quarantined"``; the
+    ``dist.replica_desync`` point perturbs a replica's report.
 
-    Returns {"losses", "step_ms", "trainable", "frozen", "opt",
+    Returns {"losses", "grad_norms", "step_ms", "trainable", "frozen", "opt",
     "skipped_steps", "rollbacks", "status", "collective_timeouts",
     "straggler_flags", "straggler_injected", "mesh_rebuilds",
-    "lost_devices", "resharded_restores"}; ``step_ms`` is the host time of
-    each step, ending when its loss reaches the host.
+    "lost_devices", "resharded_restores", "desyncs_detected",
+    "desync_rollbacks", "final_mesh"}; ``grad_norms`` holds every step's
+    global gradient norm (a skipped step's too), ``step_ms`` the host
+    time of each step, ending when its loss reaches the host; ``trainable`` /
+    ``frozen`` / ``opt`` are this rank's windows.
     """
     if cfg.input_kind != "tokens":
         raise ValueError(f"{cfg.name} takes embeddings and run_training draws "
                          "token batches: train it through train_step with an "
                          "embeds batch")
-    if desync_every > 0:
-        raise ValueError("desync_every needs the cross-replica state digest "
-                         "(desync.py), which is not ported yet (ROADMAP "
-                         "queue 1, item 6)")
     faults = faults or NO_FAULTS
     device = resolve_device(device)
     if params is None:
         params = model_init(cfg, seed, device=device)
+    multi = mesh is not None and mesh.size > 1
+    final_mesh = dict(mesh.shape) if mesh is not None else {"data": 1, "model": 1}
+    n_data = 1
+    state_specs, sharded = None, frozenset()
+    if multi:
+        specs = execution_pspecs(params, cfg.quant, mesh)
+        params = shard_tree(params, specs, mesh)
+        n_data = mesh.axis_size(tuple(a for a in mesh.axis_names if a != "model"))
     trainable, frozen = peft.partition(params, cfg.quant)
+    if multi:
+        state_specs = _state_specs(trainable, specs)
+        sharded = frozenset(k for k, sp in state_specs["trainable"].items()
+                            if any(e is not None for e in sp))
     opt = adamw_init(trainable)
+    ckpt_kw = dict(mesh=mesh, specs=state_specs) if multi else {}
     print(f"[train] {cfg.name} mode={cfg.quant.mode} "
           f"backend={dispatch.resolve_backend(backend, params['final_norm'])} "
-          f"device={device} trainable={sum(t.numel() for t in trainable.values())}",
-          flush=True)
+          f"device={device} mesh={final_mesh} "
+          f"trainable={sum(t.numel() for t in trainable.values())}", flush=True)
 
     ckpt = (Checkpointer(ckpt_dir, io_retries=io_retries,
                          io_backoff=io_backoff, io_jitter=io_jitter)
@@ -119,7 +169,7 @@ def run_training(cfg, shape_cfg, *, steps: int, lr: float = 1e-4,
     start_step = 0
     if ckpt is not None:
         restored = ckpt.restore({"trainable": trainable, "opt": opt,
-                                 "data_step": 0})
+                                 "data_step": 0}, **ckpt_kw)
         if restored is not None:
             trainable, opt = restored["trainable"], restored["opt"]
             start_step = restored["data_step"]
@@ -128,9 +178,10 @@ def run_training(cfg, shape_cfg, *, steps: int, lr: float = 1e-4,
     source = SyntheticLM(cfg.vocab_size, shape_cfg.seq_len,
                          shape_cfg.global_batch, seed=seed)
     it = make_batch_iterator(source, start_step)
-    losses, step_ms = [], []
+    losses, grad_norms, step_ms = [], [], []
     gnorm_ema, accepted, consecutive_skips = None, 0, 0
     skipped_steps = rollbacks = collective_timeouts = 0
+    desyncs_detected = desync_rollbacks = 0
     straggler_injected: list[tuple[int, int]] = []
     status = "complete"
     own_guard = preemption_guard is None
@@ -138,11 +189,28 @@ def run_training(cfg, shape_cfg, *, steps: int, lr: float = 1e-4,
     mon = StragglerMonitor()
     dist_on = faults.enabled  # no dist.* consult without a plan
 
+    def restore_latest(reason: str) -> bool:
+        """The latest checkpoint and its data position, or False."""
+        nonlocal trainable, opt, it, gnorm_ema, accepted, consecutive_skips
+        if ckpt is None or ckpt.latest_step() is None:
+            return False
+        restored = ckpt.restore({"trainable": trainable, "opt": opt,
+                                 "data_step": 0}, **ckpt_kw)
+        trainable, opt = restored["trainable"], restored["opt"]
+        it = make_batch_iterator(source, restored["data_step"])
+        gnorm_ema, accepted, consecutive_skips = None, 0, 0
+        print(f"[train] {reason} — restored step {restored['data_step']}",
+              flush=True)
+        return True
+
     try:
         for done in range(steps):
             if dist_on:
+                if faults.fires("dist.device_loss") and multi:
+                    raise NotImplementedError(
+                        "dist.device_loss on a mesh: the elastic rebuild is not "
+                        "ported yet (ROADMAP queue 1, item 1)")
                 # one device: nothing to lose, so no rebuild follows a fire
-                faults.fires("dist.device_loss")
                 if faults.fires("dist.host_crash"):
                     # a whole-process crash: no save; a new run_training on
                     # the same ckpt_dir resumes
@@ -150,8 +218,10 @@ def run_training(cfg, shape_cfg, *, steps: int, lr: float = 1e-4,
                         f"injected host crash at step count {done}")
             step, batch = next(it)
             mon.start_step()
-            if dist_on and faults.fires("dist.straggler", index=0):
-                straggler_injected.append((step, 0))  # fires() slept
+            if dist_on:
+                for shard in range(n_data):  # per data shard streams
+                    if faults.fires("dist.straggler", index=shard):
+                        straggler_injected.append((step, shard))  # fires() slept
             if faults.fires("train.grad_spike"):
                 thr = -1.0          # the guard skips this step
             elif gnorm_ema is None or accepted < SPIKE_WARMUP:
@@ -169,8 +239,10 @@ def run_training(cfg, shape_cfg, *, steps: int, lr: float = 1e-4,
             t0 = time.perf_counter()
             trainable, opt, metrics = train_step(
                 trainable, frozen, opt, batch_tensors(batch, device), cfg=cfg,
-                lr=lr, backend=backend, max_gnorm=thr)
+                lr=lr, backend=backend, max_gnorm=thr,
+                mesh=mesh if multi else None, sharded=sharded)
             step_ms.append((time.perf_counter() - t0) * 1e3)
+            grad_norms.append(metrics["grad_norm"])
             mon.end_step(step)
             if metrics["update_skipped"]:
                 skipped_steps += 1
@@ -178,17 +250,9 @@ def run_training(cfg, shape_cfg, *, steps: int, lr: float = 1e-4,
                 print(f"[train] step {step:5d} SKIPPED (grad_norm "
                       f"{metrics['grad_norm']:.3g} > threshold {thr:.3g})",
                       flush=True)
-                if (consecutive_skips >= ROLLBACK_AFTER and ckpt is not None
-                        and ckpt.latest_step() is not None):
-                    restored = ckpt.restore({"trainable": trainable,
-                                             "opt": opt, "data_step": 0})
-                    trainable, opt = restored["trainable"], restored["opt"]
-                    it = make_batch_iterator(source, restored["data_step"])
-                    gnorm_ema, accepted, consecutive_skips = None, 0, 0
+                if (consecutive_skips >= ROLLBACK_AFTER and restore_latest(
+                        f"{ROLLBACK_AFTER} consecutive skips")):
                     rollbacks += 1
-                    print(f"[train] {ROLLBACK_AFTER} consecutive skips — "
-                          f"restored step {restored['data_step']}",
-                          flush=True)
                 continue
             consecutive_skips = 0
             gn = metrics["grad_norm"]
@@ -201,25 +265,67 @@ def run_training(cfg, shape_cfg, *, steps: int, lr: float = 1e-4,
                       flush=True)
             if ckpt is not None and (step + 1) % ckpt_every == 0:
                 ckpt.save(step + 1, {"trainable": trainable, "opt": opt,
-                                     "data_step": step + 1})
+                                     "data_step": step + 1}, **ckpt_kw)
+            if desync_every > 0 and (done + 1) % desync_every == 0:
+                digests = replica_digests((trainable, opt),
+                                          mesh if multi else None,
+                                          faults=faults, step=step)
+                if desync_spread(digests) > 0.0:
+                    desyncs_detected += 1
+                    if restore_latest("replica desync detected"):
+                        desync_rollbacks += 1
+                    else:
+                        status = "quarantined"
+                        print("[train] desync with no checkpoint — "
+                              "quarantining run", flush=True)
+                        break
             if guard.preempted:
                 print("[train] preemption signal — checkpoint and clean exit",
                       flush=True)
                 if ckpt is not None:
                     ckpt.save(step + 1, {"trainable": trainable, "opt": opt,
-                                         "data_step": step + 1})
+                                         "data_step": step + 1}, **ckpt_kw)
                 status = "preempted"
                 break
     finally:
         if own_guard:
             guard.restore()
-    return {"losses": losses, "step_ms": step_ms, "trainable": trainable,
+    return {"losses": losses, "grad_norms": grad_norms, "step_ms": step_ms,
+            "trainable": trainable,
             "frozen": frozen, "opt": opt, "skipped_steps": skipped_steps,
             "rollbacks": rollbacks, "status": status,
             "collective_timeouts": collective_timeouts,
             "straggler_flags": mon.flags,
             "straggler_injected": straggler_injected,
-            "mesh_rebuilds": 0, "lost_devices": 0, "resharded_restores": 0}
+            "mesh_rebuilds": 0, "lost_devices": 0, "resharded_restores": 0,
+            "desyncs_detected": desyncs_detected,
+            "desync_rollbacks": desync_rollbacks, "final_mesh": final_mesh}
+
+
+def _cli_setup(args):
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = smoke_variant(cfg)
+        shape = ShapeCfg("smoke", args.seq_len or 128, args.global_batch or 8,
+                         "train")
+    else:
+        shape = SHAPES[args.shape]
+        shape = ShapeCfg(shape.name, args.seq_len or shape.seq_len,
+                         args.global_batch or shape.global_batch, "train")
+    if args.mode:
+        cfg = cfg.with_(quant=cfg.quant.with_(mode=args.mode))
+    return cfg, shape
+
+
+def _train_rank(args, data: int = 1, model: int = 1) -> dict:
+    """The CLI's run_training on one rank of a ``data`` × ``model`` mesh;
+    the losses and counters (tensors stay on the rank)."""
+    cfg, shape = _cli_setup(args)
+    out = run_training(cfg, shape, steps=args.steps, lr=args.lr,
+                       ckpt_dir=args.ckpt_dir, backend=args.backend,
+                       device=args.device, desync_every=args.desync_every,
+                       mesh=make_host_mesh(data, model))
+    return {k: v for k, v in out.items() if k not in ("trainable", "frozen", "opt")}
 
 
 def main(argv=None):
@@ -239,23 +345,19 @@ def main(argv=None):
                     help="pin the kernel backend (forward and backward)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
+    ap.add_argument("--mesh", default=None, metavar="DATAxMODEL",
+                    help="train on DATA x MODEL ranks, one process each")
+    ap.add_argument("--desync-every", type=int, default=0,
+                    help="cross-replica state-digest cadence in steps (0 = off)")
     args = ap.parse_args(argv)
 
-    cfg = get_config(args.arch)
-    if args.smoke:
-        cfg = smoke_variant(cfg)
-        shape = ShapeCfg("smoke", args.seq_len or 128, args.global_batch or 8,
-                         "train")
-    else:
-        shape = SHAPES[args.shape]
-        shape = ShapeCfg(shape.name, args.seq_len or shape.seq_len,
-                         args.global_batch or shape.global_batch, "train")
-    if args.mode:
-        cfg = cfg.with_(quant=cfg.quant.with_(mode=args.mode))
+    data, model = parse_mesh(args.mesh)
     t0 = time.time()
-    out = run_training(cfg, shape, steps=args.steps, lr=args.lr,
-                       ckpt_dir=args.ckpt_dir, backend=args.backend,
-                       device=args.device)
+    if data * model > 1:
+        out = run_ranks(_train_rank, data * model, args=(args, data, model),
+                        device=args.device or "cuda")[0]
+    else:
+        out = _train_rank(args)
     dt = time.time() - t0
     if out["losses"]:
         print(f"[train] done: {len(out['losses'])} steps in {dt:.1f}s; "

@@ -17,6 +17,14 @@ being the dummy that unmapped page-table entries point at.  The store
 functions update caches and pools **in place** (the JAX package returns new
 arrays); this saves a full cache copy per layer and step.
 
+Inside a shard scope (:func:`repro_torch.kernels.dispatch.shard_scope`)
+GQA runs head-sharded when the model axis divides both head counts: q, k
+and v, the caches and the pools hold this rank's heads, attention runs on
+them with no collective, and the heads are gathered before the output
+projection, whose own split rows are gathered after it.  Otherwise the
+projections are gathered to all heads and every model rank attends them
+all (the JAX package's unsharded fallback).
+
 MLA (multi-head latent attention, DeepSeek-style; minicpm3) caches only the
 compressed latent ``c`` (…, kv_lora) and the shared RoPE key ``k_rope``
 (…, rope): ``{"c", "k_rope"}`` in bf16, or for ``int8`` the latent as codes
@@ -34,6 +42,7 @@ import math
 import torch
 
 from repro_torch.kernels.dispatch import (
+    attn_shard,
     fused_backend_active,
     qattention,
     qmatmul,
@@ -42,8 +51,10 @@ from repro_torch.kernels.ref import gather_pool
 from repro_torch.core.lords import dequantize_weight
 from repro_torch.models.common import (
     apply_rope,
+    gather_rows,
     kv_dequantize,
     kv_quantize,
+    local_kv_heads,
     qlinear_init,
     rmsnorm,
     rmsnorm_init,
@@ -141,12 +152,34 @@ def gqa_init(cfg, quant, *, generator=None, device=None):
     }
 
 
+def _gqa_proj(params, x, cfg, quant):
+    """q, k, v (..., heads, hd) of x (..., d).  Inside a shard scope they
+    hold this rank's heads when attention runs head-sharded (the rows the
+    model axis splits fall on head boundaries); otherwise a projection
+    whose rows it splits is gathered to all heads."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    nh, nkv = cfg.num_heads, cfg.num_kv_heads
+    sharded = attn_shard(nh, nkv)
+    out = []
+    for name, n in (("wq", nh * hd), ("wk", nkv * hd), ("wv", nkv * hd)):
+        y = qmatmul(params[name], x, quant, n, d)
+        if not sharded:
+            y = gather_rows(y, n)
+        out.append(y.reshape(*y.shape[:-1], -1, hd))
+    return out
+
+
+def _gqa_out(params, out, cfg, quant):
+    """The output projection of the attention result (..., heads, hd):
+    the heads are gathered first when they are this rank's, and the
+    projection's output after it when the model axis splits its rows."""
+    d, nhd = cfg.d_model, cfg.num_heads * cfg.resolved_head_dim
+    out = gather_rows(out.reshape(*out.shape[:-2], -1), nhd)
+    return gather_rows(qmatmul(params["wo"], out, quant, d, nhd), d)
+
+
 def _gqa_qkv(params, x, cfg, quant, positions):
-    b, s, d = x.shape
-    hd, nh, nkv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
-    q = qmatmul(params["wq"], x, quant, nh * hd, d).reshape(b, s, nh, hd)
-    k = qmatmul(params["wk"], x, quant, nkv * hd, d).reshape(b, s, nkv, hd)
-    v = qmatmul(params["wv"], x, quant, nkv * hd, d).reshape(b, s, nkv, hd)
+    q, k, v = _gqa_proj(params, x, cfg, quant)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -155,17 +188,15 @@ def _gqa_qkv(params, x, cfg, quant, positions):
 def gqa_train(params, x, cfg, quant, positions):
     """Training forward of the attention block: x (b, s, d) at positions
     (b, s) → (b, s, d); no cache."""
-    b, s, d = x.shape
-    nh, hd = cfg.num_heads, cfg.resolved_head_dim
     q, k, v = _gqa_qkv(params, x, cfg, quant, positions)
     out = chunked_causal_attention(q, k, v, positions=positions)
-    return qmatmul(params["wo"], out.reshape(b, s, nh * hd), quant, d, nh * hd)
+    return _gqa_out(params, out, cfg, quant)
 
 
 def _kv_init(cfg, lead, device, dtype=torch.bfloat16):
     """K/V storage of shape ``lead + (nkv, hd)``: bf16, or int8 codes plus
     f32 scales of shape ``lead + (nkv,)``."""
-    shape = (*lead, cfg.num_kv_heads, cfg.resolved_head_dim)
+    shape = (*lead, local_kv_heads(cfg), cfg.resolved_head_dim)
     if cfg.kv_cache_dtype == "int8":
         return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
                 "v": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -204,40 +235,27 @@ def _kv_store(cache, name, new, pos=None):
 def gqa_prefill(params, x, cfg, quant, positions, cache):
     """Full-window forward that also fills the cache; returns (y, cache).
     Attention reads the raw K/V; the cache stores them in its format."""
-    b, s, d = x.shape
-    nh, hd = cfg.num_heads, cfg.resolved_head_dim
     q, k, v = _gqa_qkv(params, x, cfg, quant, positions)
     out = chunked_causal_attention(q, k, v, positions=positions)
     _kv_store(cache, "k", k)
     _kv_store(cache, "v", v)
-    out = out.reshape(b, s, nh * hd)
-    return qmatmul(params["wo"], out, quant, d, nh * hd), cache
+    return _gqa_out(params, out, cfg, quant), cache
 
 
 def _decode_qkv(params, x, cfg, quant, pos):
-    b, _, d = x.shape
-    nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    q = qmatmul(params["wq"], x, quant, nh * hd, d).reshape(b, 1, nh, hd)
-    k = qmatmul(params["wk"], x, quant, nkv * hd, d).reshape(b, 1, nkv, hd)
-    v = qmatmul(params["wv"], x, quant, nkv * hd, d).reshape(b, 1, nkv, hd)
-    q = apply_rope(q, pos[:, None], cfg.rope_theta)
-    k = apply_rope(k, pos[:, None], cfg.rope_theta)
-    return q, k, v
+    return _gqa_qkv(params, x, cfg, quant, pos[:, None])
 
 
 def gqa_decode(params, x, cfg, quant, cache, pos):
     """x (b,1,d); pos (b,) current positions (may be ragged).  The new K/V
     is written at ``pos`` before attending over slots <= pos."""
-    b, _, d = x.shape
-    nh, hd = cfg.num_heads, cfg.resolved_head_dim
     q, k, v = _decode_qkv(params, x, cfg, quant, pos)
     _kv_store(cache, "k", k, pos)
     _kv_store(cache, "v", v, pos)
     out = decode_attention(q, cache["k"], cache["v"], pos,
                            k_scale=cache.get("k_scale"),
                            v_scale=cache.get("v_scale"))
-    out = out.reshape(b, 1, nh * hd)
-    return qmatmul(params["wo"], out, quant, d, nh * hd), cache
+    return _gqa_out(params, out, cfg, quant), cache
 
 
 # ---------------------------------------------------------------------------
@@ -320,16 +338,14 @@ def gqa_decode_paged(params, x, cfg, quant, pool, pt, pos):
     new K/V is written into the pool, then attention reads the pool through
     the page table (the paged kernel on ``fused``, the gather oracle on
     ``ref``)."""
-    b, _, d = x.shape
-    nh, hd = cfg.num_heads, cfg.resolved_head_dim
+    hd = cfg.resolved_head_dim
     q, k, v = _decode_qkv(params, x, cfg, quant, pos)
     _paged_store(pool, "k", k, pt, pos=pos)
     _paged_store(pool, "v", v, pt, pos=pos)
     out = qattention("paged_decode", q[:, 0], pool["k"], pool["v"], pt, pos,
                      pool.get("k_scale"), pool.get("v_scale"),
                      logit_scale=1.0 / math.sqrt(hd))
-    out = out[:, None].to(x.dtype).reshape(b, 1, nh * hd)
-    return qmatmul(params["wo"], out, quant, d, nh * hd), pool
+    return _gqa_out(params, out[:, None].to(x.dtype), cfg, quant), pool
 
 
 def gqa_prefill_chunk(params, x, cfg, quant, qpos, pos0, pool, pt):
@@ -341,8 +357,7 @@ def gqa_prefill_chunk(params, x, cfg, quant, qpos, pos0, pool, pt):
     ``qattention("chunk_prefill")``.  The chunk never reads its own K/V back
     through the pool, so it never sees its own int8 quantization error,
     exactly as the contiguous prefill."""
-    b, cs, d = x.shape
-    nh, hd = cfg.num_heads, cfg.resolved_head_dim
+    hd = cfg.resolved_head_dim
     q, k, v = _gqa_qkv(params, x, cfg, quant, qpos)
     _paged_store(pool, "k", k, pt, pos0=pos0)
     _paged_store(pool, "v", v, pt, pos0=pos0)
@@ -355,8 +370,7 @@ def gqa_prefill_chunk(params, x, cfg, quant, qpos, pos0, pool, pt):
                      torch.cat([vw, v], dim=1), qpos,
                      torch.cat([prefix, qpos], dim=1),
                      logit_scale=1.0 / math.sqrt(hd))
-    out = out.to(x.dtype).reshape(b, cs, nh * hd)
-    return qmatmul(params["wo"], out, quant, d, nh * hd), pool
+    return _gqa_out(params, out.to(x.dtype), cfg, quant), pool
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.lords import init_quantized_linear
-from repro_torch.kernels.dispatch import qmatmul
+from repro_torch.distributed import collectives
+from repro_torch.kernels.dispatch import attn_shard, shard_info, qmatmul
 
 __all__ = [
     "resolve_device",
@@ -25,6 +26,9 @@ __all__ = [
     "apply_rope",
     "kv_quantize",
     "kv_dequantize",
+    "gather_rows",
+    "local_kv_heads",
+    "check_sharded_family",
 ]
 
 
@@ -125,6 +129,52 @@ def kv_dequantize(codes: torch.Tensor, scale: torch.Tensor, dim: int = -1,
                   dtype=torch.bfloat16) -> torch.Tensor:
     """Inverse of :func:`kv_quantize` (codes ⊙ broadcast scales)."""
     return (codes.to(torch.float32) * scale.unsqueeze(dim)).to(dtype)
+
+
+def gather_rows(y: torch.Tensor, n: int) -> torch.Tensor:
+    """``y`` (..., n) whole: inside a shard scope a linear whose rows the
+    model axis splits returns this rank's (..., n / p), which is gathered
+    here (differentiably) where the next op needs whole rows.  A whole
+    ``y`` is returned as it is."""
+    sh = shard_info()
+    if sh is None or y.shape[-1] == n:
+        return y
+    return collectives.gather(y, sh.mesh, sh.axis, dim=-1)
+
+
+def local_kv_heads(cfg) -> int:
+    """The KV heads this rank's caches hold: its share when attention runs
+    head-sharded (:func:`repro_torch.kernels.dispatch.attn_shard`), all of
+    them otherwise.  Each rank's int8 cache quantizes its own heads, as the
+    JAX package's shard-resident cache blocks do."""
+    nkv = cfg.num_kv_heads
+    if attn_shard(cfg.num_heads, nkv):
+        return nkv // shard_info().model
+    return nkv
+
+
+def check_sharded_family(cfg) -> None:
+    """Raise for a model this slice does not run on a mesh: MLA, the
+    recurrent mixers and MoE under a model axis of more than one rank
+    (ROADMAP queue 1: ``models/moe_shardmap.py`` and the mixers' sharding
+    come in later slices), and MoE under any mesh (its capacity and router
+    aux loss are functions of the whole batch, so a data split changes
+    them)."""
+    sh = shard_info()
+    if sh is None:
+        return
+    kinds = set(cfg.layer_kinds())
+    moe = any(mlp == "moe" for _, mlp in kinds)
+    if moe:
+        raise NotImplementedError(
+            f"{cfg.name}: mixture-of-experts layers do not run on a mesh yet "
+            "(ROADMAP queue 1, item 1: models/moe_shardmap.py)")
+    if sh.model > 1 and (cfg.attn_kind == "mla"
+                         or any(m != "attn" for m, _ in kinds)):
+        raise NotImplementedError(
+            f"{cfg.name}: MLA and the recurrent mixers do not run with a model "
+            "axis of more than one rank yet (ROADMAP queue 1, item 1); a mesh "
+            "with model = 1 runs them data-parallel")
 
 
 def rmsnorm_init(d, device=None):

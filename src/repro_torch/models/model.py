@@ -28,6 +28,14 @@ them; here a Python loop walks the list.
   * ``forward_decode_paged(params, cfg, batch, pools, pt, pos)`` -> (logits
     (b, 1, Vp) f32, pools)
 
+Inside a shard scope (:func:`repro_torch.kernels.dispatch.shard_scope`)
+every rank runs these on its own windows of the params and its rows of the
+batch: GQA and the dense MLP tensor-parallel over the model axis (see
+:mod:`repro_torch.models.attention`), the loss a mean over every data
+replica's tokens; the embedding, norms and head are replicated.  Models
+this slice does not shard raise (:func:`repro_torch.models.common.
+check_sharded_family`).
+
 Caches and page pools are updated in place (see
 :mod:`repro_torch.models.attention` and :mod:`repro_torch.models.ssm`).  As
 in the JAX package, prefill runs a recurrent mixer's training path and
@@ -39,11 +47,13 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import collectives
 from repro_torch.kernels import dispatch
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
 from repro_torch.models.common import (
+    check_sharded_family,
     dense_init,
     f32_matmul,
     f32_matmul_train,
@@ -196,10 +206,11 @@ def _embed_in(params, cfg, batch):
     return batch["embeds"].to(torch.bfloat16)
 
 
-def _block_train(blk, x, cfg, kind, positions, backend):
-    # the backend is pinned inside the body: under cfg.remat this runs again
-    # in the backward, on the autograd thread, where no scope is set
-    with dispatch.backend_scope(backend):
+def _block_train(blk, x, cfg, kind, positions, backend, shard=None):
+    # the backend and the shard scope are pinned inside the body: under
+    # cfg.remat this runs again in the backward, on the autograd thread,
+    # where no scope is set
+    with dispatch.backend_scope(backend), dispatch.shard_scope(shard):
         h = rmsnorm(blk["ln1"], x, cfg.norm_eps)
         x = x + _mixer_train(blk["mixer"], h, cfg, kind[0], positions)
         return _mlp_apply(blk, x, cfg, kind[1])
@@ -231,6 +242,8 @@ def forward_train(params, cfg, batch, *, backend: str | None = None):
     labels = batch["labels"]
     b, s = labels.shape
     backend = dispatch.resolve_backend(backend, labels)
+    check_sharded_family(cfg)
+    shard = dispatch.shard_info()
     positions = torch.arange(s, dtype=torch.int32,
                              device=labels.device)[None].expand(b, s)
     x = _embed_in(params, cfg, batch)
@@ -238,9 +251,9 @@ def forward_train(params, cfg, batch, *, backend: str | None = None):
     for blk, kind in zip(params["layers"], _layer_kinds(cfg)):
         if cfg.remat:
             x, a = checkpoint(_block_train, blk, x, cfg, kind, positions,
-                              backend, use_reentrant=False)
+                              backend, shard, use_reentrant=False)
         else:
-            x, a = _block_train(blk, x, cfg, kind, positions, backend)
+            x, a = _block_train(blk, x, cfg, kind, positions, backend, shard)
         if a is not None:
             aux = aux + a
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -259,10 +272,19 @@ def forward_train(params, cfg, batch, *, backend: str | None = None):
         else:
             nll, n = _chunk_loss(*args)
         tot, cnt = tot + nll, cnt + n
-    loss = tot / torch.clamp(cnt, min=1.0)
+    metric = tot.detach()
+    if shard is not None and shard.data_axes:
+        # this replica's share of the mean over every replica's tokens: the
+        # data-axis gradient sums then give the global mean's gradient
+        cnt = collectives.all_reduce(cnt.clone(), shard.mesh, shard.data_axes)
+        metric = collectives.all_reduce(metric.clone(), shard.mesh,
+                                        shard.data_axes)
+    denom = torch.clamp(cnt, min=1.0)
+    loss = tot / denom
     if cfg.moe is not None:
         loss = loss + 0.01 * aux
-    return loss, {"loss": loss, "aux_loss": aux, "tokens": cnt}
+    metric = metric / denom if cfg.moe is None else loss.detach()
+    return loss, {"loss": metric, "aux_loss": aux, "tokens": cnt}
 
 
 def forward_prefill(params, cfg, batch, cache, positions=None):
@@ -275,6 +297,7 @@ def forward_prefill(params, cfg, batch, cache, positions=None):
     arange.  A recurrent layer runs its training path over the whole window
     and leaves its state as it was (the JAX package's ``_block_prefill``).
     """
+    check_sharded_family(cfg)
     x = _embed_in(params, cfg, batch)
     b, s = x.shape[:2]
     if positions is None:
@@ -304,6 +327,7 @@ def _step_in(params, cfg, batch):
 def forward_decode(params, cfg, batch, cache, pos):
     """One decode step.  batch: {"tokens": (b,)} or {"embeds": (b, 1, d)};
     pos (b,) int32."""
+    check_sharded_family(cfg)
     x = _step_in(params, cfg, batch)
     attn_decode = attn.mla_decode if _mla(cfg) else attn.gqa_decode
     for blk, (mixer, mlp), layer_cache in zip(params["layers"],
@@ -320,6 +344,7 @@ def forward_decode_paged(params, cfg, batch, pools, pt, pos):
     """One decode step against the page pools.  batch: {"tokens": (b,)} or
     {"embeds": (b, 1, d)}; pt (b, np) page table; pos (b,) int32 current
     positions."""
+    check_sharded_family(cfg)
     x = _step_in(params, cfg, batch)
     decode = attn.mla_decode_paged if _mla(cfg) else attn.gqa_decode_paged
     for blk, (_, mlp), pool in zip(params["layers"], _layer_kinds(cfg), pools):
@@ -336,6 +361,7 @@ def forward_prefill_chunk(params, cfg, batch, pools, pt, qpos, pos0):
     row); pos0 (b,) page-aligned chunk start.  Returns (logits (b, 1, Vp)
     f32 of each row's ``argmax(qpos)`` column, pools): meaningful for rows
     whose prompt ends in this chunk."""
+    check_sharded_family(cfg)
     x = _embed_in(params, cfg, batch)                      # (b, cs, d)
     chunk = attn.mla_prefill_chunk if _mla(cfg) else attn.gqa_prefill_chunk
     for blk, (_, mlp), pool in zip(params["layers"], _layer_kinds(cfg), pools):

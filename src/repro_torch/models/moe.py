@@ -26,7 +26,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.dispatch import qmatmul_stack
-from repro_torch.models.common import dense_init, qlinear_apply, qlinear_init
+from repro_torch.models.common import (
+    dense_init,
+    gather_rows,
+    qlinear_apply,
+    qlinear_init,
+)
 
 __all__ = ["dense_mlp_init", "dense_mlp_apply", "moe_init", "moe_apply"]
 
@@ -46,10 +51,15 @@ def dense_mlp_init(d, d_ff, quant, *, generator=None, device=None):
 
 
 def dense_mlp_apply(params, x, d, d_ff, quant):
+    """SwiGLU.  Inside a shard scope gate and up give this rank's d_ff / p
+    columns when the model axis splits their rows (the product is
+    column-local), which are gathered before the down projection, whose
+    split output is gathered after it."""
     g = qlinear_apply(params["w_gate"], x, quant, d_ff, d)
     u = qlinear_apply(params["w_up"], x, quant, d_ff, d)
     h = F.silu(g.to(torch.float32)) * u.to(torch.float32)
-    return qlinear_apply(params["w_down"], h.to(x.dtype), quant, d, d_ff)
+    h = gather_rows(h.to(x.dtype), d_ff)
+    return gather_rows(qlinear_apply(params["w_down"], h, quant, d, d_ff), d)
 
 
 # ---------------------------------------------------------------------------

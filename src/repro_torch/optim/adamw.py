@@ -69,15 +69,17 @@ def adamw_update(params: dict, grads: dict, state: AdamWState, lr: float,
 
 
 def guarded_update(params: dict, grads: dict, state: AdamWState, lr: float,
-                   max_gnorm: float = math.inf):
+                   max_gnorm: float = math.inf, gnorm=None):
     """:func:`adamw_update` behind a non-finite / spike guard.
 
     Returns (params, state, gnorm, applied).  When the pre-clip global norm
-    is non-finite or above ``max_gnorm`` the step is skipped: params, both
-    moments and the step count keep their values exactly.  Otherwise the
-    result is :func:`adamw_update`'s.
+    (``gnorm``, default :func:`global_norm` of ``grads``; a sharded step
+    passes the norm over every rank's windows) is non-finite or above
+    ``max_gnorm`` the step is skipped: params, both moments and the step
+    count keep their values exactly.  Otherwise the result is
+    :func:`adamw_update`'s.
     """
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if gnorm is None else gnorm
     g = float(gnorm)
     if not (math.isfinite(g) and g <= max_gnorm):
         return params, state, gnorm, False

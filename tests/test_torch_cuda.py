@@ -117,7 +117,7 @@ def test_qmatmul_fused_launches_and_matches_ref(dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [16, 64, 128])
+@pytest.mark.parametrize("hd", [16, 64, 112, 128])
 def test_attention_kernels_match_plain(dev, hd):
     rng = np.random.default_rng(hd)
     b, s, nh, nkv = 2, 128, 8, 2
@@ -149,7 +149,7 @@ def _bf16(rng, dev, *shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [16, 128])
+@pytest.mark.parametrize("hd", [16, 112, 128])
 def test_int8_attn_decode_matches_plain(dev, hd):
     """The int8 branch: codes and per-(slot, head) scales from kv_quantize,
     folded into the kernel's dots.  f32 on both sides: 1e-4 absolute."""
@@ -1016,7 +1016,7 @@ def test_block_grad_places_every_product(dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 112, 128])
 @pytest.mark.parametrize("g", [1, 3, 4, 7, 16, 48])
 def test_attn_decode_split_kv_matches_plain(dev, hd, g):
     """The split-KV decode kernel against its plain version, bf16 and int8,
@@ -1504,3 +1504,101 @@ def test_expert_stack_gemv_at_jamba_width(dev, n, k):
     for i in range(e):
         y_ref = ref.lords_matmul_ref(x[i], q[i], b[i], a[i], cfg.quant.codebook)
         torch.testing.assert_close(y[i], y_ref, rtol=0, atol=_tol(y_ref), msg=str(i))
+
+
+# ---------------------------------------------------------------------------
+# head dim 112 (kimi-k2: 64 heads, 8 KV heads) and ranks on one card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_hd112_attention_entries_at_kimi_k2_shapes(dev, kv):
+    """The three entries built at hd 112 — attn_prefill, the GQA decode
+    kernel's contiguous and paged entries — at kimi-k2's attention shapes
+    (64 heads, 8 KV heads, g 8; a prefill window of 576 with 512 live, a
+    decode cache of 544, an engine pool of 64-slot pages), bf16 and int8
+    caches, each one launch, against the plain versions: 1e-4 absolute (the
+    prefill at x1 and x30 logits against the float64 function)."""
+    rng = np.random.default_rng(112)
+    nh, nkv, hd, b = 64, 8, 112, 2
+    s, cap = 576, 544
+    q = _bf16(rng, dev, b, s, nh, hd)
+    k, v = _bf16(rng, dev, b, s, nkv, hd), _bf16(rng, dev, b, s, nkv, hd)
+    col = torch.arange(s, dtype=torch.int32, device=dev)[None]
+    pos = torch.where(col < 512, col, -1).expand(b, s).contiguous()
+    for peak in (1.0, 30.0):
+        scale = peak * hd**-0.5
+        before = attn_prefill.launches
+        y = attn_prefill(q, k, v, pos, pos, logit_scale=scale)
+        assert attn_prefill.launches == before + 1
+        exact = ref.attn_prefill_pos(q, k, v, pos, pos, scale, dtype=torch.float64)
+        torch.testing.assert_close(y.double(), exact, rtol=0, atol=1e-4)
+    qd = _bf16(rng, dev, b, nkv, nh // nkv, hd)
+    kc, vc = _bf16(rng, dev, b, cap, nkv, hd), _bf16(rng, dev, b, cap, nkv, hd)
+    ops = (kc, vc)
+    if kv == "int8":
+        (kq, ks), (vq, vs) = kv_quantize(kc), kv_quantize(vc)
+        ops = (kq, vq, ks, vs)
+    kmask = dispatch.decode_kmask(torch.tensor([cap - 2, 100], device=dev), cap)
+    before = attn_decode.launches
+    y = attn_decode(qd, ops[0], ops[1], kmask, *ops[2:], logit_scale=hd**-0.5)
+    assert attn_decode.launches == before + 1
+    torch.testing.assert_close(
+        y, ref.attn_decode_kmask(qd, ops[0], ops[1], kmask, hd**-0.5, *ops[2:]),
+        rtol=0, atol=1e-4)
+    total, ps, npages, slots = 49, 64, 20, 4
+    kp, vp = _bf16(rng, dev, total, ps, nkv, hd), _bf16(rng, dev, total, ps, nkv, hd)
+    pops = (kp, vp)
+    if kv == "int8":
+        (kq, ks), (vq, vs) = kv_quantize(kp), kv_quantize(vp)
+        pops = (kq, vq, ks, vs)
+    pt = torch.from_numpy(np.stack([rng.permutation(np.arange(1, total))[:npages]
+                                    for _ in range(slots)]).astype(np.int32)).to(dev)
+    ppos = torch.tensor([npages * ps - 1, 3 * ps - 1, ps, 700], dtype=torch.int32,
+                        device=dev)
+    qp = _bf16(rng, dev, slots, nkv, nh // nkv, hd)
+    before = attn_decode_paged.launches
+    y = attn_decode_paged(qp, pops[0], pops[1], pt, ppos, *pops[2:], logit_scale=hd**-0.5)
+    assert attn_decode_paged.launches == before + 1
+    y_ref = ref.attn_decode_paged_ref(pt, qp.reshape(slots, nh, hd), pops[0], pops[1],
+                                      ppos, *pops[2:], logit_scale=hd**-0.5)
+    torch.testing.assert_close(y, y_ref.reshape(slots, nkv, nh // nkv, hd), rtol=0,
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_qmatmul_on_cuda_tensors(dev):
+    """Two ranks sharing the card (gloo takes CUDA tensors): the LoRDS
+    forward on each rank's N/2 rows (lords_matmul at M 256, lords_decode at
+    M 4), gathered, and the PEFT backward's dx / dB / dA (dx summed over
+    the model axis, dA too), gathered, against the one-rank result on the
+    card: f32 sums in another order, 1e-5 of each output's scale; dx is
+    bf16 (x's dtype), where that order can move an element by one bf16
+    ulp: 2^-8 of its scale."""
+    import torch_dist_ranks
+    from repro_torch.launch.ranks import run_ranks
+
+    x, p = _linear(256, 512, 8, dev)
+    spec = QuantSpec(codebook="nf4", block_size=32, rank=8, mode="peft")
+    cpu = {k: v.cpu() for k, v in p.items()}
+    cases = []
+    for m in (256, 4):
+        xm = x[:m]
+        y = dispatch.qmatmul(p, xm, spec, 256, 512)
+        leaves = [xm.clone().requires_grad_(), p["b"].clone().requires_grad_(),
+                  p["a"].clone().requires_grad_()]
+        yy = dispatch.qmatmul({"q": p["q"], "b": leaves[1], "a": leaves[2]},
+                              leaves[0], spec, 256, 512)
+        grads = torch.autograd.grad((yy.float() ** 2).sum(), leaves)
+        cases.append({"m": m, "x": xm.cpu(), "y": y.float().cpu(),
+                      "grads": [g.float().cpu() for g in grads]})
+    results = run_ranks(torch_dist_ranks.cuda_qmatmul, 2,
+                        args=(cpu, spec, cases), device="cuda", timeout=300)
+    for case, got in zip(cases, results[0]):
+        torch.testing.assert_close(got["y"], case["y"], rtol=0,
+                                   atol=1e-5 * case["y"].abs().max().item())
+        assert got["launches"] > 0
+        for g, want, rel in zip(got["grads"], case["grads"], (2**-8, 1e-5, 1e-5)):
+            torch.testing.assert_close(g, want, rtol=0,
+                                       atol=rel * want.abs().max().item())

@@ -576,8 +576,16 @@ def test_run_training_collective_timeout_bounds_and_desync_refusal():
     with pytest.raises(InjectedFault, match="collective"):
         run_training(cfg, shape, steps=2, device="cpu", collective_retries=1,
                      faults=FaultPlan(0, {"dist.collective_timeout": {"prob": 1.0}}))
-    with pytest.raises(ValueError, match="queue 1, item 6"):
-        run_training(cfg, shape, steps=2, device="cpu", desync_every=1)
+    # the desync digest is ported: on one replica a perturbed report has
+    # nothing to disagree with (as in the JAX package), so nothing is
+    # detected and the run completes
+    plan = FaultPlan(0, {"dist.replica_desync": {"prob": 1.0, "max_fires": 1}})
+    out = run_training(cfg, shape, steps=2, device="cpu", desync_every=1,
+                       faults=plan)
+    assert out["status"] == "complete" and len(out["losses"]) == 2
+    assert out["desyncs_detected"] == out["desync_rollbacks"] == 0
+    assert out["final_mesh"] == {"data": 1, "model": 1}
+    assert plan.fired("dist.replica_desync", index=0) == 1
 
 
 def test_chip_smoke_chaos_plan_schedule():
