@@ -69,7 +69,16 @@ rank's launch counts and linear rows checked, teacher-forced logits against
 one rank's fused and ref runs) and trained (PEFT) at 2×1 and 1×2 under a
 seeded desync plan (losses and gradient norms against one rank's; on each
 rank one step's gradients at the shard shapes, fused against ref), its
-sharded checkpoint restored at 2×1 and on one rank byte for byte.  Phase 2 also holds the attention kernels at
+sharded checkpoint restored at 2×1 and on one rank byte for byte; then
+its elastic drills: phase 4's engine and trace at 1×2 (equal records on
+both ranks, each rank's launches of the four engine kernels those of a
+one-rank run of the trace with the same ticks, at half its LoRDS rows,
+one chunk and one decode step's logits fused against ref at the shard
+shapes), the trace again with a device loss at the second tick (rank 1
+hands its shards over and is lost, rank 0 rebuilds at 1×1 and
+recomputes: the one-rank run's tokens bit for bit), and the trainer at
+2×1 with a device loss at step 1 (restored onto one rank; losses against
+one rank's).  Phase 2 also holds the attention kernels at
 kimi-k2's head dim 112.  Each path runs
 with the launch counts set to 0 just before it, must launch every kernel
 it uses (and none of another path's linears or decode kernels), and must hold
@@ -165,6 +174,18 @@ SHARD_DESYNC = {"dist.replica_desync": {"prob": 1.0, "max_fires": 1, "only_index
 # call as a whole (they start with the script and wait through phases
 # 1-18, which is no collective) ends within the script's 1200 s
 SHARD_COLLECTIVE_S, SHARD_DEADLINE_S = 120, 1150
+# phase 19's elastic drills: phase 4's engine (ENGINE, N_REQUESTS, int8 pool)
+# at 1×2, then the same trace with a device loss at the second tick (tick
+# 0 prefills a chunk and decodes one token, and every max_new is >= 16, so
+# no request has completed: all recompute on the survivor), and the trainer
+# at 2×1 for 3 steps with a checkpoint every step and a device loss at step
+# 1; the engine's chunk and decode step logits at the shard shapes, fused
+# against ref, hold cosine >= ELASTIC_COS_MIN (phase 19's sharded logits
+# held 0.999904-0.999947 against one rank's runs, PERF.md)
+ELASTIC_ENGINE_LOSS = {"dist.device_loss": {"at": (1,)}}
+ELASTIC_TRAIN_LOSS = {"dist.device_loss": {"at": (1,)}}
+ELASTIC_STEPS, ELASTIC_COS_MIN = 3, 0.9999
+ENGINE_ROWS = ("lords_matmul", "lords_decode", "attn_prefill", "attn_decode_paged")
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "lords_matmul": ("lords_matmul", "src/repro/kernels/lords_matmul.py:140"),
     "lords_decode": ("lords_decode", "src/repro/kernels/lords_decode.py:84"),
@@ -2248,6 +2269,144 @@ def _sharded_grad_check(cfg, params, mesh, torch):
     return {"loss": (lf, lr_), "rel": abs(lf - lr_) / abs(lr_), "cos": worst}
 
 
+def _engine_summary(st):
+    """What the ranks' engine runs are held to, picklable."""
+    keys = ("all_completed", "statuses", "evictions", "chunk_steps", "decode_steps", "ticks",
+            "mesh_rebuilds", "lost_devices", "resharded_restores", "lost", "final_mesh",
+            "wall_s", "prefill_ms", "decode_ms", "rebuild_s", "goodput_tok_s")
+    out = {k: st[k] for k in keys}
+    out["audit_ok"] = st["page_audit"]["ok"] and not st.get("audit_failures")
+    out["records"] = [(r["rid"], r["status"], r["reason"], list(r["tokens"]), r["admitted"],
+                       r["first_token"], r["finished"]) for r in st["records"]]
+    return out
+
+
+def _engine_step_logits(cfg, eng, torch):
+    """One chunk step's and one paged decode step's last logits on ``eng``'s
+    mesh and windows, fused against ref on pools of their own (8 slots,
+    prompts of 64-320 tokens in one chunk, disjoint pages): the least
+    cosine of each."""
+    import numpy as np
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import forward_decode_paged, forward_prefill_chunk
+
+    dev = torch.device("cuda")
+    slots, cs, ps = ENGINE["slots"], ENGINE["chunk"], ENGINE["page_size"]
+    rng = np.random.default_rng(6)
+    plens = rng.integers(64, 321, slots)
+    pt = np.zeros((slots, ENGINE["max_pages"]), np.int32)
+    nxt = 1
+    for i, p in enumerate(plens):
+        n = -(-(int(p) + 1) // ps)
+        pt[i, :n] = np.arange(nxt, nxt + n)
+        nxt += n
+    assert nxt <= ENGINE["total_pages"]
+    col = np.arange(cs)[None]
+    qpos = np.where(col < plens[:, None], col, -1).astype(np.int32)
+    tokens = rng.integers(0, cfg.vocab_size, (slots, cs))
+    args = [torch.from_numpy(a).to(dev) for a in (tokens, pt, qpos,
+                                                  np.zeros(slots, np.int32))]
+    step_tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, slots)).to(dev)
+    pos = torch.from_numpy(plens.astype(np.int32)).to(dev)
+    lg = {}
+    for backend in ("fused", "ref"):
+        pools = eng._new_pools()
+        with torch.inference_mode(), dispatch.backend_scope(backend), eng._scope():
+            chunk, pools = forward_prefill_chunk(eng.params, cfg, {"tokens": args[0]}, pools,
+                                                 *args[1:])
+            dec, _ = forward_decode_paged(eng.params, cfg, {"tokens": step_tok}, pools,
+                                          args[1], pos)
+        lg[backend] = [t[:, -1, : cfg.vocab_size].double() for t in (chunk, dec)]
+    cos = [torch.nn.functional.cosine_similarity(f, r, dim=-1).min().item()
+           for f, r in zip(lg["fused"], lg["ref"])]
+    finite = all(bool(torch.isfinite(t).all()) for t in lg["fused"])
+    return {"chunk_cos": cos[0], "decode_cos": cos[1], "finite": finite}
+
+
+def _engine(cfg, params, torch, mesh=None):
+    """Phase 4's engine (int8 pool) on ``mesh`` (one rank by default),
+    warmed up."""
+    from repro_torch.launch.engine import Engine
+
+    eng = Engine(cfg.with_(kv_cache_dtype="int8"), params=params,
+                 device=torch.device("cuda"), mesh=mesh, **ENGINE)
+    eng.warmup()
+    torch.cuda.synchronize()
+    return eng
+
+
+def _engine_run(eng, shapes):
+    """Phase 4's trace on ``eng``: the run's summary, its launch counts and
+    the (kernel, N, K) of its LoRDS launches."""
+    shapes.clear()
+    st, launches = counted(lambda: eng.run(engine_trace(eng.cfg, N_REQUESTS),
+                                           timeout_s=600.0))
+    return {"stats": _engine_summary(st), "launches": launches, "shapes": sorted(shapes)}
+
+
+def sharded_engine(cfg, params, mesh, shapes, torch):
+    """Phase 19's engine drills on one rank: (a) phase 4's engine and trace
+    at 1×2, its launch counts and the (kernel, N, K) of its LoRDS launches,
+    and the chunk and decode step logits at the shard shapes fused against
+    ref; (b) the trace again on the same engine under ELASTIC_ENGINE_LOSS:
+    rank 1 is lost after handing its shards over, rank 0 rebuilds 1×1 and
+    recomputes.  (The one-rank run of the trace they are held to runs in
+    the script's process, beside them: ``one_rank_engine``.)"""
+    from repro_torch.robustness import FaultPlan
+
+    t0 = time.perf_counter()
+    out = {}
+    eng = _engine(cfg, params, torch, mesh)
+    out["mesh"] = _engine_run(eng, shapes)
+    out["logits"] = _engine_step_logits(eng.cfg, eng, torch)
+    eng.faults = FaultPlan(0, ELASTIC_ENGINE_LOSS)
+    out["loss"] = _engine_run(eng, shapes)
+    del eng
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def one_rank_engine(cfg, params, torch):
+    """Phase 4's engine and trace on one rank in the script's process (the
+    reference of phase 19's engine drills), with the LoRDS wrappers
+    recording their (N, K) for the run only."""
+    from repro_torch.kernels import lords_decode as dec_mod
+    from repro_torch.kernels import lords_matmul as mm_mod
+
+    real = (mm_mod.lords_matmul, dec_mod.lords_decode)
+    try:
+        shapes = _shape_recorder()
+        t0 = time.perf_counter()
+        out = _engine_run(_engine(cfg, params, torch), shapes)
+        out["seconds"] = time.perf_counter() - t0
+    finally:
+        mm_mod.lords_matmul, dec_mod.lords_decode = real
+    return out
+
+
+def sharded_elastic_train(cfg, mesh, directory, torch):
+    """Phase 19's trainer drill on one rank: run_training at 2×1 for
+    ELASTIC_STEPS steps, a checkpoint every step, a device loss at step 1:
+    rank 1 is lost, rank 0 restores the step-1 checkpoint onto one rank."""
+    from repro_torch.launch.train import run_training
+    from repro_torch.models import model_init
+    from repro_torch.robustness import FaultPlan
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    res, launches = counted(lambda: run_training(
+        cfg, _train_shape(), steps=ELASTIC_STEPS, lr=PEFT_LR, device=dev,
+        params=model_init(cfg, 0, device=dev), log_every=100, mesh=mesh,
+        ckpt_dir=directory, ckpt_every=1, faults=FaultPlan(0, ELASTIC_TRAIN_LOSS)))
+    out = {k: res[k] for k in ("losses", "status", "mesh_rebuilds", "lost_devices",
+                               "resharded_restores", "final_mesh", "skipped_steps",
+                               "step_ms")}
+    out.update(launches=launches, seconds=time.perf_counter() - t0)
+    return out
+
+
 def sharded_rank(cfg, inputs, go, abort):
     """Phase 19 on one rank, started with the script: it imports, joins its
     meshes and waits for ``go`` (raising once ``abort`` is set: an earlier
@@ -2256,7 +2415,8 @@ def sharded_rank(cfg, inputs, go, abort):
     and teacher-forced logits on its own tokens; (b) run_training PEFT at
     2×1 and at 1×2 under the desync plan, with a checkpoint every step;
     (c) the 1×2 run's sharded checkpoint restored at 2×1 against its state
-    gathered whole."""
+    gathered whole; then the elastic drills (``sharded_engine``,
+    ``sharded_elastic_train``)."""
     import torch
     # the first non-reentrant torch.utils.checkpoint call of a process
     # imports torch._dynamo: 8-13 s of a rank's first training step on an
@@ -2337,6 +2497,13 @@ def sharded_rank(cfg, inputs, go, abort):
         "restored_2x1_equal": all(torch.equal(flat[k].cpu(), v) for k, v in final.items()),
         "final": final if mesh.rank == 0 else None}
     out["seconds"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    out["engine"] = sharded_engine(cfg, params, mesh, shapes, torch)
+    del params
+    torch.cuda.empty_cache()
+    out["elastic_train"] = sharded_elastic_train(cfg, meshes["2x1"],
+                                                 f"{inputs['dir']}/elastic", torch)
+    out["elastic_seconds"] = time.perf_counter() - t1
     return out
 
 
@@ -2394,14 +2561,17 @@ def sharded_phase(torch, bg):
         bg.future.result()
     t1 = time.perf_counter()
     bg.go.set()
-    single_train = run_training(cfg, _train_shape(), steps=SHARD_STEPS, lr=PEFT_LR,
+    # one step past SHARD_STEPS: the elastic trainer's reference
+    single_train = run_training(cfg, _train_shape(), steps=ELASTIC_STEPS, lr=PEFT_LR,
                              device=dev, params=model_init(cfg, 0, device=dev),
                              log_every=100, desync_every=1)
     t_ref = time.perf_counter() - t1
+    # the engine drills' one-rank reference, while the ranks serve and train
+    params = model_init(cfg, 0, device=dev)
+    single_engine = one_rank_engine(cfg, params, torch)
     ranks = bg.future.result()
     t_ranks = time.perf_counter() - t1
     r0 = ranks[0]
-    params = model_init(cfg, 0, device=dev)
     single = {}
     for kv in ("bf16", "int8"):
         for backend in ("fused", "ref"):
@@ -2423,8 +2593,9 @@ def sharded_phase(torch, bg):
     log(f"[sharded] llama3-8b LoRDS nf4 full width, {SHARD_LAYERS} layers, 2 ranks on one "
         f"card (gloo), started {t1 - bg.started:.1f} s before the phase: ranks "
         f"{t_ranks:.1f} s from the phase's start to their results (rank bodies "
-        f"{', '.join(f'{r['seconds']:.1f}' for r in ranks)} s), the single-rank training "
-        f"run beside them {t_ref:.1f} s")
+        f"{', '.join(f'{r['seconds']:.1f}' for r in ranks)} s before the elastic drills), "
+        f"the single-rank training run beside them {t_ref:.1f} s, the one-rank engine run "
+        f"{single_engine['seconds']:.1f} s")
     paths = {}
     for kv in ("bf16", "int8"):
         what = f"sharded serve 1x2 {kv}"
@@ -2474,13 +2645,15 @@ def sharded_phase(torch, bg):
             if (t["status"] != "complete" or t["desyncs_detected"] != want_desync
                     or t["desync_rollbacks"] != want_desync or t["skipped_steps"]):
                 raise AssertionError(f"{what} rank {r['rank']}: {t}")
-            np.testing.assert_allclose(t["losses"], single_train["losses"], rtol=1e-4, atol=1e-5)
+            np.testing.assert_allclose(t["losses"], single_train["losses"][:SHARD_STEPS],
+                                       rtol=1e-4, atol=1e-5)
             # the step's sums: the first step's global norm (the same params
             # and batch) as tests/test_torch_dist.py bounds it; the second's
             # after an update that moves near-zero gradients' elements by ~lr
             np.testing.assert_allclose(t["grad_norms"][0], single_train["grad_norms"][0],
                                        rtol=1e-3)
-            np.testing.assert_allclose(t["grad_norms"], single_train["grad_norms"], rtol=1e-2)
+            np.testing.assert_allclose(t["grad_norms"], single_train["grad_norms"][:SHARD_STEPS],
+                                       rtol=1e-2)
             gc = t["grad_check"]
             log(f"[{what}] rank {r['rank']} kernels at the shard shapes, fused vs ref, one "
                 f"step: loss {gc['loss'][0]:.5f} vs {gc['loss'][1]:.5f} (|Δ|/loss "
@@ -2499,7 +2672,107 @@ def sharded_phase(torch, bg):
         f"1x1 {equal_1x1}")
     if not (equal_1x1 and all(r["ckpt"]["restored_2x1_equal"] for r in ranks)):
         raise AssertionError("sharded checkpoint: a restore differs from the saved state")
+    paths.update(elastic_checks(cfg, ranks, single_train, single_engine))
     return paths
+
+
+
+def elastic_checks(cfg, ranks, single_train, single):
+    """Phase 19's elastic drills, held: (a) the 1×2 engine's ranks took the
+    same records and counters, each rank's launches of ENGINE_ROWS equal
+    one rank's engine's on the trace with its ticks, at half its LoRDS
+    rows, and the step logits hold ELASTIC_COS_MIN; (b) after the device
+    loss rank 1 is lost and rank 0's rebuilt engine gives the one-rank
+    run's tokens; (c) the trainer restored onto one rank and its losses
+    are the single-rank run's.  Returns rank 0's launch counts of each."""
+    import numpy as np
+
+    smi = nvidia_smi()
+    r0 = ranks[0]["engine"]
+    what = "sharded engine 1x2 int8"
+    for r in ranks:
+        e = r["engine"]
+        m = e["mesh"]
+        local = ("prefill_ms", "decode_ms")  # each rank's own host clock
+        if ({k: v for k, v in m["stats"].items() if k not in local}
+                != {k: v for k, v in r0["mesh"]["stats"].items() if k not in local}):
+            raise AssertionError(f"{what}: rank {r['rank']}'s schedule or records differ "
+                                 "from rank 0's")
+        st = m["stats"]
+        same = {k: (st[k], single["stats"][k]) for k in ("ticks", "chunk_steps",
+                                                          "decode_steps", "evictions")}
+        wrong = {n: (m["launches"][n], single["launches"][n]) for n in ENGINE_ROWS
+                 if m["launches"][n] != single["launches"][n]}
+        half = sorted((n, rows // 2, k) for n, rows, k in single["shapes"])
+        lg = e["logits"]
+        log(f"[{what}] rank {r['rank']}: {st['ticks']} ticks, wall {st['wall_s']:.2f} s = "
+            f"{1e3 * st['wall_s'] / st['ticks']:.1f} ms a tick (one rank: "
+            f"{1e3 * single['stats']['wall_s'] / single['stats']['ticks']:.1f}), goodput "
+            f"{st['goodput_tok_s']:.1f} tok/s, prefill_ms {st['prefill_ms']:.1f}, decode_ms "
+            f"{st['decode_ms']:.1f}, evictions {st['evictions']}; launches "
+            + ", ".join(f"{n} {m['launches'][n]} (one rank {single['launches'][n]})"
+                        for n in ENGINE_ROWS)
+            + f"; (kernel, N, K) {m['shapes']}; chunk / decode step logits fused vs ref "
+            f"cosine {lg['chunk_cos']:.6f} / {lg['decode_cos']:.6f} (>= {ELASTIC_COS_MIN}) "
+            f"| {smi}")
+        if (not st["all_completed"] or not st["audit_ok"] or wrong
+                or any(a != b for a, b in same.values()) or m["shapes"] != half):
+            raise AssertionError(f"{what} rank {r['rank']}: completed {st['all_completed']}, "
+                                 f"audit {st['audit_ok']}, launches (got, one rank's) {wrong}, "
+                                 f"counters {same}, rows {m['shapes']} != {half}")
+        if not lg["finite"] or min(lg["chunk_cos"], lg["decode_cos"]) < ELASTIC_COS_MIN:
+            raise AssertionError(f"{what} rank {r['rank']}: step logits {lg}")
+    want = {rec[0]: rec[3] for rec in single["stats"]["records"]}
+    got = {rec[0]: rec[3] for rec in r0["mesh"]["stats"]["records"]}
+    flips = sorted(rid for rid in want if got.get(rid) != want[rid])
+    log(f"[{what}] tokens against the one-rank run: {len(want) - len(flips)} of {len(want)} "
+        f"requests equal (the sharded model sums o_proj and down_proj over the model axis: "
+        f"other rounding), differing {flips}")
+    # (b) the device loss
+    what_b = "sharded engine loss 1x2->1x1"
+    lost, surv = ranks[1]["engine"]["loss"]["stats"], r0["loss"]["stats"]
+    rb = surv["rebuild_s"]
+    log(f"[{what_b}] rank 1 lost {lost['lost']} (lost_devices {lost['lost_devices']}); rank 0: "
+        f"statuses {surv['statuses']}, mesh_rebuilds {surv['mesh_rebuilds']}, lost_devices "
+        f"{surv['lost_devices']}, resharded_restores {surv['resharded_restores']}, final_mesh "
+        f"{surv['final_mesh']}, audit {surv['audit_ok']}, rebuild "
+        + ", ".join(f"gather {b['gather']:.3f} s, pools {b['pools']:.3f} s, warm-up "
+                    f"{b['warmup']:.3f} s" for b in rb)
+        + f", {surv['ticks']} ticks in {surv['wall_s']:.2f} s, launches "
+        f"{r0['loss']['launches']} | {smi}")
+    loss_tokens = {rec[0]: rec[3] for rec in surv["records"] if rec[1] == "completed"}
+    diverged = sorted(rid for rid, t in loss_tokens.items() if t != want[rid])
+    if not (lost["lost"] and lost["lost_devices"] == 1 and surv["all_completed"]
+            and not surv["lost"] and surv["audit_ok"] and len(rb) == 1
+            and (surv["mesh_rebuilds"], surv["lost_devices"], surv["resharded_restores"])
+            == (1, 1, 1) and surv["final_mesh"] == {"data": 1, "model": 1}):
+        raise AssertionError(f"{what_b}: rank 1 {lost}, rank 0 {surv}")
+    if diverged or len(loss_tokens) != len(want):
+        raise AssertionError(f"{what_b}: requests {diverged} differ from the clean one-rank "
+                             f"run ({len(loss_tokens)} completed of {len(want)})")
+    # (c) the trainer
+    what_c = "sharded train elastic 2x1->1x1"
+    tr, tl = ranks[0]["elastic_train"], ranks[1]["elastic_train"]
+    ref = single_train["losses"]
+    log(f"[{what_c}] rank 0: losses {tr['losses']} (single rank {ref}), status {tr['status']}, "
+        f"mesh_rebuilds {tr['mesh_rebuilds']}, lost_devices {tr['lost_devices']}, "
+        f"resharded_restores {tr['resharded_restores']}, final_mesh {tr['final_mesh']}, step "
+        f"ms {', '.join(f'{t:.1f}' for t in tr['step_ms'])}, {tr['seconds']:.1f} s; rank 1 "
+        f"{tl['status']} | {smi}")
+    if (tr["status"] != "complete" or tl["status"] != "lost" or tr["skipped_steps"]
+            or (tr["mesh_rebuilds"], tr["lost_devices"], tr["resharded_restores"]) != (1, 1, 1)
+            or tr["final_mesh"] != {"data": 1, "model": 1}):
+        raise AssertionError(f"{what_c}: rank 0 {tr}, rank 1 {tl}")
+    # the step-1 checkpoint holds data step 1: the losses run steps 0, 1, 2
+    np.testing.assert_allclose(tr["losses"], ref[:ELASTIC_STEPS], rtol=1e-4)
+    for path, counts in ((what, r0["mesh"]["launches"]), (what_b, r0["loss"]["launches"])):
+        _require(path, counts, ENGINE_ROWS)
+    _require(what_c, tr["launches"], ("lords_matmul", "lords_matmul_t", "lords_grad",
+                                      "attn_prefill"))
+    log(f"[sharded elastic] drills {ranks[0]['elastic_seconds']:.1f} s on rank 0 "
+        f"(engine {r0['seconds']:.1f} s, trainer {tr['seconds']:.1f} s) | {smi}")
+    return {f"{what} rank 0": r0["mesh"]["launches"], f"{what_b} rank 0": r0["loss"]["launches"],
+            f"{what_c} rank 0": tr["launches"]}
 
 
 def _leaves(tree):

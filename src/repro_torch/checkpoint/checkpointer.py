@@ -45,6 +45,7 @@ import shutil
 import numpy as np
 import torch
 
+from repro_torch.distributed import collectives
 from repro_torch.distributed.fault_tolerance import retry_on_transient
 from repro_torch.distributed.sharding import PartitionSpec, local_window, spec_axes
 from repro_torch.robustness import NO_FAULTS, InjectedFault
@@ -128,10 +129,10 @@ def _owner(spec, mesh) -> bool:
 
 
 def _barrier(mesh) -> None:
-    if mesh is not None and mesh.size > 1:
-        import torch.distributed as dist
-
-        dist.barrier()
+    """A barrier over the mesh's own ranks: a mesh smaller than the world
+    (shrunk after a lost device, or a sub-mesh) must not wait on ranks
+    outside it."""
+    collectives.barrier(mesh)
 
 
 class Checkpointer:

@@ -29,7 +29,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["all_reduce", "all_gather", "broadcast", "gather", "reduce_grad",
-           "reset_counts", "counts"]
+           "barrier", "broadcast_mesh", "reset_counts", "counts"]
 
 
 def _axes(axes) -> tuple:
@@ -99,6 +99,27 @@ def broadcast(t: torch.Tensor, mesh, axis: str, src: int = 0) -> torch.Tensor:
         broadcast.calls += 1
         if buf is not t:
             t.copy_(buf)
+    return t
+
+
+def barrier(mesh) -> None:
+    """Every rank of ``mesh`` waits for the others, through the mesh's own
+    group (never the world's: the ranks a shrunk mesh lost, or the ranks
+    outside a mesh, take no part); nothing on one rank."""
+    if mesh is not None and mesh.group is not None:
+        import torch.distributed as dist
+
+        dist.barrier(group=mesh.group)
+
+
+@torch.no_grad()
+def broadcast_mesh(t: torch.Tensor, mesh) -> torch.Tensor:
+    """``t`` of the mesh's rank 0 on every rank of ``mesh``, in place
+    (through the mesh's own group; nothing on one rank); returns ``t``."""
+    if mesh is not None and mesh.group is not None:
+        import torch.distributed as dist
+
+        dist.broadcast(t, group_src=0, group=mesh.group)
     return t
 
 

@@ -56,7 +56,10 @@ class StragglerMonitor:
     """EMA step-time tracker with z-score anomaly flags."""
 
     def __init__(self, alpha: float = 0.05, z_threshold: float = 4.0,
-                 warmup_steps: int = 10):
+                 warmup_steps: int = 10, clock=None):
+        # clock: a function of no argument giving seconds (None:
+        # time.monotonic); ranks that must flag alike pass one clock
+        self._clock = clock
         self.alpha = alpha
         self.z = z_threshold
         self.warmup = warmup_steps
@@ -66,12 +69,15 @@ class StragglerMonitor:
         self.flags: list[tuple[int, float, float]] = []
         self._t0 = None
 
+    def _time(self) -> float:
+        return self._clock() if self._clock is not None else time.monotonic()
+
     def start_step(self):
-        self._t0 = time.monotonic()
+        self._t0 = self._time()
 
     def end_step(self, step: int) -> bool:
         """Returns True if this step is flagged as a straggler event."""
-        dt = time.monotonic() - self._t0
+        dt = self._time() - self._t0
         self.n += 1
         if self.mean is None:
             self.mean, self.var = dt, 0.0

@@ -34,9 +34,12 @@ import math
 
 import torch
 
+from repro_torch.distributed import collectives
+
 __all__ = ["PartitionSpec", "ShardingPolicy", "make_rules", "resolve_spec",
            "tree_pspecs", "estimate_quantized_gb", "row_shard", "param_axes",
-           "execution_pspecs", "shard_tree", "local_window", "spec_axes"]
+           "execution_pspecs", "shard_tree", "gather_tree", "local_window",
+           "spec_axes"]
 
 
 class PartitionSpec(tuple):
@@ -438,3 +441,19 @@ def shard_tree(params, specs, mesh):
     if all(a == 0 and b == d for (a, b), d in zip(window, params.shape)):
         return params
     return params[tuple(slice(a, b) for a, b in window)].clone()
+
+
+def gather_tree(params, specs, mesh):
+    """The inverse of :func:`shard_tree`: each leaf of this rank's windows
+    all-gathered whole over the mesh axes its spec splits it along (every
+    rank of those axes takes part); replicated leaves are kept as they
+    are.  An elastic rebuild hands a lost rank's shards over this way."""
+    if isinstance(params, dict):
+        return {k: gather_tree(v, specs[k], mesh) for k, v in params.items()}
+    if isinstance(params, list):
+        return [gather_tree(v, s, mesh) for v, s in zip(params, specs)]
+    for dim, entry in enumerate(specs):
+        axes = tuple(a for a in spec_axes(entry) if mesh.shape.get(a, 1) > 1)
+        if axes:
+            params = collectives.all_gather(params.contiguous(), mesh, axes, dim=dim)
+    return params

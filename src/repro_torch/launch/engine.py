@@ -1,7 +1,8 @@
 """Continuous-batching serving engine over the block-paged KV cache.
 
-Port of the JAX package's ``launch/engine.py`` on one device.  It serves a
-*stream* of requests:
+Port of the JAX package's ``launch/engine.py``, on one device or on a
+``data × model`` mesh of ranks (one process a rank).  It serves a *stream*
+of requests:
 
   * **Page pool** — every layer's KV lives in a global pool of fixed-size
     pages (``models.paged_cache_init``, bf16 or int8); a request holds only
@@ -54,21 +55,37 @@ fault below instead of raising away completed work:
     fault point) flips the engine into drain: waiting requests are rejected
     with ``reason='preempted'``, in-flight requests run to completion.
 
-The ``dist.*`` points are consulted as the JAX engine consults them on a
-one-device mesh: ``dist.device_loss`` has no device to lose (the JAX
-engine's ``_elastic_rebuild`` returns False there), ``dist.collective_timeout``
-is an injected step failure counted in ``collective_timeouts``, and
-``dist.straggler`` (shard 0) and a step-time z-score feed
-``straggler_flags``.  So under one seeded
-:class:`repro_torch.robustness.FaultPlan` both engines consult the same
-points in the same order and show the same ``faults.summary()``.
+**On a mesh** (``mesh=``, a :class:`repro_torch.launch.mesh.Mesh`, the
+engine made on each of its ranks): the parameters are cut to this rank's
+windows (:func:`repro_torch.distributed.sharding.execution_pspecs`, as
+``serve_batch`` cuts them), the pools are built inside the shard scope, so
+a rank holds its own KV heads (and their int8 scales), and both steps run
+in the scope.  The slot rows replicate over the data axis, as the pages
+do: every rank runs the whole slot batch and samples the same tokens from
+the same gathered logits.  Every rank's host scheduler takes the same
+decisions (admissions, evictions, ticks, records): the fault plan is
+seeded alike on every rank and consulted in the same order, and every
+clock reading the scheduler makes is rank 0's, broadcast over the mesh's
+own group (records, deadlines, arrivals and the straggler monitor alike).
+
+The ``dist.*`` points are consulted as the JAX engine consults them:
+``dist.collective_timeout`` is an injected step failure counted in
+``collective_timeouts``; ``dist.straggler`` is drawn once a shard, over
+``range(mesh.size)``, and the shards that fired and a step-time z-score
+feed ``straggler_flags``; ``dist.device_loss`` is consulted while
+``mesh_rebuilds < max_mesh_rebuilds``, and a fire on more than one rank
+runs :meth:`Engine._elastic_rebuild` (on one rank there is no device to
+lose: the fire is consumed and nothing is rebuilt, as the JAX engine's
+``_elastic_rebuild`` returns False there).  So under one seeded
+:class:`repro_torch.robustness.FaultPlan` the two packages' engines consult
+the same points in the same order and show the same ``faults.summary()``.
 
 Every recovery action is counted in ``Engine.stats`` (``evictions``,
 ``retries``, ``step_failures``, ``quarantined``, ``shed``,
-``deadline_cancels``, ``collective_timeouts``; ``mesh_rebuilds``,
-``lost_devices`` and ``resharded_restores`` stay 0 on one device), and
-:meth:`Engine.audit_pages` checks the page-pool invariant after each
-recovery when faults are active (or ``audit_every``) and always at exit.
+``deadline_cancels``, ``collective_timeouts``, ``mesh_rebuilds``,
+``lost_devices``, ``resharded_restores``), and :meth:`Engine.audit_pages`
+checks the page-pool invariant after each recovery when faults are active
+(or ``audit_every``) and always at exit.
 """
 from __future__ import annotations
 
@@ -80,8 +97,15 @@ from collections import deque
 import numpy as np
 import torch
 
+from repro_torch.distributed import collectives
 from repro_torch.distributed.fault_tolerance import StragglerMonitor
+from repro_torch.distributed.sharding import (
+    execution_pspecs,
+    gather_tree,
+    shard_tree,
+)
 from repro_torch.kernels import dispatch
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.steps import (
     NONFINITE_TOKEN,
     paged_generate,
@@ -144,6 +168,11 @@ class Engine:
     ``backend`` pins the dispatch backend (``fused`` | ``ref``; None = the
     device's default).  ``params`` None draws a random model from ``seed``.
 
+    ``mesh`` (default one rank): the mesh of ranks this engine runs on,
+    made on each of them with the same arguments; ``params`` are the whole
+    model's, cut here.  ``max_mesh_rebuilds`` bounds the elastic rebuilds
+    after ``dist.device_loss``.
+
     Robustness knobs: ``faults`` (a :class:`repro_torch.robustness.FaultPlan`;
     default :data:`NO_FAULTS`, which costs nothing), ``admission_budget``
     (queued requests before shedding; None = unbounded), ``max_retries``
@@ -154,11 +183,12 @@ class Engine:
     """
 
     def __init__(self, cfg, *, slots: int, total_pages: int, page_size: int,
-                 max_pages: int, chunk: int, burst: int = 8,
+                 max_pages: int, chunk: int, burst: int = 8, mesh=None,
                  backend: str | None = None, temperature: float = 0.0,
                  seed: int = 0, params=None, device=None, faults=None,
                  admission_budget: int | None = None, max_retries: int = 2,
-                 preemption_guard=None, audit_every: bool = False):
+                 preemption_guard=None, audit_every: bool = False,
+                 max_mesh_rebuilds: int = 4):
         if cfg.input_kind != "tokens":
             raise ValueError("the paged engine serves token models")
         if chunk % page_size:
@@ -180,10 +210,13 @@ class Engine:
         self.max_retries = max_retries
         self.preemption_guard = preemption_guard
         self.audit_every = audit_every
-        self.params = (params if params is not None
-                       else model_init(cfg, seed, device=self.device))
-        self.pools = paged_cache_init(cfg, total_pages, page_size,
-                                      device=self.device)
+        self.max_mesh_rebuilds = max_mesh_rebuilds
+        self._set_mesh(mesh if mesh is not None else make_host_mesh())
+        if not self.mesh.member:
+            raise ValueError(f"rank {self.mesh.rank} is outside {self.mesh}")
+        self._place(params if params is not None
+                    else model_init(cfg, seed, device=self.device))
+        self.pools = self._new_pools()
         # the JAX engine's PRNG key: advanced once a launched step
         self._key = torch.Generator().manual_seed(seed + 1)
         self._slots = [_Slot() for _ in range(slots)]
@@ -196,6 +229,34 @@ class Engine:
         self._retries: dict = {}
         self._drain_reason: str | None = None
         self.stats: dict = {}
+
+    # ---- the mesh ---------------------------------------------------------
+
+    def _set_mesh(self, mesh):
+        self.mesh = mesh
+        self._clock_device = self.device
+        if mesh.group is not None:
+            import torch.distributed as dist
+
+            if dist.get_backend(mesh.group) == "gloo":
+                self._clock_device = torch.device("cpu")  # no copy to a card
+
+    def _scope(self):
+        return dispatch.shard_scope(self.mesh if self.mesh.size > 1 else None)
+
+    def _place(self, whole: dict):
+        """Cut the whole ``params`` to this rank's windows on ``self.mesh``."""
+        self._specs = None
+        self.params = whole
+        if self.mesh.size > 1:
+            self._specs = execution_pspecs(whole, self.cfg.quant, self.mesh)
+            self.params = shard_tree(whole, self._specs, self.mesh)
+
+    def _new_pools(self):
+        """Empty pools, built in the shard scope: a rank's own KV heads."""
+        with torch.inference_mode(), self._scope():
+            return paged_cache_init(self.cfg, self.total_pages, self.page_size,
+                                    device=self.device)
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
@@ -212,7 +273,8 @@ class Engine:
     def _chunk_step(self, tokens, pt, qpos, pos0) -> np.ndarray:
         """One chunk step; returns tok1 (slots,) on the host (the copy
         waits for the device)."""
-        with torch.inference_mode(), dispatch.backend_scope(self.backend):
+        with (torch.inference_mode(), dispatch.backend_scope(self.backend),
+              self._scope()):
             tok1, self.pools = prefill_chunk_step(
                 self.params, self.cfg, self._tensor(tokens).long(), self.pools,
                 self._tensor(pt), self._tensor(qpos), self._tensor(pos0),
@@ -221,7 +283,8 @@ class Engine:
 
     def _decode_step(self, tok, pt, pos, n: int) -> np.ndarray:
         """``n`` decode steps; returns tokens (slots, n) on the host."""
-        with torch.inference_mode(), dispatch.backend_scope(self.backend):
+        with (torch.inference_mode(), dispatch.backend_scope(self.backend),
+              self._scope()):
             toks, self.pools = paged_generate(
                 self.params, self.cfg, self._tensor(tok), self.pools,
                 self._tensor(pt), self._tensor(pos), n=n,
@@ -376,7 +439,13 @@ class Engine:
                 dict(a, after=label))
 
     def _now(self) -> float:
-        return time.perf_counter() - self._t0
+        """Seconds since the run's start: on a mesh, rank 0's clock on every
+        rank, so every rank's scheduler reads the same time."""
+        t = time.perf_counter() - self._t0
+        if self.mesh.group is None:
+            return t
+        buf = torch.tensor([t], dtype=torch.float64, device=self._clock_device)
+        return float(collectives.broadcast_mesh(buf, self.mesh)[0])
 
     def _record(self, req: Request, status: str, *, reason=None,
                 tokens=(), slot: _Slot | None = None):
@@ -415,11 +484,58 @@ class Engine:
 
     def _reinit_pools(self):
         """Rebuild the page pool from scratch (organic step failure: the
-        state of the pools the step was writing is unknown)."""
-        self.pools = paged_cache_init(self.cfg, self.total_pages,
-                                      self.page_size, device=self.device)
+        state of the pools the step was writing is unknown; a mesh rebuild:
+        the heads are laid out anew)."""
+        self.pools = None  # the old pools go before the new ones are made
+        self.pools = self._new_pools()
         self._free_pages = list(range(1, self.total_pages))
         self._poisoned = set()
+
+    def _elastic_rebuild(self, queue: deque) -> bool:
+        """Elastic recovery from an (injected) device loss, the JAX engine's
+        ``_elastic_rebuild``: shrink the mesh (the data axis halves first,
+        the model axis only once data parallelism is gone), rebuild the
+        parameters' shards on the surviving ranks from the old mesh's bytes
+        (every rank of the old mesh, the lost ones included, all-gathers
+        its shards over the old model groups: same bytes, new placement),
+        requeue every in-flight request, oldest at the front, without
+        charging its retry budget (the hardware failed, not the request),
+        rebuild the pools on the new mesh, warm up and audit.  A rank
+        outside the new mesh stops after the hand-over (``self.mesh`` is
+        then a mesh it is no member of).  Returns False on one rank (nothing
+        to lose)."""
+        old = self.mesh
+        if old.size <= 1:
+            return False
+        t0 = time.perf_counter()
+        whole = gather_tree(self.params, self._specs, old)
+        t_gather = time.perf_counter() - t0
+        new = old.shrink()
+        self.stats["lost_devices"] += old.size - new.size
+        self._set_mesh(new)
+        if not new.member:
+            self.params = self.pools = None
+            return True
+        self._place(whole)
+        del whole
+        self.stats["resharded_restores"] += 1
+        active = [s for s in self._slots if s.state != _FREE]
+        for s in sorted(active, key=lambda s: s.admit_seq, reverse=True):
+            req = s.req
+            self._reset(s)
+            queue.appendleft(req)
+        t1 = time.perf_counter()
+        self._reinit_pools()
+        t_pools = time.perf_counter() - t1
+        self.stats["mesh_rebuilds"] += 1
+        t1 = time.perf_counter()
+        self._warm = False
+        self.warmup()
+        self.stats["rebuild_s"].append({"gather": t_gather, "pools": t_pools,
+                                        "warmup": time.perf_counter() - t1,
+                                        "mesh": dict(new.shape)})
+        self._post_recovery_audit("mesh_rebuild")
+        return True
 
     def _step_failure(self, participants, queue: deque, *, injected: bool,
                       phase: str):
@@ -525,7 +641,11 @@ class Engine:
         when its tokens reach the host), step, eviction and recovery
         counters, the fault plan's summary and the exit page-pool audit.
         ``timeout_s`` is a drain guard, not an exception: on expiry the
-        engine stops admitting, keeps partial results and returns.
+        engine stops admitting, keeps partial results and returns.  On a
+        rank that an elastic rebuild lost the run stops there: its stats
+        say ``lost`` True and hold the records made until then
+        (``final_mesh`` is the mesh after the rebuild; ``rebuild_s`` the
+        seconds of each rebuild's hand-over, pool rebuild and warm-up).
         """
         for r in requests:
             self._validate(r)
@@ -543,11 +663,13 @@ class Engine:
                       "shed": 0, "deadline_cancels": 0, "nan_injections": 0,
                       "preempted": False, "mesh_rebuilds": 0,
                       "lost_devices": 0, "resharded_restores": 0,
-                      "collective_timeouts": 0, "straggler_flags": []}
+                      "collective_timeouts": 0, "straggler_flags": [],
+                      "rebuild_s": []}
         self._t0 = time.perf_counter()
         now = self._now
         tick = 0
-        mon = StragglerMonitor(warmup_steps=5)
+        lost = False
+        mon = StragglerMonitor(warmup_steps=5, clock=now)
         guard = self.preemption_guard
 
         while pending or queue or any(s.state != _FREE for s in self._slots):
@@ -576,19 +698,25 @@ class Engine:
                     self._record(pending.popleft(), "rejected",
                                  reason="preempted")
 
-            if self.faults.enabled:
-                # one device: nothing to lose, so no rebuild follows a fire
-                self.faults.fires("dist.device_loss")
+            if (self.faults.enabled
+                    and self.stats["mesh_rebuilds"] < self.max_mesh_rebuilds
+                    and self.faults.fires("dist.device_loss")
+                    and self._elastic_rebuild(queue)
+                    and not self.mesh.member):
+                lost = True     # this rank's device is gone
+                break
 
             self.faults.fires("engine.straggler")   # sleeps when it fires
-            # straggler watchdog: the one shard's injection stream plus an
-            # EMA z-score over tick wall time that flags organic slowness
+            # straggler watchdog: one injection stream a shard (deterministic
+            # across process counts) plus an EMA z-score over tick wall time
+            # that flags organic slowness
             tick += 1
             mon.start_step()
             slow_shards = []
-            if self.faults.enabled and self.faults.fires("dist.straggler",
-                                                         index=0):
-                slow_shards.append(0)   # fires() slept in line
+            if self.faults.enabled:
+                for sidx in range(self.mesh.size):
+                    if self.faults.fires("dist.straggler", index=sidx):
+                        slow_shards.append(sidx)  # fires() slept in line
 
             while pending and pending[0].arrival <= now():
                 r = pending.popleft()
@@ -676,6 +804,9 @@ class Engine:
             "records": records,
             "page_audit": self.audit_pages(),
             "faults": self.faults.summary(),
+            "ticks": tick,
+            "lost": lost,
+            "final_mesh": dict(self.mesh.shape),
         })
         return dict(self.stats)
 

@@ -9,7 +9,10 @@ module-level function), initializes ``torch.distributed`` in each through a
 never compete for a port), calls ``fn(*args)`` and returns the ranks'
 results in rank order.
 
-A rank that raises fails the call with that rank's traceback, and the
+A rank that reports its result stays in the world until every rank has
+reported (a rank that an elastic shrink lost returns early, and leaves no
+peer a closed connection).  A rank that raises fails the call with that
+rank's traceback, and the
 other ranks are stopped; a collective that waits past ``timeout`` raises in
 its rank and so fails the call too; a world that does not finish within
 ``deadline`` (default ``timeout`` plus the start-up allowance) is stopped
@@ -47,32 +50,42 @@ def choose_backend(device: str, world: int) -> str:
     return "gloo"
 
 
-def _rank_main(rank, world, fn, args, backend, device, init_file, timeout, out):
+def _rank_main(rank, world, fn, args, backend, device, init_file, timeout, out,
+               done, limit):
     import torch
     import torch.distributed as dist
 
     try:
-        if str(device).startswith("cuda"):
-            # nccl: a card a rank; gloo on a shared card: all on the first
-            torch.cuda.set_device(rank if backend == "nccl" else 0)
-        dist.init_process_group(backend, init_method=f"file://{init_file}",
-                                rank=rank, world_size=world,
-                                timeout=datetime.timedelta(seconds=timeout))
-        result = fn(*args)
-        if str(device).startswith("cuda"):
-            torch.cuda.synchronize()
-        report = (rank, True, pickle.dumps(result))
-    except BaseException:  # noqa: BLE001 - reported to the parent, then re-raised
-        # the report reaches the pipe before this rank leaves the group, so
-        # it precedes the errors its peers then see in their collectives
-        out.put((rank, False, traceback.format_exc()))
-        out.close()
-        out.join_thread()
-        raise
+        try:
+            if str(device).startswith("cuda"):
+                # nccl: a card a rank; gloo on a shared card: all on the first
+                torch.cuda.set_device(rank if backend == "nccl" else 0)
+            else:
+                # a rank's share of the cores: ranks that each take them all
+                # spin against each other in every collective
+                torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+            dist.init_process_group(backend, init_method=f"file://{init_file}",
+                                    rank=rank, world_size=world,
+                                    timeout=datetime.timedelta(seconds=timeout))
+            result = fn(*args)
+            if str(device).startswith("cuda"):
+                torch.cuda.synchronize()
+            report = (rank, True, pickle.dumps(result))
+        except BaseException:  # noqa: BLE001 - reported to the parent, then re-raised
+            # the report reaches the pipe before this rank leaves the group, so
+            # it precedes the errors its peers then see in their collectives
+            out.put((rank, False, traceback.format_exc()))
+            out.close()
+            out.join_thread()
+            raise
+        out.put(report)
+        # a rank whose body ends early (one a shrunk mesh lost) stays in the
+        # world until every rank has reported: it leaves no peer a closed
+        # connection, and the world keeps its size for the next body
+        done.wait(limit)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
-    out.put(report)
 
 
 def _drain(out, grace: float) -> list[int]:
@@ -112,16 +125,17 @@ def run_ranks(fn, world: int, *, args: tuple = (), backend: str | None = None,
         init_file = os.path.join(tmpdir, "store")
     ctx = mp.get_context("spawn")
     out = ctx.Queue()
+    done = ctx.Event()
+    limit = timeout + STARTUP_S if deadline is None else deadline
     procs = [ctx.Process(target=_rank_main, daemon=True,
                          args=(r, world, fn, args, backend, device, init_file,
-                               timeout, out))
+                               timeout, out, done, limit))
              for r in range(world)]
     results: dict[int, object] = {}
     failure = None
     try:
         for p in procs:
             p.start()
-        limit = timeout + STARTUP_S if deadline is None else deadline
         end = time.monotonic() + limit
         while len(results) < world and failure is None:
             left = end - time.monotonic()
@@ -151,6 +165,7 @@ def run_ranks(fn, world: int, *, args: tuple = (), backend: str | None = None,
             also = f"\n(ranks {others} failed after it)" if others else ""
             raise RuntimeError(f"rank {rank} of {world} failed:\n{tb}{also}")
     finally:
+        done.set()
         for p in procs:
             if p.is_alive() and (failure is not None or len(results) < world):
                 p.terminate()

@@ -2,7 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
         [--smoke] [--device cpu] [--batch 4 --prompt-len 64 --gen 32] \
-        [--kv-cache int8] [--mesh DxM]
+        [--kv-cache int8] [--mesh DxM] \
+        [--engine N [--deadline-s S] [--admission-budget B]]
 
 A batch of prompts fills a window of ``capacity = prompt_len + gen``
 columns; the whole window is prefilled once with positions -1 on the dead
@@ -12,6 +13,9 @@ versions on the CPU.  ``--mesh DATAxMODEL`` serves on that many ranks
 (processes of :func:`repro_torch.launch.ranks.run_ranks`: gloo on the CPU
 and on one shared card, nccl with a card a rank), the batch split over the
 data axis and GQA and the dense MLP tensor-parallel over the model axis.
+``--engine N`` serves N synthetic ragged requests through the paged
+continuous-batching :class:`repro_torch.launch.engine.Engine` instead
+(:func:`serve_engine`), on the mesh's ranks under ``--mesh``.
 """
 from __future__ import annotations
 
@@ -32,7 +36,8 @@ from repro_torch.launch.steps import data_rows, generate, sample_token
 from repro_torch.models import cache_init, forward_prefill, model_init
 from repro_torch.models.common import resolve_device
 
-__all__ = ["serve_batch", "parse_mesh", "main"]
+__all__ = ["serve_batch", "serve_engine", "engine_requests", "parse_mesh",
+           "main"]
 
 
 def _sync(device: torch.device) -> None:
@@ -138,6 +143,65 @@ def serve_batch(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
     }
 
 
+def engine_requests(cfg, n_requests: int, *, seed: int = 0,
+                    total_pages: int = 48, page_size: int = 8,
+                    max_pages: int = 12, chunk: int = 16,
+                    deadline_s: float | None = None) -> list:
+    """The JAX package's ``serve_engine`` trace: from
+    ``numpy.random.default_rng(seed)``, each request's prompt length in
+    [4, max(chunk, 8)], its generation length in [4, max(cap - chunk, 8)]
+    capped so its pages fit (and at 24), its prompt, and exponential
+    arrivals 0.01 s apart on average; ``cap`` is the tokens a request's
+    pages hold."""
+    from repro_torch.launch.engine import Request
+
+    rng = np.random.default_rng(seed)
+    cap_tokens = min(max_pages, total_pages - 1) * page_size
+    reqs = []
+    t = 0.0
+    for rid in range(n_requests):
+        plen = int(rng.integers(4, max(chunk, 8) + 1))
+        gen = int(rng.integers(4, max(cap_tokens - chunk, 8) + 1))
+        gen = min(gen, cap_tokens - (-(-plen // chunk) * chunk) + 1, 24)
+        prompt = rng.integers(0, cfg.vocab_size, (plen,)).astype(np.int32)
+        reqs.append(Request(rid, prompt, max(gen, 1), arrival=t,
+                            deadline_s=deadline_s))
+        t += float(rng.exponential(0.01))
+    return reqs
+
+
+def serve_engine(cfg, *, n_requests: int = 8, mesh=None, seed: int = 0,
+                 slots: int = 4, total_pages: int = 48, page_size: int = 8,
+                 max_pages: int = 12, chunk: int = 16, burst: int = 4,
+                 backend: str | None = None, deadline_s: float | None = None,
+                 admission_budget: int | None = None, faults=None,
+                 timeout_s: float = 300.0, device=None,
+                 kv_cache: str | None = None) -> dict:
+    """Drive the continuous-batching :class:`repro_torch.launch.engine.Engine`
+    over :func:`engine_requests`' seeded ragged trace (the CLI's
+    ``--engine N``), the JAX package's ``serve_engine``.
+
+    ``deadline_s`` gives every request a latency budget, ``admission_budget``
+    bounds the queue (overload shedding), ``faults`` takes a
+    :class:`repro_torch.robustness.FaultPlan`; ``mesh`` runs the engine on
+    this rank of a mesh (every rank calls this alike); the model is drawn
+    from ``seed``.  Returns ``Engine.run``'s stats:
+    every request ends in exactly one terminal status.
+    """
+    from repro_torch.launch.engine import Engine
+
+    if kv_cache is not None:
+        cfg = cfg.with_(kv_cache_dtype=kv_cache)
+    reqs = engine_requests(cfg, n_requests, seed=seed, total_pages=total_pages,
+                           page_size=page_size, max_pages=max_pages,
+                           chunk=chunk, deadline_s=deadline_s)
+    eng = Engine(cfg, slots=slots, total_pages=total_pages, page_size=page_size,
+                 max_pages=max_pages, chunk=chunk, burst=burst, mesh=mesh,
+                 backend=backend, seed=seed, device=device,
+                 faults=faults, admission_budget=admission_budget)
+    return eng.run(reqs, timeout_s=timeout_s)
+
+
 def parse_mesh(text: str | None) -> tuple[int, int]:
     """``"DxM"`` → (D, M); None → (1, 1)."""
     if not text:
@@ -152,7 +216,14 @@ def _cli_config(args):
 
 
 def _serve_rank(args, data: int = 1, model: int = 1) -> dict:
-    """The CLI's serve_batch on one rank of a ``data`` × ``model`` mesh."""
+    """The CLI's serve_batch (or serve_engine, with ``--engine``) on one
+    rank of a ``data`` × ``model`` mesh."""
+    if args.engine is not None:
+        return serve_engine(_cli_config(args), n_requests=args.engine,
+                            mesh=make_host_mesh(data, model),
+                            backend=args.backend, deadline_s=args.deadline_s,
+                            admission_budget=args.admission_budget,
+                            device=args.device, kv_cache=args.kv_cache)
     return serve_batch(_cli_config(args), batch=args.batch,
                        prompt_len=args.prompt_len, gen=args.gen,
                        backend=args.backend, temperature=args.temperature,
@@ -179,6 +250,14 @@ def main(argv=None):
                     help="KV-cache storage (default: cfg.kv_cache_dtype)")
     ap.add_argument("--mesh", default=None, metavar="DATAxMODEL",
                     help="serve on DATA x MODEL ranks, one process each")
+    ap.add_argument("--engine", type=int, default=None, metavar="N",
+                    help="serve N synthetic ragged requests through the "
+                         "continuous-batching paged engine instead of one "
+                         "fixed batch")
+    ap.add_argument("--deadline-s", type=float, default=None,
+                    help="per-request deadline for --engine mode")
+    ap.add_argument("--admission-budget", type=int, default=None,
+                    help="max queued requests before shedding (--engine)")
     args = ap.parse_args(argv)
 
     data, model = parse_mesh(args.mesh)
@@ -189,6 +268,14 @@ def main(argv=None):
     else:
         out = _serve_rank(args)
     cfg = _cli_config(args)
+    if args.engine is not None:
+        print(f"[serve] engine: {out['statuses']} "
+              f"goodput {out['goodput_tok_s']:.1f} tok/s "
+              f"p50 {out['latency_p50_s'] * 1e3:.0f}ms "
+              f"p99 {out['latency_p99_s'] * 1e3:.0f}ms "
+              f"evictions {out['evictions']} shed {out['shed']} "
+              f"page_audit_ok {out['page_audit']['ok']}")
+        return
     print(f"[serve] {cfg.name} layers={cfg.num_layers} device={out['device']} "
           f"backend={out['backend']} kv={out['kv_cache']} prefill "
           f"{out['prefill_ms']:.1f} ms "

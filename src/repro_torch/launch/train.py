@@ -4,15 +4,15 @@ the JAX package's fault paths.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \\
         --smoke --device cpu --steps 3 [--mode qat] [--backend fused] \\
-        [--mesh DxM] [--desync-every N]
+        [--mesh DxM] [--desync-every N] [--ckpt-dir DIR] \\
+        [--io-retries 2 --io-backoff 0.05 --io-jitter 0.0]
 
 Without ``--device`` it runs on the card (and raises when there is none).
 ``--mesh DATAxMODEL`` trains on that many ranks (processes of
 :func:`repro_torch.launch.ranks.run_ranks`).  The fault points of a
 :class:`repro_torch.robustness.FaultPlan` are consulted as the JAX
-``run_training`` consults them; the elastic mesh rebuild after
-``dist.device_loss`` is not ported yet (a fire on a mesh of more than one
-rank raises).
+``run_training`` consults them, the elastic mesh rebuild after
+``dist.device_loss`` included.
 """
 from __future__ import annotations
 
@@ -34,6 +34,7 @@ from repro_torch.distributed.fault_tolerance import (
 )
 from repro_torch.distributed.sharding import (
     execution_pspecs,
+    gather_tree,
     shard_tree,
 )
 from repro_torch.kernels import dispatch
@@ -82,7 +83,8 @@ def run_training(cfg, shape_cfg, *, steps: int, lr: float = 1e-4,
                  params=None, faults=None, desync_every: int = 0,
                  collective_retries: int = 2, io_retries: int = 2,
                  io_backoff: float = 0.05, io_jitter: float = 0.0,
-                 preemption_guard=None, mesh=None) -> dict:
+                 preemption_guard=None, mesh=None,
+                 max_mesh_rebuilds: int = 4) -> dict:
     """Train ``cfg`` for ``steps`` steps of ``shape_cfg``'s batches.
 
     ``params`` (default: :func:`repro_torch.models.model_init` from
@@ -96,7 +98,9 @@ def run_training(cfg, shape_cfg, *, steps: int, lr: float = 1e-4,
     quantized linears' rows over the model axis), every step splits the
     global batch over the data axis and runs sharded
     (:func:`repro_torch.launch.steps.train_step`), and checkpoints are
-    saved a shard a file and restored onto this mesh's layout.
+    saved a shard a file and restored onto this mesh's layout.  The mesh
+    is made on each of its ranks with the same arguments (and on every
+    other rank of the world, :func:`repro_torch.launch.mesh.make_host_mesh`).
 
     Every update goes through :func:`repro_torch.optim.guarded_update`
     behind the spike threshold above: a non-finite or spiking gradient
@@ -109,7 +113,15 @@ def run_training(cfg, shape_cfg, *, steps: int, lr: float = 1e-4,
 
     Fault points of ``faults`` (a :class:`repro_torch.robustness.FaultPlan`;
     default none), a step at a time in the JAX package's order:
-    ``dist.device_loss`` (one device: nothing to lose, no rebuild),
+    ``dist.device_loss`` (on a mesh of more than one rank, while
+    ``mesh_rebuilds < max_mesh_rebuilds``: the elastic rebuild.  The mesh
+    shrinks, :func:`repro_torch.launch.mesh.shrink_shape`; every rank of
+    the old mesh hands its state over, all-gathered over the old model
+    groups; the survivors cut it to the new layout and restore the latest
+    checkpoint onto it with the data position (``resharded_restores``),
+    or with no checkpoint go on from the live state; a rank outside the
+    new mesh returns at once with ``status="lost"``.  On one device
+    there is nothing to lose: the fire is consumed, no rebuild),
     ``dist.host_crash`` (raises :class:`InjectedFault` with no save; a
     second ``run_training`` on the same ``ckpt_dir`` resumes),
     ``dist.straggler`` for the one data shard, ``train.grad_spike`` (the
@@ -143,24 +155,32 @@ def run_training(cfg, shape_cfg, *, steps: int, lr: float = 1e-4,
     device = resolve_device(device)
     if params is None:
         params = model_init(cfg, seed, device=device)
-    multi = mesh is not None and mesh.size > 1
-    final_mesh = dict(mesh.shape) if mesh is not None else {"data": 1, "model": 1}
-    n_data = 1
-    state_specs, sharded = None, frozenset()
-    if multi:
-        specs = execution_pspecs(params, cfg.quant, mesh)
-        params = shard_tree(params, specs, mesh)
-        n_data = mesh.axis_size(tuple(a for a in mesh.axis_names if a != "model"))
-    trainable, frozen = peft.partition(params, cfg.quant)
-    if multi:
+    mesh = mesh if mesh is not None else make_host_mesh()
+    if not mesh.member:
+        raise ValueError(f"rank {mesh.rank} is outside {mesh}")
+
+    def layout(whole: dict):
+        """This rank's windows of the ``whole`` params on ``mesh``, split
+        into (trainable, frozen), with the layout's specs: the parameter
+        specs, the checkpoint state's, the sharded trainable paths, the
+        checkpointer's keywords and the data replicas."""
+        if mesh.size == 1:
+            trainable, frozen = peft.partition(whole, cfg.quant)
+            return trainable, frozen, None, None, frozenset(), {}, 1
+        specs = execution_pspecs(whole, cfg.quant, mesh)
+        trainable, frozen = peft.partition(shard_tree(whole, specs, mesh), cfg.quant)
         state_specs = _state_specs(trainable, specs)
         sharded = frozenset(k for k, sp in state_specs["trainable"].items()
                             if any(e is not None for e in sp))
+        n_data = mesh.axis_size(tuple(a for a in mesh.axis_names if a != "model"))
+        return (trainable, frozen, specs, state_specs, sharded,
+                dict(mesh=mesh, specs=state_specs), n_data)
+
+    trainable, frozen, specs, state_specs, sharded, ckpt_kw, n_data = layout(params)
     opt = adamw_init(trainable)
-    ckpt_kw = dict(mesh=mesh, specs=state_specs) if multi else {}
     print(f"[train] {cfg.name} mode={cfg.quant.mode} "
           f"backend={dispatch.resolve_backend(backend, params['final_norm'])} "
-          f"device={device} mesh={final_mesh} "
+          f"device={device} mesh={dict(mesh.shape)} "
           f"trainable={sum(t.numel() for t in trainable.values())}", flush=True)
 
     ckpt = (Checkpointer(ckpt_dir, io_retries=io_retries,
@@ -182,6 +202,7 @@ def run_training(cfg, shape_cfg, *, steps: int, lr: float = 1e-4,
     gnorm_ema, accepted, consecutive_skips = None, 0, 0
     skipped_steps = rollbacks = collective_timeouts = 0
     desyncs_detected = desync_rollbacks = 0
+    mesh_rebuilds = lost_devices = resharded_restores = 0
     straggler_injected: list[tuple[int, int]] = []
     status = "complete"
     own_guard = preemption_guard is None
@@ -203,14 +224,48 @@ def run_training(cfg, shape_cfg, *, steps: int, lr: float = 1e-4,
               flush=True)
         return True
 
+    def rebuild() -> bool:
+        """The elastic rebuild after a device loss; False on a rank the
+        shrunk mesh lost (after its hand-over)."""
+        nonlocal mesh, trainable, frozen, opt, specs, state_specs, sharded
+        nonlocal ckpt_kw, n_data, mesh_rebuilds, lost_devices, resharded_restores
+        old = mesh
+        # the hand-over: every rank of the old mesh, the lost ones included,
+        # gathers the state whole over its old model group (same bytes)
+        whole = gather_tree(peft.combine(trainable, frozen), specs, old)
+        moments = {name: gather_tree(getattr(opt, name), state_specs["trainable"], old)
+                   for name in ("mu", "nu")}
+        mesh = old.shrink()
+        lost_devices += old.size - mesh.size
+        if not mesh.member:
+            return False
+        mesh_rebuilds += 1
+        print(f"[train] device loss — rebuilt mesh {old.shape['data']}x"
+              f"{old.shape['model']} -> {mesh.shape['data']}x{mesh.shape['model']}",
+              flush=True)
+        trainable, frozen, specs, state_specs, sharded, ckpt_kw, n_data = layout(whole)
+        step_count = opt.step
+        opt = adamw_init(trainable)   # the restore's example, on the new layout
+        if restore_latest("elastic restore"):
+            resharded_restores += 1
+        else:
+            # no checkpoint: the live state, cut to the new layout
+            cut = {name: (m if mesh.size == 1 else
+                          shard_tree(m, state_specs["trainable"], mesh))
+                   for name, m in moments.items()}
+            opt = AdamWState(mu=cut["mu"], nu=cut["nu"], step=step_count)
+        return True
+
+    done = 0
     try:
-        for done in range(steps):
+        while done < steps:
+            if (dist_on and faults.fires("dist.device_loss") and mesh.size > 1
+                    and mesh_rebuilds < max_mesh_rebuilds):
+                if not rebuild():
+                    status = "lost"   # this rank's device is gone
+                    break
+                continue    # the step is consulted again on the new mesh
             if dist_on:
-                if faults.fires("dist.device_loss") and multi:
-                    raise NotImplementedError(
-                        "dist.device_loss on a mesh: the elastic rebuild is not "
-                        "ported yet (ROADMAP queue 1, item 1)")
-                # one device: nothing to lose, so no rebuild follows a fire
                 if faults.fires("dist.host_crash"):
                     # a whole-process crash: no save; a new run_training on
                     # the same ckpt_dir resumes
@@ -240,10 +295,11 @@ def run_training(cfg, shape_cfg, *, steps: int, lr: float = 1e-4,
             trainable, opt, metrics = train_step(
                 trainable, frozen, opt, batch_tensors(batch, device), cfg=cfg,
                 lr=lr, backend=backend, max_gnorm=thr,
-                mesh=mesh if multi else None, sharded=sharded)
+                mesh=mesh if mesh.size > 1 else None, sharded=sharded)
             step_ms.append((time.perf_counter() - t0) * 1e3)
             grad_norms.append(metrics["grad_norm"])
             mon.end_step(step)
+            done += 1
             if metrics["update_skipped"]:
                 skipped_steps += 1
                 consecutive_skips += 1
@@ -266,9 +322,9 @@ def run_training(cfg, shape_cfg, *, steps: int, lr: float = 1e-4,
             if ckpt is not None and (step + 1) % ckpt_every == 0:
                 ckpt.save(step + 1, {"trainable": trainable, "opt": opt,
                                      "data_step": step + 1}, **ckpt_kw)
-            if desync_every > 0 and (done + 1) % desync_every == 0:
+            if desync_every > 0 and done % desync_every == 0:
                 digests = replica_digests((trainable, opt),
-                                          mesh if multi else None,
+                                          mesh if mesh.size > 1 else None,
                                           faults=faults, step=step)
                 if desync_spread(digests) > 0.0:
                     desyncs_detected += 1
@@ -297,9 +353,10 @@ def run_training(cfg, shape_cfg, *, steps: int, lr: float = 1e-4,
             "collective_timeouts": collective_timeouts,
             "straggler_flags": mon.flags,
             "straggler_injected": straggler_injected,
-            "mesh_rebuilds": 0, "lost_devices": 0, "resharded_restores": 0,
+            "mesh_rebuilds": mesh_rebuilds, "lost_devices": lost_devices,
+            "resharded_restores": resharded_restores,
             "desyncs_detected": desyncs_detected,
-            "desync_rollbacks": desync_rollbacks, "final_mesh": final_mesh}
+            "desync_rollbacks": desync_rollbacks, "final_mesh": dict(mesh.shape)}
 
 
 def _cli_setup(args):
@@ -324,7 +381,8 @@ def _train_rank(args, data: int = 1, model: int = 1) -> dict:
     out = run_training(cfg, shape, steps=args.steps, lr=args.lr,
                        ckpt_dir=args.ckpt_dir, backend=args.backend,
                        device=args.device, desync_every=args.desync_every,
-                       mesh=make_host_mesh(data, model))
+                       io_retries=args.io_retries, io_backoff=args.io_backoff,
+                       io_jitter=args.io_jitter, mesh=make_host_mesh(data, model))
     return {k: v for k, v in out.items() if k not in ("trainable", "frozen", "opt")}
 
 
@@ -349,6 +407,13 @@ def main(argv=None):
                     help="train on DATA x MODEL ranks, one process each")
     ap.add_argument("--desync-every", type=int, default=0,
                     help="cross-replica state-digest cadence in steps (0 = off)")
+    ap.add_argument("--io-retries", type=int, default=2,
+                    help="checkpoint IO retry attempts")
+    ap.add_argument("--io-backoff", type=float, default=0.05,
+                    help="checkpoint IO retry backoff base (s)")
+    ap.add_argument("--io-jitter", type=float, default=0.0,
+                    help="decorrelated-jitter share of the IO retries' sleeps "
+                         "(0 = deterministic exponential)")
     args = ap.parse_args(argv)
 
     data, model = parse_mesh(args.mesh)
