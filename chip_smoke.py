@@ -40,24 +40,25 @@ model); phase 8 trains QLoRA's adapters at phase 5's settings; phase 9
 trains PEQA-style block scales at 4 layers; phase 10 quantizes layer 0's
 seven matrices by block-wise NF4, the LoRDS init, Algorithm 1, GPTQ, AWQ,
 LoftQ, QPiSSA and SmoothRot and runs the bit / rank allocation over them.
-Phase 11 serves minicpm3-4b (multi-head latent attention, 31 of its 62
-layers, full width) at phase 3's settings with a bf16 and an int8 latent cache and
+Phase 11 serves minicpm3-4b (multi-head latent attention, full width,
+built at 31 of its 62 layers and served at the first 8) at phase 3's
+settings with a bf16 and an int8 latent cache and
 profiles one decode step of each as phase 3 does; phase 12
 runs phase 4's engine and trace on its first 8 layers (int8 latent
 pool); phase 13 trains
-it in PEFT mode at that depth as phase 5 does (multi-head latent
+its 31 layers in PEFT mode as phase 5 does (multi-head latent
 attention's training path).  Phase 14 serves the embedding-input models
-internvl2-1b (group size 7) and musicgen-medium (group size 1) at full
-width and depth at phase 3's settings, bf16 cache, the window and step
+internvl2-1b (group size 7, full depth) and musicgen-medium (group size
+1, 24 of 48 layers) at full width at phase 3's settings, bf16 cache, the window and step
 embeddings drawn from a seeded ``torch.Generator``.  Phase 15 serves the
 mixture-of-experts phi3.5-moe-42b-a6.6b (16 experts, top-2, nf4 at block
-128) at full width at phase 3's settings, bf16 cache (every decode step
+128) at full width, its first 4 layers, at phase 3's settings, bf16 cache (every decode step
 launches ``lords_decode`` 7 times a layer: each expert stack is one launch
 on the decode GEMV's expert axis, which phase 2 also holds against the
 plain version at the model's stacks, both entries), profiles one decode
 step, then trains 4 of its layers as phase 5 does.  Phase 16 serves
-xlstm-1.3b (7 mLSTM : 1 sLSTM, 48 layers) at full width and depth at phase
-3's settings, phase 17 one period of jamba-1.5-large-398b (8 of 72 layers:
+xlstm-1.3b (7 mLSTM : 1 sLSTM) at full width, the first 16 of its 48
+layers, at phase 3's settings, phase 17 one period of jamba-1.5-large-398b (8 of 72 layers:
 Mamba, attention at layer 4, MoE every 2nd layer, 16 experts) at full width
 with the routing pinned as phase 15, each with exact launch counts (every
 quantized linear once in the prefill and once a decode step) and one
@@ -78,7 +79,18 @@ shapes), the trace again with a device loss at the second tick (rank 1
 hands its shards over and is lost, rank 0 rebuilds at 1×1 and
 recomputes: the one-rank run's tokens bit for bit), and the trainer at
 2×1 with a device loss at step 1 (restored onto one rank; losses against
-one rank's).  Phase 2 also holds the attention kernels at
+one rank's).  Then the same two ranks run phi3.5-moe at full width and 4
+layers on the mesh under both MoE dispatches: serve_batch at 1×2 under
+``pjit`` (the experts split over 'model', 8 a rank: the expert-axis
+decode GEMV at E 8; teacher-forced logits against one rank's fused run,
+routing pinned) and under ``shard_map`` (the all-to-all over the
+expert-parallel axes: local capacity, so the fused ranks are held against
+the same ranks on ``ref``; the dropped assignments and the all-to-all
+bytes a layer), phase 4's engine and trace at 1×2 under ``pjit``, and
+PEFT at 2×1 under ``shard_map`` (the experts split over 'data') and 1×2
+under ``pjit`` with a desync digest every step (pjit's losses against one
+rank's; each rank's gradients at the shard shapes fused against ref).
+Phase 2 also holds the attention kernels at
 kimi-k2's head dim 112.  Each path runs
 with the launch counts set to 0 just before it, must launch every kernel
 it uses (and none of another path's linears or decode kernels), and must hold
@@ -151,8 +163,25 @@ MLA_LAYERS = 31
 # chaos replay came: its decode is host-bound (222 ms of wall a step at 31
 # layers), and with the replay the script reached 1105.5 s on a slow host
 MLA_ENGINE_LAYERS = 8
+# phase 11 serves the first 8 of those 31 layers since phase 19's MoE
+# drills came (they add about 90 s): its decode is host-bound, and with the
+# drills the script's ranks missed their 1150 s twice on slow hosts
+# (phases 1-18 took 950-1020 s there; PERF.md §6).  Phase 13 still
+# trains all 31 layers, the weights it trained before the cut
+MLA_SERVE_LAYERS = 8
 EMBEDS_ARCHS = ("internvl2-1b", "musicgen-medium")
+# phase 14 serves musicgen-medium at 24 of its 48 layers since phase 19's
+# MoE drills came (for the script's time, as MLA_SERVE_LAYERS)
+EMBEDS_LAYERS = {"musicgen-medium": 24}
 MOE_ARCH = "phi3.5-moe-42b-a6.6b"
+# phase 15 serves the first 4 of phi3.5-moe's 32 layers since phase 19's
+# MoE drills came (for the script's time, as MLA_SERVE_LAYERS): its
+# teacher-forced check runs the ref backend's expert loop over every decode
+# step, and at 32 layers the phase took 100.2 s.  The model is still built
+# at full depth: its first MOE_TRAIN_LAYERS layers, with its embedding and
+# head, are the weights phase 15 trains, as before the cut (a model built
+# at another depth draws another embedding and head)
+MOE_SERVE_LAYERS = 4
 # phase 2's head dim 112 checks: kimi-k2's attention (64 heads, 8 KV heads)
 KIMI_ARCH = "kimi-k2-1t-a32b"
 MOE_TRAIN_LAYERS = 4
@@ -162,6 +191,10 @@ MOE_TRAIN_LAYERS = 4
 # 4096 and d_in 16384 holds (1, 4096, 16384, 16) f32 tensors of 4.3 GB,
 # many of them under autograd)
 SSM_ARCH = "xlstm-1.3b"
+# phase 16 serves the first 16 of xlstm's 48 layers since phase 19's MoE
+# drills came (for the script's time, as MLA_SERVE_LAYERS); the model is
+# still built at full depth, so phase 18 trains the weights it trained
+SSM_SERVE_LAYERS = 16
 HYBRID_ARCH = "jamba-1.5-large-398b"
 # phase 19: two ranks on the one card (gloo), llama3-8b LoRDS nf4 at full
 # width and 4 layers; serve_batch at 1×2 (batch 4, prompt 512, gen 8) and
@@ -185,6 +218,13 @@ SHARD_COLLECTIVE_S, SHARD_DEADLINE_S = 120, 1150
 ELASTIC_ENGINE_LOSS = {"dist.device_loss": {"at": (1,)}}
 ELASTIC_TRAIN_LOSS = {"dist.device_loss": {"at": (1,)}}
 ELASTIC_STEPS, ELASTIC_COS_MIN = 3, 0.9999
+# phase 19's mixture-of-experts drills: phi3.5-moe (MOE_ARCH) at full width
+# and MOE_SHARD_LAYERS layers (phase 19's depth, for time) on the same two
+# ranks: serve_batch at 1×2 under both dispatches (batch 4, prompt 512, gen
+# SHARD_GEN, bf16 cache), phase 4's engine and trace at 1×2 under pjit, and
+# PEFT at 2×1 under shard_map and 1×2 under pjit (SHARD_SEQ × SHARD_BATCH,
+# SHARD_STEPS steps, a desync digest every step, no fault injected)
+MOE_SHARD_LAYERS = 4
 ENGINE_ROWS = ("lords_matmul", "lords_decode", "attn_prefill", "attn_decode_paged")
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "lords_matmul": ("lords_matmul", "src/repro/kernels/lords_matmul.py:140"),
@@ -2154,7 +2194,9 @@ class _Recorder:
         self.real, self.name, self.seen = real, name, seen
 
     def __call__(self, x, q, *rest, **kw):
-        self.seen.add((self.name, q.shape[-2], x.shape[-1]))
+        # an expert stack's launch (3-D codes) also names its experts
+        name = self.name if q.dim() == 2 else f"{self.name} E={q.shape[0]}"
+        self.seen.add((name, q.shape[-2], x.shape[-1]))
         return self.real(x, q, *rest, **kw)
 
     @property
@@ -2178,19 +2220,21 @@ def _shape_recorder():
     return seen
 
 
-def _teacher_forced(cfg, params, torch, tokens, mesh=None):
+def _teacher_forced(cfg, params, torch, tokens, mesh=None, prefill_bytes=None):
     """The logits of prefill and every decode step fed ``tokens`` (the
     sharded run's), inside ``mesh``'s shard scope on this rank's
-    windows."""
+    windows.  ``prefill_bytes`` (a dict) gets the collectives' bytes the
+    prefill added."""
     import numpy as np
 
-    from repro_torch.distributed.sharding import execution_pspecs, shard_tree
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.sharding import model_pspecs, shard_tree
     from repro_torch.kernels import dispatch
     from repro_torch.models import cache_init, forward_decode, forward_prefill
 
     dev = torch.device("cuda")
     if mesh is not None:
-        params = shard_tree(params, execution_pspecs(params, cfg.quant, mesh), mesh)
+        params = shard_tree(params, model_pspecs(params, cfg, mesh), mesh)
     prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (BATCH, PROMPT + SHARD_GEN))
     window = {"tokens": torch.from_numpy(prompts).to(dev)}
     col = torch.arange(PROMPT + SHARD_GEN, dtype=torch.int32, device=dev)[None]
@@ -2198,7 +2242,11 @@ def _teacher_forced(cfg, params, torch, tokens, mesh=None):
     out = []
     with torch.inference_mode(), dispatch.shard_scope(mesh):
         cache = cache_init(cfg, BATCH, PROMPT + SHARD_GEN, device=dev)
+        before = collectives.byte_counts()
         lg, _ = forward_prefill(params, cfg, window, cache, positions)
+        if prefill_bytes is not None:
+            prefill_bytes.update({k: v - before[k]
+                                  for k, v in collectives.byte_counts().items()})
         out.append(lg[:, -1, : cfg.vocab_size].float())
         for step in range(1, SHARD_GEN):
             tok = torch.from_numpy(np.asarray(tokens[:, step - 1])).to(dev)
@@ -2234,19 +2282,21 @@ def _whole_state(trainable, opt, mesh, specs):
 def _sharded_grad_check(cfg, params, mesh, torch):
     """One ``forward_train`` and its gradients on this rank's windows and
     rows of the training batch, fused against ref: the kernels at the
-    shard shapes (N/2 rows at 1×2, half the tokens at 2×1) against their
-    plain versions on the same inputs.  Returns the loss's |Δ|/loss and
-    each leaf kind's least cosine (as :func:`grad_check`; the gradients
-    are this rank's, before the step's sum over the data axis)."""
+    shard shapes (N/2 rows at 1×2, half the tokens at 2×1, a rank's
+    experts) against their plain versions on the same inputs, a MoE
+    model's routing pinned to ref's.  Returns the loss's |Δ|/loss and each
+    leaf kind's least cosine (as :func:`grad_check`; the gradients are
+    this rank's, before the step's sum over the data axis) and the share of
+    routings fused would have picked differently."""
     from repro_torch.core import peft
     from repro_torch.data import SyntheticLM
-    from repro_torch.distributed.sharding import execution_pspecs, shard_tree
+    from repro_torch.distributed.sharding import model_pspecs, shard_tree
     from repro_torch.kernels import dispatch
     from repro_torch.launch.steps import data_rows
     from repro_torch.launch.train import batch_tensors
     from repro_torch.models import forward_train
 
-    local = shard_tree(params, execution_pspecs(params, cfg.quant, mesh), mesh)
+    local = shard_tree(params, model_pspecs(params, cfg, mesh), mesh)
     trainable, frozen = peft.partition(local, cfg.quant)
     paths = [p for p in trainable if p[-1] in ("a", "b")]
     leaves = [trainable[p].detach().requires_grad_() for p in paths]
@@ -2255,9 +2305,10 @@ def _sharded_grad_check(cfg, params, mesh, torch):
                           .batch_at(0), leaves[0].device)
     rows, split = data_rows(mesh, SHARD_BATCH)
     batch = {k: t[rows] for k, t in batch.items()}
-    res = {}
-    for backend in ("fused", "ref"):
-        with dispatch.shard_scope(mesh, tokens_split=split), dispatch.backend_scope(backend):
+    res, pin = {}, PinnedRouting()
+    for backend, routing in _backends(cfg, pin):
+        with (dispatch.shard_scope(mesh, tokens_split=split), dispatch.backend_scope(backend),
+              routing):
             loss, _ = forward_train(tree, cfg, batch)
             res[backend] = loss.item(), torch.autograd.grad(loss, leaves)
     (lf, gf), (lr_, gr) = res["fused"], res["ref"]
@@ -2266,7 +2317,8 @@ def _sharded_grad_check(cfg, params, mesh, torch):
         cos = torch.nn.functional.cosine_similarity(a.double().flatten(), b.double().flatten(),
                                                     dim=0).item()
         worst[path[-1]] = min(worst.get(path[-1], 2.0), cos)
-    return {"loss": (lf, lr_), "rel": abs(lf - lr_) / abs(lr_), "cos": worst}
+    return {"loss": (lf, lr_), "rel": abs(lf - lr_) / abs(lr_), "cos": worst,
+            "flips": (pin.flips, pin.picks)}
 
 
 def _engine_summary(st):
@@ -2281,15 +2333,11 @@ def _engine_summary(st):
     return out
 
 
-def _engine_step_logits(cfg, eng, torch):
-    """One chunk step's and one paged decode step's last logits on ``eng``'s
-    mesh and windows, fused against ref on pools of their own (8 slots,
-    prompts of 64-320 tokens in one chunk, disjoint pages): the least
-    cosine of each."""
+def _engine_step_inputs(cfg, torch):
+    """One chunk step's and one paged decode step's inputs for the engine
+    geometry: 8 slots, prompts of 64-320 tokens in one chunk, disjoint
+    pages (seeded)."""
     import numpy as np
-
-    from repro_torch.kernels import dispatch
-    from repro_torch.models import forward_decode_paged, forward_prefill_chunk
 
     dev = torch.device("cuda")
     slots, cs, ps = ENGINE["slots"], ENGINE["chunk"], ENGINE["page_size"]
@@ -2309,19 +2357,57 @@ def _engine_step_logits(cfg, eng, torch):
                                                   np.zeros(slots, np.int32))]
     step_tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, slots)).to(dev)
     pos = torch.from_numpy(plens.astype(np.int32)).to(dev)
-    lg = {}
-    for backend in ("fused", "ref"):
-        pools = eng._new_pools()
-        with torch.inference_mode(), dispatch.backend_scope(backend), eng._scope():
-            chunk, pools = forward_prefill_chunk(eng.params, cfg, {"tokens": args[0]}, pools,
-                                                 *args[1:])
-            dec, _ = forward_decode_paged(eng.params, cfg, {"tokens": step_tok}, pools,
-                                          args[1], pos)
-        lg[backend] = [t[:, -1, : cfg.vocab_size].double() for t in (chunk, dec)]
+    return args, step_tok, pos
+
+
+def _engine_steps(cfg, eng, torch, inputs):
+    """The chunk step's and the decode step's last logits (f64) on ``eng``'s
+    mesh and windows, on pools of their own, in the ambient backend."""
+    from repro_torch.models import forward_decode_paged, forward_prefill_chunk
+
+    args, step_tok, pos = inputs
+    pools = eng._new_pools()
+    with torch.inference_mode(), eng._scope():
+        chunk, pools = forward_prefill_chunk(eng.params, cfg, {"tokens": args[0]}, pools,
+                                             *args[1:])
+        dec, _ = forward_decode_paged(eng.params, cfg, {"tokens": step_tok}, pools,
+                                      args[1], pos)
+    return [t[:, -1, : cfg.vocab_size].double() for t in (chunk, dec)]
+
+
+def _engine_step_logits(cfg, eng, torch, keep=False):
+    """One chunk step's and one paged decode step's last logits on ``eng``'s
+    mesh and windows (:func:`_engine_step_inputs`), fused against ref (a
+    MoE model's routing pinned to ref's): the least cosine of each.  With
+    ``keep``, also the fused logits and ref's routing (on the host)."""
+    from repro_torch.kernels import dispatch
+
+    inputs = _engine_step_inputs(cfg, torch)
+    lg, pin = {}, PinnedRouting()
+    for backend, routing in _backends(cfg, pin):
+        with dispatch.backend_scope(backend), routing:
+            lg[backend] = _engine_steps(cfg, eng, torch, inputs)
     cos = [torch.nn.functional.cosine_similarity(f, r, dim=-1).min().item()
            for f, r in zip(lg["fused"], lg["ref"])]
     finite = all(bool(torch.isfinite(t).all()) for t in lg["fused"])
-    return {"chunk_cos": cos[0], "decode_cos": cos[1], "finite": finite}
+    out = {"chunk_cos": cos[0], "decode_cos": cos[1], "finite": finite,
+           "flips": (pin.flips, pin.picks)}
+    if keep:
+        out.update(fused=[t.cpu() for t in lg["fused"]], picks=[i.cpu() for i in pin.saved])
+    return out
+
+
+def _engine_steps_replayed(cfg, eng, torch, picks):
+    """:func:`_engine_steps` on fused with the routing ``picks`` replayed:
+    (logits, share of routings this engine would have picked otherwise)."""
+    from repro_torch.kernels import dispatch
+
+    dev = torch.device("cuda")
+    pin = PinnedRouting()
+    pin.saved = [i.to(dev) for i in picks]
+    with dispatch.backend_scope("fused"), pin.replay():
+        lg = _engine_steps(cfg, eng, torch, _engine_step_inputs(cfg, torch))
+    return lg, (pin.flips, pin.picks)
 
 
 def _engine(cfg, params, torch, mesh=None):
@@ -2407,6 +2493,115 @@ def sharded_elastic_train(cfg, mesh, directory, torch):
     return out
 
 
+def moe_shard_cfgs():
+    """phi3.5-moe at full width and MOE_SHARD_LAYERS layers under each MoE
+    dispatch (``MoECfg.dispatch`` selects it)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    base = get_config(MOE_ARCH).with_(num_layers=MOE_SHARD_LAYERS)
+    return {d: base.with_(moe=dataclasses.replace(base.moe, dispatch=d))
+            for d in ("pjit", "shard_map")}
+
+
+def sharded_moe(meshes, shapes, torch):
+    """Phase 19's mixture-of-experts drills on one rank (phi3.5-moe, full
+    width, MOE_SHARD_LAYERS layers): (a) serve_batch at 1×2 under each
+    dispatch, its launch counts, (kernel, N, K) and collectives with their
+    bytes; under pjit the teacher-forced logits on its tokens and the
+    routing they picked (the one-rank fused run replays it), under
+    shard_map the same logits fused against ref on these ranks, routing
+    pinned, and the assignments each layer's prefill dropped on each
+    backend; (b) phase 4's engine and trace at 1×2 under pjit (records,
+    launches, one chunk and one decode step's logits fused against ref);
+    (c) PEFT at 2×1 under shard_map and 1×2 under pjit, a desync digest
+    every step and no fault injected, each with one step's gradients at
+    the shard shapes fused against ref."""
+    from repro_torch.distributed import collectives
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.launch.train import run_training
+    from repro_torch.models import model_init, moe
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    cfgs = moe_shard_cfgs()
+    mesh = meshes["1x2"]
+    rank0 = mesh.rank == 0
+    params = model_init(cfgs["pjit"], 0, device=dev)
+    out = {"serve": {}, "train": {}}
+    for name, cfg in cfgs.items():  # warm-up: first launches of each path
+        serve_batch(cfg, batch=BATCH, prompt_len=PROMPT, gen=2, params=params, device=dev,
+                    mesh=mesh)
+    for name, cfg in cfgs.items():
+        shapes.clear()
+        collectives.reset_counts()
+        t1 = time.perf_counter()
+        res, launches = counted(lambda: serve_batch(
+            cfg, batch=BATCH, prompt_len=PROMPT, gen=SHARD_GEN, params=params, device=dev,
+            kv_cache="bf16", mesh=mesh))
+        sv = {"tokens": res["tokens"], "launches": launches, "shapes": sorted(shapes),
+              "collectives": collectives.counts(), "bytes": collectives.byte_counts(),
+              "prefill_ms": res["prefill_ms"], "decode_ms": res["decode_ms"],
+              "wall_s": time.perf_counter() - t1}
+        pin = PinnedRouting()
+        if name == "pjit":
+            with pin.record():
+                logits = _teacher_forced(cfg, params, torch, res["tokens"], mesh)
+            sv["logits"] = logits.cpu() if rank0 else None
+            sv["picks"] = [i.cpu() for i in pin.saved] if rank0 else None
+        else:
+            lg, drops = {}, {}
+            for backend, routing in _backends(cfg, pin):
+                nbytes = {}
+                with dispatch.backend_scope(backend), routing, moe.routing_record() as rec:
+                    lg[backend] = _teacher_forced(cfg, params, torch, res["tokens"], mesh,
+                                                  prefill_bytes=nbytes)
+                drops[backend] = [r["dropped"] for r in rec[:cfg.num_layers]]
+                # the prefill's: this rank's send buffers of its two all-to-alls
+                sv["a2a"] = {"bytes": nbytes["all_to_all"] / cfg.num_layers,
+                             "capacity": rec[0]["capacity"], "tokens": rec[0]["idx"].shape[0]}
+            bound = LogitBound()
+            for step in range(SHARD_GEN):
+                bound.add(torch, lg["fused"][step], lg["ref"][step], f"step {step}")
+            sv.update(cos=bound.cos, rel=bound.rel, drops=drops, flips=(pin.flips, pin.picks))
+        out["serve"][name] = sv
+    out["serve_seconds"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    eng = _engine(cfgs["pjit"], params, torch, mesh)
+    out["engine"] = _engine_run(eng, shapes)
+    out["engine"]["logits"] = _engine_step_logits(eng.cfg, eng, torch, keep=rank0)
+    out["engine"]["seconds"] = time.perf_counter() - t1
+    del eng
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    for name, disp, m in (("2x1", "shard_map", meshes["2x1"]), ("1x2", "pjit", mesh)):
+        cfg = cfgs[disp]
+        fresh = model_init(cfg, 0, device=dev)
+        collectives.reset_counts()
+        pin = PinnedRouting()  # pjit's routing, which one rank's run replays
+        t2 = time.perf_counter()
+        with pin.record() if disp == "pjit" else contextlib.nullcontext():
+            res, launches = counted(lambda: run_training(
+                cfg, _train_shape(), steps=SHARD_STEPS, lr=PEFT_LR, device=dev, params=fresh,
+                log_every=100, mesh=m, desync_every=1))
+        tr = {k: res[k] for k in ("losses", "grad_norms", "status", "desyncs_detected",
+                                  "desync_rollbacks", "final_mesh", "step_ms", "skipped_steps")}
+        tr.update(dispatch=disp, launches=launches, collectives=collectives.counts(),
+                  bytes=collectives.byte_counts(), wall_s=time.perf_counter() - t2,
+                  picks=[i.cpu() for i in pin.saved] if rank0 else None)
+        del fresh, res
+        tr["grad_check"] = _sharded_grad_check(cfg, params, m, torch)
+        out["train"][name] = tr
+        torch.cuda.empty_cache()
+    out["train_seconds"] = time.perf_counter() - t1
+    del params
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def sharded_rank(cfg, inputs, go, abort):
     """Phase 19 on one rank, started with the script: it imports, joins its
     meshes and waits for ``go`` (raising once ``abort`` is set: an earlier
@@ -2416,7 +2611,8 @@ def sharded_rank(cfg, inputs, go, abort):
     2×1 and at 1×2 under the desync plan, with a checkpoint every step;
     (c) the 1×2 run's sharded checkpoint restored at 2×1 against its state
     gathered whole; then the elastic drills (``sharded_engine``,
-    ``sharded_elastic_train``)."""
+    ``sharded_elastic_train``) and the mixture-of-experts drills
+    (``sharded_moe``)."""
     import torch
     # the first non-reentrant torch.utils.checkpoint call of a process
     # imports torch._dynamo: 8-13 s of a rank's first training step on an
@@ -2504,6 +2700,7 @@ def sharded_rank(cfg, inputs, go, abort):
     out["elastic_train"] = sharded_elastic_train(cfg, meshes["2x1"],
                                                  f"{inputs['dir']}/elastic", torch)
     out["elastic_seconds"] = time.perf_counter() - t1
+    out["moe"] = sharded_moe(meshes, shapes, torch)
     return out
 
 
@@ -2569,7 +2766,29 @@ def sharded_phase(torch, bg):
     # the engine drills' one-rank reference, while the ranks serve and train
     params = model_init(cfg, 0, device=dev)
     single_engine = one_rank_engine(cfg, params, torch)
+    # the MoE engine's one-rank reference (pjit), while the ranks run: its
+    # step logits fused against ref
+    moe_cfg = moe_shard_cfgs()["pjit"]
+    moe_eng = _engine(moe_cfg, model_init(moe_cfg, 0, device=dev), torch)
+    single_moe_logits = _engine_step_logits(moe_eng.cfg, moe_eng, torch)
     ranks = bg.future.result()
+    # one rank replaying the pjit ranks' routing: the engine's step logits
+    # and the trainer (its own routing would differ from theirs at a few
+    # near ties, and a flipped token moves the loss discontinuously)
+    moe_r0 = ranks[0]["moe"]
+    single_moe_logits["replayed"] = _engine_steps_replayed(
+        moe_eng.cfg, moe_eng, torch, moe_r0["engine"]["logits"]["picks"])
+    del moe_eng
+    torch.cuda.empty_cache()
+    pin = PinnedRouting()
+    pin.saved = [i.to(dev) for i in moe_r0["train"]["1x2"]["picks"]]
+    with pin.replay():
+        single_moe_train = run_training(moe_cfg, _train_shape(), steps=SHARD_STEPS,
+                                        lr=PEFT_LR, device=dev,
+                                        params=model_init(moe_cfg, 0, device=dev),
+                                        log_every=100, desync_every=1)
+    single_moe_train["flips"] = (pin.flips, pin.picks)
+    torch.cuda.empty_cache()
     t_ranks = time.perf_counter() - t1
     r0 = ranks[0]
     single = {}
@@ -2673,6 +2892,7 @@ def sharded_phase(torch, bg):
     if not (equal_1x1 and all(r["ckpt"]["restored_2x1_equal"] for r in ranks)):
         raise AssertionError("sharded checkpoint: a restore differs from the saved state")
     paths.update(elastic_checks(cfg, ranks, single_train, single_engine))
+    paths.update(moe_checks(ranks, single_moe_train, single_moe_logits, torch))
     return paths
 
 
@@ -2773,6 +2993,190 @@ def elastic_checks(cfg, ranks, single_train, single):
         f"(engine {r0['seconds']:.1f} s, trainer {tr['seconds']:.1f} s) | {smi}")
     return {f"{what} rank 0": r0["mesh"]["launches"], f"{what_b} rank 0": r0["loss"]["launches"],
             f"{what_c} rank 0": tr["launches"]}
+
+
+def moe_checks(ranks, single_train, single_logits, torch):
+    """Phase 19's mixture-of-experts drills (``sharded_moe``), held: (a)
+    serve_batch at 1×2 under pjit: each rank's launches and (kernel, N, K)
+    (the expert-axis decode GEMV at E 8, the expert loop's 8 experts a
+    stack), the ranks' tokens equal, and rank 0's teacher-forced logits
+    against one rank's fused run replaying its routing (cosine >=
+    ELASTIC_COS_MIN); under shard_map each rank's launches (decode runs
+    the expert loop: the received capacity is 2 · 8 > 8), its fused
+    logits against ref at the serve bound with the dropped assignments
+    equal, and the all-to-all bytes a layer beside the JAX docstring's
+    minimum; (b) the pjit engine's ranks took the same records, rank 0's
+    fused step logits hold ELASTIC_COS_MIN against one rank's engine
+    replaying its routing, and each rank's step logits fused against ref
+    hold the serve bound (one rank's own engine holds 0.99991 there: the
+    experts' rounding leaves no room under ELASTIC_COS_MIN); (c) PEFT:
+    pjit's losses are those of one rank replaying its routing (rtol 1e-4)
+    and its first gradient norm (1e-3), shard_map's finite and falling, no
+    desync reported, and each rank's shard-shape gradients at the gradient
+    bound.  Returns rank 0's launch counts of each path."""
+    import numpy as np
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import model_init
+
+    smi = nvidia_smi()
+    dev = torch.device("cuda")
+    problems = []  # every check's failure, raised together at the end
+    cfgs = moe_shard_cfgs()
+    base = cfgs["pjit"]
+    layers, mo, d = base.num_layers, base.moe, base.d_model
+    e_rank, steps = mo.num_experts // 2, SHARD_GEN - 1
+    hd = base.resolved_head_dim
+    attn = {(base.num_heads * hd // 2, d), (base.num_kv_heads * hd // 2, d),
+            (d // 2, base.num_heads * hd)}
+    experts = {(mo.d_ff, d), (d, mo.d_ff)}
+    r0 = ranks[0]["moe"]
+    paths = {}
+    # (a) serve_batch, pjit: one rank's fused run on rank 0's tokens, its routing
+    sv = r0["serve"]["pjit"]
+    params = model_init(base, 0, device=dev)
+    pin = PinnedRouting()
+    pin.saved = [i.to(dev) for i in sv["picks"]]
+    with dispatch.backend_scope("fused"), pin.replay():
+        single = _teacher_forced(base, params, torch, sv["tokens"])
+    del params
+    torch.cuda.empty_cache()
+    bound = LogitBound()
+    for step in range(SHARD_GEN):
+        bound.add(torch, sv["logits"][step].to(dev), single[step], f"step {step}")
+    pin.check("sharded moe serve 1x2 pjit vs one rank")
+    for disp in ("pjit", "shard_map"):
+        what = f"sharded moe serve 1x2 {disp}"
+        for r in ranks:
+            sv = r["moe"]["serve"][disp]
+            la = sv["launches"]
+            if disp == "pjit":
+                want = {"lords_matmul": (4 + 3 * e_rank) * layers,
+                        "lords_decode": 7 * layers * steps,
+                        "attn_prefill": layers, "attn_decode": layers * steps}
+                want_shapes = ({("lords_matmul", n, k) for n, k in attn | experts}
+                               | {("lords_decode", n, k) for n, k in attn}
+                               | {(f"lords_decode E={e_rank}", n, k) for n, k in experts})
+            else:
+                want = {"lords_matmul": (4 + 3 * e_rank * (1 + steps)) * layers,
+                        "lords_decode": 4 * layers * steps,
+                        "attn_prefill": layers, "attn_decode": layers * steps}
+                want_shapes = ({("lords_matmul", n, k) for n, k in attn | experts}
+                               | {("lords_decode", n, k) for n, k in attn})
+            log(f"[{what}] rank {r['rank']}: prefill {sv['prefill_ms']:.1f} ms, decode "
+                f"{sv['decode_ms']:.1f} ms for {steps} steps, {sv['wall_s']:.2f} s; launches "
+                + ", ".join(f"{n} {la[n]}" for n in want)
+                + f"; (kernel, N, K) {sv['shapes']}; collectives {sv['collectives']}, "
+                f"bytes {sv['bytes']} | {smi}")
+            wrong = {n: (la[n], c) for n, c in want.items() if la[n] != c}
+            if wrong or set(map(tuple, sv["shapes"])) != want_shapes:
+                problems.append(f"{what} rank {r['rank']}: counts (got, want) {wrong}; "
+                                f"shapes {sv['shapes']} != {sorted(want_shapes)}")
+            if not (sv["tokens"] == r0["serve"][disp]["tokens"]).all():
+                problems.append(f"{what}: the ranks sampled different tokens")
+            if disp == "shard_map":
+                a2a, fl = sv["a2a"], sv["flips"]
+                floor = 2 * a2a["tokens"] * mo.top_k * mo.capacity_factor * d * 2
+                log(f"[{what}] rank {r['rank']} fused vs ref on the ranks, routing pinned: "
+                    f"min cosine {sv['cos']:.6f} (>= {COS_MIN}), max |Δ|/max|logit| "
+                    f"{sv['rel']:.2e} (<= {REL_MAX}); {fl[0]} of {fl[1]} token routings "
+                    f"would have picked another expert set; assignments dropped a layer "
+                    f"(prefill, {a2a['tokens']} tokens this rank, capacity {a2a['capacity']} "
+                    f"an expert) fused {sv['drops']['fused']}, ref {sv['drops']['ref']}; "
+                    f"all-to-all {a2a['bytes'] / 1e6:.2f} MB a layer sent (two exchanges), "
+                    f"the JAX docstring's minimum 2·t_loc·k·cf·d·2 B {floor / 1e6:.2f} MB")
+                if (sv["cos"] < COS_MIN or sv["rel"] > REL_MAX
+                        or sv["drops"]["fused"] != sv["drops"]["ref"]
+                        or fl[0] > FLIP_MAX * max(fl[1], 1)):
+                    problems.append(f"{what} rank {r['rank']}: fused vs ref {sv['cos']}, "
+                                    f"{sv['rel']}, drops {sv['drops']}, flips {fl}")
+        _require(what, r0["serve"][disp]["launches"], LORDS_SERVE)
+        paths[f"{what} rank 0"] = r0["serve"][disp]["launches"]
+    log(f"[sharded moe serve 1x2 pjit] rank 0's teacher-forced logits against one rank's "
+        f"fused run, routing replayed: min cosine {bound.cos:.6f} (>= {ELASTIC_COS_MIN}), max "
+        f"|Δ|/max|logit| {bound.rel:.2e}")
+    if bound.cos < ELASTIC_COS_MIN:
+        problems.append("sharded moe serve 1x2 pjit: logits differ from one rank's")
+    # (b) the engine
+    what = "sharded moe engine 1x2 pjit int8"
+    one_lg, one_flips = single_logits["replayed"]
+    vs_one = [torch.nn.functional.cosine_similarity(a.to(dev), b, dim=-1).min().item()
+              for a, b in zip(r0["engine"]["logits"]["fused"], one_lg)]
+    log(f"[{what}] rank 0's chunk / decode step logits against one rank's engine, fused, "
+        f"routing replayed ({one_flips[0]} of {one_flips[1]} would differ): cosine "
+        f"{vs_one[0]:.6f} / {vs_one[1]:.6f} (>= {ELASTIC_COS_MIN})")
+    if min(vs_one) < ELASTIC_COS_MIN:
+        problems.append(f"{what}: step logits against one rank's {vs_one}")
+    for r in ranks:
+        m = r["moe"]["engine"]
+        st, lg = m["stats"], m["logits"]
+        local = ("prefill_ms", "decode_ms")
+        if ({k: v for k, v in st.items() if k not in local}
+                != {k: v for k, v in r0["engine"]["stats"].items() if k not in local}):
+            problems.append(f"{what}: rank {r['rank']}'s schedule or records differ")
+        log(f"[{what}] rank {r['rank']}: {st['ticks']} ticks, wall {st['wall_s']:.2f} s = "
+            f"{1e3 * st['wall_s'] / st['ticks']:.1f} ms a tick, goodput "
+            f"{st['goodput_tok_s']:.1f} tok/s, evictions {st['evictions']}, statuses "
+            f"{st['statuses']}; launches "
+            + ", ".join(f"{n} {m['launches'][n]}" for n in ENGINE_ROWS)
+            + f"; chunk / decode step logits fused vs ref cosine {lg['chunk_cos']:.6f} / "
+            f"{lg['decode_cos']:.6f} (>= {COS_MIN}; one rank's engine "
+            f"{single_logits['chunk_cos']:.6f} / {single_logits['decode_cos']:.6f}), routing "
+            f"pinned ({lg['flips'][0]} of {lg['flips'][1]} would differ: the chunk's dead "
+            f"rows; one rank {single_logits['flips'][0]}); {m['seconds']:.1f} s | {smi}")
+        if (not st["all_completed"] or not st["audit_ok"] or not lg["finite"]
+                or min(lg["chunk_cos"], lg["decode_cos"]) < COS_MIN):
+            problems.append(f"{what} rank {r['rank']}: {st['statuses']}, {lg}")
+    _require(what, r0["engine"]["launches"], ENGINE_ROWS)
+    paths[f"{what} rank 0"] = r0["engine"]["launches"]
+    # (c) PEFT
+    for name in ("2x1", "1x2"):
+        tr0 = r0["train"][name]
+        what = f"sharded moe train {name} {tr0['dispatch']}"
+        if name == "1x2":
+            pin = PinnedRouting()
+            pin.flips, pin.picks = single_train["flips"]
+            pin.check(f"{what}: one rank replaying rank 0's routing")
+        log(f"[{what}] losses {tr0['losses']} (one rank, pjit: {single_train['losses']}), "
+            f"grad norms {tr0['grad_norms']} (one rank {single_train['grad_norms']}), desyncs "
+            f"{tr0['desyncs_detected']}, step ms "
+            f"{', '.join(f'{t:.1f}' for t in tr0['step_ms'])}, collectives "
+            f"{tr0['collectives']}, bytes {tr0['bytes']}, launches {tr0['launches']}, "
+            f"{tr0['wall_s']:.1f} s | {smi}")
+        for r in ranks:
+            t = r["moe"]["train"][name]
+            if (t["status"] != "complete" or t["desyncs_detected"] or t["skipped_steps"]
+                    or not np.isfinite(t["losses"]).all()):
+                problems.append(f"{what} rank {r['rank']}: {t}")
+            if name == "1x2":
+                if not (np.allclose(t["losses"], single_train["losses"], rtol=1e-4,
+                                    atol=1e-5)
+                        and np.isclose(t["grad_norms"][0], single_train["grad_norms"][0],
+                                       rtol=1e-3, atol=0)):
+                    problems.append(f"{what} rank {r['rank']}: losses {t['losses']}, first "
+                                    f"gradient norm {t['grad_norms'][0]} against one rank's")
+            elif not t["losses"][-1] < t["losses"][0]:
+                problems.append(f"{what}: the loss did not fall: {t['losses']}")
+            gc = t["grad_check"]
+            log(f"[{what}] rank {r['rank']} kernels at the shard shapes, fused vs ref, one "
+                f"step, routing pinned ({gc['flips'][0]} of {gc['flips'][1]} would differ): "
+                f"loss {gc['loss'][0]:.5f} vs {gc['loss'][1]:.5f} (|Δ|/loss {gc['rel']:.2e} "
+                f"<= {LOSS_REL_MAX}); min gradient cosine by leaf "
+                + ", ".join(f"d{k} {c:.6f}" for k, c in gc["cos"].items())
+                + f" (>= {GRAD_COS_MIN})")
+            if (gc["rel"] > LOSS_REL_MAX or min(gc["cos"].values()) < GRAD_COS_MIN
+                    or gc["flips"][0] > FLIP_MAX * max(gc["flips"][1], 1)):
+                problems.append(f"{what} rank {r['rank']}: fused and ref gradients "
+                                "disagree beyond the bound at the shard shapes")
+        _require(what, tr0["launches"], ("lords_matmul", "lords_matmul_t", "lords_grad",
+                                         "attn_prefill"))
+        paths[f"{what} rank 0"] = tr0["launches"]
+    log(f"[sharded moe] drills {r0['seconds']:.1f} s on rank 0 (serve "
+        f"{r0['serve_seconds']:.1f} s, engine {r0['engine']['seconds']:.1f} s, train "
+        f"{r0['train_seconds']:.1f} s) | {smi}")
+    if problems:
+        raise AssertionError("phase 19 MoE drills: " + "; ".join(map(str, problems)))
+    return paths
 
 
 def _leaves(tree):
@@ -2944,15 +3348,18 @@ def run_phases(torch, F, ranks) -> int:
     # phases 11 and 12: minicpm3-4b's MLA through serve_batch (bf16 and
     # int8 latent caches) and the paged engine (int8 latent pool)
     mcfg, params = load_model(get_config(MLA_ARCH).with_(num_layers=MLA_LAYERS), torch)
+    scfg = mcfg.with_(num_layers=min(MLA_SERVE_LAYERS, mcfg.num_layers))
+    sparams = {**params, "layers": params["layers"][:scfg.num_layers]}
     for kv in ("bf16", "int8"):
         what = f"serve mla {kv}"
         t0 = time.perf_counter()
         paths[f"serve_batch mla {kv}"] = serve_checks(
-            mcfg, params, torch, kv, what=what, used=MLA_SERVE,
+            scfg, sparams, torch, kv, what=what, used=MLA_SERVE,
             unused=BLOCK_KERNELS + GQA_DECODE + ("attn_decode_mla_paged",))
-        depths[f"serve_batch mla {kv}"] = mcfg.num_layers
-        profile_decode(mcfg.with_(kv_cache_dtype=kv), params, torch, what)
+        depths[f"serve_batch mla {kv}"] = scfg.num_layers
+        profile_decode(scfg.with_(kv_cache_dtype=kv), sparams, torch, what)
         log(f"[{what}] phase time {time.perf_counter() - t0:.1f} s")
+    del sparams
     t0 = time.perf_counter()
     ecfg = mcfg.with_(num_layers=MLA_ENGINE_LAYERS)
     paths["engine mla int8"] = engine_checks(
@@ -2974,7 +3381,9 @@ def run_phases(torch, F, ranks) -> int:
     # phase 14: the embedding-input models through serve_batch (bf16 cache)
     for arch in EMBEDS_ARCHS:
         t0 = time.perf_counter()
-        ecfg, params = load_model(get_config(arch), torch)
+        acfg = get_config(arch)
+        ecfg, params = load_model(acfg.with_(num_layers=EMBEDS_LAYERS.get(arch, acfg.num_layers)),
+                                  torch)
         what = f"serve embeds {arch}"
         log(f"[{what}] {ecfg.num_heads} heads, {ecfg.num_kv_heads} KV heads (g "
             f"{ecfg.num_heads // ecfg.num_kv_heads}), hd {ecfg.resolved_head_dim}")
@@ -2988,8 +3397,10 @@ def run_phases(torch, F, ranks) -> int:
     # phase 15: the mixture-of-experts model served (bf16 cache) and trained
     t0 = time.perf_counter()
     pcfg, params = load_model(get_config(MOE_ARCH), torch)
-    paths["serve_batch moe bf16"] = serve_exact(pcfg, params, torch, "serve moe")
-    depths["serve_batch moe bf16"] = pcfg.num_layers
+    scfg = pcfg.with_(num_layers=min(MOE_SERVE_LAYERS, pcfg.num_layers))
+    paths["serve_batch moe bf16"] = serve_exact(
+        scfg, {**params, "layers": params["layers"][:scfg.num_layers]}, torch, "serve moe")
+    depths["serve_batch moe bf16"] = scfg.num_layers
     log(f"[serve moe] phase time {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     tcfg = pcfg.with_(num_layers=min(MOE_TRAIN_LAYERS, pcfg.num_layers))
@@ -3003,14 +3414,17 @@ def run_phases(torch, F, ranks) -> int:
     del params
     torch.cuda.empty_cache()
 
-    # phase 16: xlstm-1.3b (7 mLSTM : 1 sLSTM) served at full width and depth
+    # phase 16: xlstm-1.3b (7 mLSTM : 1 sLSTM) served at full width, its
+    # first SSM_SERVE_LAYERS layers
     t0 = time.perf_counter()
     xcfg, params = load_model(get_config(SSM_ARCH), torch)
-    # the teacher-forced check at CHECK_LAYERS: at 48 layers the function
-    # itself turns a one-ulp nudge into other logits (prefill_sensitivity)
-    paths["serve_batch ssm bf16"] = serve_exact(xcfg, params, torch, "serve ssm",
-                                                check_layers=CHECK_LAYERS)
-    depths["serve_batch ssm bf16"] = xcfg.num_layers
+    vcfg = xcfg.with_(num_layers=min(SSM_SERVE_LAYERS, xcfg.num_layers))
+    # the teacher-forced check at CHECK_LAYERS: deeper, the function itself
+    # turns a one-ulp nudge into other logits (prefill_sensitivity)
+    paths["serve_batch ssm bf16"] = serve_exact(
+        vcfg, {**params, "layers": params["layers"][:vcfg.num_layers]}, torch, "serve ssm",
+        check_layers=CHECK_LAYERS)
+    depths["serve_batch ssm bf16"] = vcfg.num_layers
     log(f"[serve ssm] phase time {time.perf_counter() - t0:.1f} s")
     tcfg = xcfg.with_(num_layers=xcfg.period)  # phase 18 trains the first period
     params = {**params, "layers": params["layers"][:tcfg.num_layers]}

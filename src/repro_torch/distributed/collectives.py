@@ -16,20 +16,31 @@ all_to_all_single all ran on CUDA tensors; gloo stages them through host
 memory itself), so no collective of this module copies to the host.  NCCL
 is unverified: no machine here has a card per rank.
 
-Autograd: :func:`gather` (all-gather forward, the rank's own piece of the
-cotangent backward) and :func:`reduce_grad` (identity forward, all-reduce
-backward) are the two layout changes the sharded model writes out where
-JAX leaves them to GSPMD.
+:func:`all_to_all` is ``jax.lax.all_to_all(..., tiled=True)`` over one
+axis or several (the expert-parallel dispatch of
+:mod:`repro_torch.models.moe_shardmap`): over several axes the ranks are
+ordered row-major over the named axes, as the mesh lays them out, and the
+exchange runs in one call on the group of all of them.
 
-Each collective counts its calls (``all_reduce.calls`` ...): a plain
-integer, read by ``chip_smoke.py`` to print the collectives of a layer.
+Autograd: :func:`gather` (all-gather forward; the backward keeps the
+rank's own piece of the cotangent, or with ``sum_grad`` first sums it over
+the axes: a reduce-scatter), :func:`scatter` (the rank's own piece
+forward, all-gather backward), :func:`reduce_grad` (identity forward,
+all-reduce backward) and :func:`exchange` (:func:`all_to_all` forward, the
+inverse all-to-all backward) are the layout changes the sharded model
+writes out where JAX leaves them to GSPMD and ``shard_map``.
+
+Each collective counts its calls (``all_reduce.calls`` ...) and the bytes
+of this rank's input to them (``all_reduce.bytes`` ...): plain integers,
+read by ``chip_smoke.py`` to print the collectives of a layer.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["all_reduce", "all_gather", "broadcast", "gather", "reduce_grad",
-           "barrier", "broadcast_mesh", "reset_counts", "counts"]
+__all__ = ["all_reduce", "all_gather", "broadcast", "all_to_all", "gather",
+           "scatter", "reduce_grad", "exchange", "barrier", "broadcast_mesh",
+           "reset_counts", "counts", "byte_counts"]
 
 
 def _axes(axes) -> tuple:
@@ -46,6 +57,33 @@ def _groups(mesh, axes):
     return [mesh.groups[a] for a in _axes(axes) if mesh.shape.get(a, 1) > 1]
 
 
+def _live(mesh, axes) -> tuple:
+    """The axes of ``axes`` that have more than one rank, in order."""
+    if mesh is None:
+        return ()
+    return tuple(a for a in _axes(axes) if mesh.shape.get(a, 1) > 1)
+
+
+def _joint_group(mesh, axes):
+    """The one process group of the ranks that differ only along ``axes``
+    (None when they have one rank): an axis's own group, or the mesh's
+    group when ``axes`` name every axis of the mesh that has more than one
+    rank, in the mesh's order (its group's ranks are then row-major over
+    them)."""
+    live = _live(mesh, axes)
+    if not live:
+        return None
+    if len(live) == 1:
+        return mesh.groups[live[0]]
+    if live == _live(mesh, mesh.axis_names):
+        return mesh.group
+    raise ValueError(f"no process group spans the axes {live} of {mesh}")
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
 @torch.no_grad()
 def all_reduce(t: torch.Tensor, mesh, axes) -> torch.Tensor:
     """Sum ``t`` over the ranks of ``axes`` (a name or a tuple), in place;
@@ -60,6 +98,7 @@ def all_reduce(t: torch.Tensor, mesh, axes) -> torch.Tensor:
     for group in groups:
         dist.all_reduce(buf, group=group)
         all_reduce.calls += 1
+        all_reduce.bytes += _nbytes(buf)
     if buf is not t:
         t.copy_(buf)
     return t
@@ -82,6 +121,7 @@ def all_gather(t: torch.Tensor, mesh, axes, dim: int = -1) -> torch.Tensor:
                           dtype=t.dtype, device=t.device)
         dist.all_gather_into_tensor(out, src, group=groups[0])
         all_gather.calls += 1
+        all_gather.bytes += _nbytes(src)
         t = out.movedim(0, dim)
     return t
 
@@ -97,9 +137,39 @@ def broadcast(t: torch.Tensor, mesh, axis: str, src: int = 0) -> torch.Tensor:
         buf = t.contiguous()  # as all_reduce: the backends want dense storage
         dist.broadcast(buf, group_src=src, group=groups[0])
         broadcast.calls += 1
+        broadcast.bytes += _nbytes(buf)
         if buf is not t:
             t.copy_(buf)
     return t
+
+
+@torch.no_grad()
+def all_to_all(t: torch.Tensor, mesh, axes, split_dim: int,
+               concat_dim: int) -> torch.Tensor:
+    """``jax.lax.all_to_all(t, axes, split_dim, concat_dim, tiled=True)``:
+    ``t`` cut into n equal pieces along ``split_dim`` (n the ranks of
+    ``axes``), piece j sent to the rank at row-major index j over
+    ``axes``, and the pieces received concatenated along ``concat_dim`` in
+    that order (``t`` itself when the axes have one rank)."""
+    import torch.distributed as dist
+
+    group = _joint_group(mesh, axes)
+    if group is None:
+        return t
+    n = mesh.axis_size(_live(mesh, axes))
+    split_dim, concat_dim = split_dim % t.dim(), concat_dim % t.dim()
+    if t.shape[split_dim] % n:
+        raise ValueError(f"dimension {t.shape[split_dim]} does not split over "
+                         f"{n} ranks")
+    send = torch.stack(t.chunk(n, dim=split_dim)).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    all_to_all.calls += 1
+    all_to_all.bytes += _nbytes(send)
+    piece = recv.shape[1:]
+    out = recv.movedim(0, concat_dim)        # (…, n, piece[concat_dim], …)
+    return out.reshape(*piece[:concat_dim], n * piece[concat_dim],
+                       *piece[concat_dim + 1:])
 
 
 def barrier(mesh) -> None:
@@ -124,28 +194,86 @@ def broadcast_mesh(t: torch.Tensor, mesh) -> torch.Tensor:
 
 
 class _Gather(torch.autograd.Function):
-    """All-gather along ``dim`` over ``axis``; the backward keeps this
-    rank's piece of the cotangent.  Right where everything downstream of
-    the gather runs replicated over the axis, so every rank receives the
-    same whole cotangent."""
+    """All-gather along ``dim`` over ``axes``.  The backward keeps this
+    rank's piece of the cotangent: right where everything downstream of
+    the gather runs replicated over the axes, so every rank receives the
+    same whole cotangent.  With ``sum_grad`` it first sums the cotangent
+    over the axes (a reduce-scatter): right where each rank's cotangent is
+    its own partial sum, as when every data replica computes a function of
+    the whole gathered batch and keeps its own rows of the result."""
 
     @staticmethod
-    def forward(ctx, x, mesh, axis, dim):
-        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim % x.dim()
-        return all_gather(x, mesh, axis, ctx.dim)
+    def forward(ctx, x, mesh, axes, dim, sum_grad):
+        ctx.mesh, ctx.axes, ctx.dim, ctx.sum_grad = mesh, axes, dim % x.dim(), sum_grad
+        return all_gather(x, mesh, axes, ctx.dim)
 
     @staticmethod
     def backward(ctx, g):
-        n = ctx.mesh.shape[ctx.axis]
-        i = ctx.mesh.coords[ctx.axis]
-        return g.chunk(n, dim=ctx.dim)[i].contiguous(), None, None, None
+        if ctx.sum_grad:
+            g = all_reduce(g.contiguous().clone(), ctx.mesh, ctx.axes)
+        n = ctx.mesh.axis_size(ctx.axes)
+        i = ctx.mesh.axis_index(ctx.axes)
+        return g.chunk(n, dim=ctx.dim)[i].contiguous(), None, None, None, None
 
 
-def gather(x: torch.Tensor, mesh, axis: str = "model", dim: int = -1) -> torch.Tensor:
-    """Differentiable :func:`all_gather` (see :class:`_Gather`)."""
-    if mesh is None or mesh.shape.get(axis, 1) == 1:
+def gather(x: torch.Tensor, mesh, axis="model", dim: int = -1, *,
+           sum_grad: bool = False) -> torch.Tensor:
+    """Differentiable :func:`all_gather` over ``axis`` (a name or a tuple;
+    see :class:`_Gather`)."""
+    axes = _live(mesh, axis)
+    if not axes:
         return x
-    return _Gather.apply(x, mesh, axis, dim)
+    return _Gather.apply(x, mesh, axes, dim, sum_grad)
+
+
+class _Scatter(torch.autograd.Function):
+    """This rank's piece of ``x`` along ``dim`` over ``axes`` (``x``
+    replicated over them); the backward all-gathers the pieces' cotangents:
+    the inverse of :class:`_Gather`."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim % x.dim()
+        n, i = mesh.axis_size(axes), mesh.axis_index(axes)
+        return x.chunk(n, dim=ctx.dim)[i].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g.contiguous(), ctx.mesh, ctx.axes, ctx.dim), None, None, None
+
+
+def scatter(x: torch.Tensor, mesh, axis="model", dim: int = 0) -> torch.Tensor:
+    """Differentiable piece of a replicated ``x`` (see :class:`_Scatter`)."""
+    axes = _live(mesh, axis)
+    if not axes:
+        return x
+    return _Scatter.apply(x, mesh, axes, dim)
+
+
+class _Exchange(torch.autograd.Function):
+    """:func:`all_to_all` whose backward is the inverse all-to-all (split
+    and concatenation dims swapped), as JAX transposes
+    ``all_to_all``."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, split_dim, concat_dim):
+        ctx.mesh, ctx.axes = mesh, axes
+        ctx.split_dim, ctx.concat_dim = split_dim, concat_dim
+        return all_to_all(x, mesh, axes, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (all_to_all(g.contiguous(), ctx.mesh, ctx.axes, ctx.concat_dim,
+                           ctx.split_dim), None, None, None, None)
+
+
+def exchange(x: torch.Tensor, mesh, axes, split_dim: int,
+             concat_dim: int) -> torch.Tensor:
+    """Differentiable :func:`all_to_all` (see :class:`_Exchange`)."""
+    axes = _live(mesh, axes)
+    if not axes:
+        return x
+    return _Exchange.apply(x, mesh, axes, split_dim, concat_dim)
 
 
 class _ReduceGrad(torch.autograd.Function):
@@ -170,13 +298,23 @@ def reduce_grad(x: torch.Tensor, mesh, axes="model") -> torch.Tensor:
     return _ReduceGrad.apply(x, mesh, axes)
 
 
+_COUNTED = (all_reduce, all_gather, broadcast, all_to_all)
+
+
 def reset_counts() -> None:
-    for fn in (all_reduce, all_gather, broadcast):
-        fn.calls = 0
+    for fn in _COUNTED:
+        fn.calls = fn.bytes = 0
 
 
 def counts() -> dict:
-    return {fn.__name__: fn.calls for fn in (all_reduce, all_gather, broadcast)}
+    """Each collective's calls since :func:`reset_counts`."""
+    return {fn.__name__: fn.calls for fn in _COUNTED}
+
+
+def byte_counts() -> dict:
+    """The bytes of this rank's inputs to each collective since
+    :func:`reset_counts`."""
+    return {fn.__name__: fn.bytes for fn in _COUNTED}
 
 
 reset_counts()

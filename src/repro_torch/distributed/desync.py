@@ -10,7 +10,11 @@ The JAX package runs one controller, where a real divergence cannot
 happen, and describes the multi-controller transport this module is: each
 data replica computes the digest of its own state (each model rank of its
 own windows, summed over the model axis), and the replicas' digests are
-all-gathered over the data axes.  The ``dist.replica_desync`` fault point
+all-gathered over the data axes.  A leaf split over a data axis (an
+expert stack of the ``shard_map`` MoE dispatch) is no replica there: its
+digest is summed over every axis its spec splits it along, so it enters
+each replica's report as the global value, the JAX package's in-graph
+sum over the sharded tree.  The ``dist.replica_desync`` fault point
 perturbs replica *i*'s report as the JAX package does, ``g·(1 + 1e-3) +
 1e-3``; every rank consults the point for every replica, in the JAX
 package's order, so the ranks' fault streams stay the same.
@@ -53,29 +57,76 @@ def tree_digest(tree) -> torch.Tensor:
     drift: Σ|x| plus Σx² per leaf, folded in f32 in leaf order."""
     total = None
     for leaf in _leaves(tree):
-        x = torch.as_tensor(leaf).to(torch.float32)
-        part = x.abs().sum() + (x * x).sum()
+        part = _part(leaf)
         total = part if total is None else total + part.to(total.device)
     return torch.zeros((), dtype=torch.float32) if total is None else total
 
 
+def _part(leaf) -> torch.Tensor:
+    x = torch.as_tensor(leaf).to(torch.float32)
+    return x.abs().sum() + (x * x).sum()
+
+
+def _spec_of(specs, tree):
+    """The spec of each leaf of ``tree`` in :func:`_leaves` order (None
+    where ``specs`` has none)."""
+    if specs is None:
+        return [None] * sum(1 for _ in _leaves(tree))
+    if isinstance(tree, dict):
+        try:
+            keys = sorted(tree)
+        except TypeError:
+            keys = list(tree)
+        return [s for k in keys for s in _spec_of(specs[k], tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [s for v, sv in zip(tree, specs) for s in _spec_of(sv, v)]
+    return [] if tree is None else [specs]
+
+
+@torch.no_grad()
+def _split_digest(tree, specs, mesh, data_axes) -> torch.Tensor:
+    """This rank's digest of the leaves replicated over ``data_axes`` plus
+    that of those split over one of them summed over ``data_axes``."""
+    from repro_torch.distributed.sharding import spec_axes
+
+    total = split = None
+    for leaf, spec in zip(_leaves(tree), _spec_of(specs, tree)):
+        part = _part(leaf)
+        if {a for e in (spec or ()) for a in spec_axes(e)} & set(data_axes):
+            split = part if split is None else split + part
+        else:
+            total = part if total is None else total + part.to(total.device)
+    total = torch.zeros((), dtype=torch.float32) if total is None else total
+    if split is not None:  # every rank holds the same tree: all call this
+        # over the data axes here; the model axis's sum is every leaf's
+        split = collectives.all_reduce(split.clone(), mesh, data_axes)
+        total = total + split.to(total.device)
+    return total
+
+
 def replica_digests(tree, mesh=None, *, faults=None, step: int = 0,
-                    axis: str = "model") -> np.ndarray:
+                    axis: str = "model", specs=None) -> np.ndarray:
     """Every data replica's digest, ``(n_replicas,)`` float64, on every
     rank.
 
     This rank's digest of its windows is summed over the model ``axis``
     (one scalar a replica), the ``dist.replica_desync`` point may perturb
     this replica's report, and the reports are all-gathered over the data
-    axes.  ``mesh`` None is one replica.
+    axes.  ``mesh`` None is one replica.  ``specs`` (a tree matching
+    ``tree`` of :class:`repro_torch.distributed.sharding.PartitionSpec`,
+    None leaves replicated): the leaves split over a data axis enter every
+    replica's digest summed over their axes.
     """
     del step  # the JAX package's signature; the plan's streams are per point
-    g = tree_digest(tree)
+    data_axes = () if mesh is None else tuple(
+        a for a in mesh.axis_names if a != axis)
+    if mesh is None or specs is None:
+        g = tree_digest(tree)
+    else:
+        g = _split_digest(tree, specs, mesh, data_axes)
     dev = g.device
     if mesh is not None:
         collectives.all_reduce(g, mesh, axis)
-    data_axes = () if mesh is None else tuple(
-        a for a in mesh.axis_names if a != axis)
     n = 1 if mesh is None else mesh.axis_size(data_axes)
     me = 0 if mesh is None else mesh.axis_index(data_axes)
     report = torch.tensor([float(g)], dtype=torch.float64, device=dev)

@@ -25,7 +25,10 @@ operands into ``shard_map``'s in_specs at every call: rows of the codes, B,
 the QAT master W and the block scales on 'model', A replicated.  The port
 stores that layout (:func:`execution_pspecs`, the paper's asymmetry: the
 codes shard, the rank-r factor A does not) and each rank keeps its own
-windows (:func:`shard_tree`).
+windows (:func:`shard_tree`).  Expert stacks split on their leading E axis
+instead: over 'model' for the ``pjit`` dispatch (the weight rule
+``expert``), over the expert-parallel axes of :func:`ep_axes` for the
+``shard_map`` one (:func:`model_pspecs` picks them from the config).
 """
 from __future__ import annotations
 
@@ -38,8 +41,7 @@ from repro_torch.distributed import collectives
 
 __all__ = ["PartitionSpec", "ShardingPolicy", "make_rules", "resolve_spec",
            "tree_pspecs", "estimate_quantized_gb", "row_shard", "param_axes",
-           "execution_pspecs", "shard_tree", "gather_tree", "local_window",
-           "spec_axes"]
+           "execution_pspecs", "model_pspecs", "ep_axes", "shard_tree", "gather_tree", "local_window", "spec_axes"]
 
 
 class PartitionSpec(tuple):
@@ -383,22 +385,57 @@ def _row_sharded_linear(node: dict, quant) -> bool:
     return quant.method == "blockwise" and quant.mode != "qat" and "s_blk" in node
 
 
-def execution_pspecs(params, quant, mesh, axis: str = "model"):
+def ep_axes(mesh, e_pad: int) -> tuple[tuple, int]:
+    """The expert-parallel axes of the ``shard_map`` dispatch and their
+    size: the widest of ('pod', 'data', 'model'), ('data', 'model') and
+    ('model',) whose axes the mesh has and whose product divides
+    ``e_pad`` (the JAX package's ``moe_shardmap._ep_axes``); ((), 1) when
+    none does."""
+    for axes in (("pod", "data", "model"), ("data", "model"), ("model",)):
+        if all(a in mesh.shape for a in axes):
+            size = math.prod(mesh.shape[a] for a in axes)
+            if e_pad % size == 0:
+                return axes, size
+    return (), 1
+
+
+def _moe_node(node: dict) -> bool:
+    return {"router", "w_gate", "w_up", "w_down"} <= set(node)
+
+
+def execution_pspecs(params, quant, mesh, axis: str = "model", *,
+                     experts: tuple = ("model",)):
     """The layout the sharded dispatch computes on, a :class:`PartitionSpec`
     tree matching ``params``: each kernel-run linear whose N divides the
     ``axis`` size has the rows of its codes / master W, B, block scales,
     adapter B and bias on ``axis`` (A and the adapter's A replicated, the
-    paper's asymmetry); every other leaf is replicated."""
+    paper's asymmetry); each expert stack of a MoE layer has every leaf's
+    leading E axis on the mesh axes ``experts`` when their product divides
+    E (the router replicated); every other leaf is replicated."""
     p = mesh.shape.get(axis, 1) if mesh is not None else 1
+    live = tuple(a for a in experts if mesh is not None and mesh.shape.get(a, 1) > 1)
+    n_ep = math.prod(mesh.shape[a] for a in live) if live else 1
+    e_entry = live if len(live) > 1 else (live[0] if live else None)
 
     def rep(leaf):
         return PartitionSpec(*([None] * leaf.dim()))
+
+    def stack(node):
+        e = node["w_gate"][next(iter(node["w_gate"]))].shape[0]
+        out = {"router": rep(node["router"])}
+        for name in ("w_gate", "w_up", "w_down"):
+            out[name] = {k: (PartitionSpec(e_entry, *([None] * (v.dim() - 1)))
+                             if n_ep > 1 and e % n_ep == 0 else rep(v))
+                         for k, v in node[name].items()}
+        return out
 
     def walk(node):
         if isinstance(node, list):
             return [walk(v) for v in node]
         if not isinstance(node, dict):
             return rep(node)
+        if _moe_node(node):
+            return stack(node)
         if _row_sharded_linear(node, quant):
             n = node.get("q", node.get("w")).shape[0]
             if p > 1 and n % p == 0:
@@ -409,6 +446,18 @@ def execution_pspecs(params, quant, mesh, axis: str = "model"):
         return {k: walk(v) for k, v in node.items()}
 
     return walk(params)
+
+
+def model_pspecs(params, cfg, mesh):
+    """:func:`execution_pspecs` of a model's ``params`` under ``cfg``: the
+    expert stacks on the axes of ``cfg.moe.dispatch``, the ``pjit``
+    dispatch's 'model' (the weight rule ``expert``) or the ``shard_map``
+    dispatch's expert-parallel axes (:func:`ep_axes`)."""
+    experts = ("model",)
+    if cfg.moe is not None and cfg.moe.dispatch == "shard_map":
+        e_pad = max(cfg.moe.pad_experts_to or 0, cfg.moe.num_experts)
+        experts = ep_axes(mesh, e_pad)[0]
+    return execution_pspecs(params, cfg.quant, mesh, experts=experts)
 
 
 def local_window(shape, spec, mesh) -> list[tuple[int, int]]:

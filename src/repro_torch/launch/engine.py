@@ -57,8 +57,9 @@ fault below instead of raising away completed work:
 
 **On a mesh** (``mesh=``, a :class:`repro_torch.launch.mesh.Mesh`, the
 engine made on each of its ranks): the parameters are cut to this rank's
-windows (:func:`repro_torch.distributed.sharding.execution_pspecs`, as
-``serve_batch`` cuts them), the pools are built inside the shard scope, so
+windows (:func:`repro_torch.distributed.sharding.model_pspecs`, as
+``serve_batch`` cuts them: a MoE model's expert stacks over its
+dispatch's axes), the pools are built inside the shard scope, so
 a rank holds its own KV heads (and their int8 scales), and both steps run
 in the scope.  The slot rows replicate over the data axis, as the pages
 do: every rank runs the whole slot batch and samples the same tokens from
@@ -100,8 +101,8 @@ import torch
 from repro_torch.distributed import collectives
 from repro_torch.distributed.fault_tolerance import StragglerMonitor
 from repro_torch.distributed.sharding import (
-    execution_pspecs,
     gather_tree,
+    model_pspecs,
     shard_tree,
 )
 from repro_torch.kernels import dispatch
@@ -242,14 +243,16 @@ class Engine:
                 self._clock_device = torch.device("cpu")  # no copy to a card
 
     def _scope(self):
-        return dispatch.shard_scope(self.mesh if self.mesh.size > 1 else None)
+        # the slot rows replicate over the data axis
+        return dispatch.shard_scope(self.mesh if self.mesh.size > 1 else None,
+                                    tokens_split=False)
 
     def _place(self, whole: dict):
         """Cut the whole ``params`` to this rank's windows on ``self.mesh``."""
         self._specs = None
         self.params = whole
         if self.mesh.size > 1:
-            self._specs = execution_pspecs(whole, self.cfg.quant, self.mesh)
+            self._specs = model_pspecs(whole, self.cfg, self.mesh)
             self.params = shard_tree(whole, self._specs, self.mesh)
 
     def _new_pools(self):
@@ -497,7 +500,9 @@ class Engine:
         the model axis only once data parallelism is gone), rebuild the
         parameters' shards on the surviving ranks from the old mesh's bytes
         (every rank of the old mesh, the lost ones included, all-gathers
-        its shards over the old model groups: same bytes, new placement),
+        its shards over the old groups of the axes they are split along:
+        same bytes, new placement; the new mesh's layout, expert-parallel
+        axes included, is computed afresh),
         requeue every in-flight request, oldest at the front, without
         charging its retry budget (the hardware failed, not the request),
         rebuild the pools on the new mesh, warm up and audit.  A rank

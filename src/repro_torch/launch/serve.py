@@ -28,7 +28,7 @@ import torch
 from repro_torch.configs import get_config, smoke_variant
 from repro_torch.configs.base import KV_CACHE_DTYPES
 from repro_torch.distributed import collectives
-from repro_torch.distributed.sharding import execution_pspecs, shard_tree
+from repro_torch.distributed.sharding import model_pspecs, shard_tree
 from repro_torch.kernels import dispatch
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.ranks import run_ranks
@@ -64,7 +64,7 @@ def serve_batch(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
     ``mesh`` (a :class:`repro_torch.launch.mesh.Mesh`, on each of its
     ranks): the whole ``params`` (or the drawn model) are cut to this
     rank's windows (:func:`repro_torch.distributed.sharding.
-    execution_pspecs`), the batch to this data replica's rows when the
+    model_pspecs`), the batch to this data replica's rows when the
     data axis divides it, and prefill and decode run in its shard scope;
     the tokens are gathered over the data axis, so every rank returns the
     whole batch's.  Returns the tokens (b, gen) and host-clock timings of
@@ -78,7 +78,7 @@ def serve_batch(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
         params = model_init(cfg, seed, device=device)
     sharded = mesh is not None and mesh.size > 1
     if sharded:
-        params = shard_tree(params, execution_pspecs(params, cfg.quant, mesh), mesh)
+        params = shard_tree(params, model_pspecs(params, cfg, mesh), mesh)
     rows, split = data_rows(mesh, batch)
     b_local = rows.stop - rows.start
     with dispatch.shard_scope(mesh if sharded else None):

@@ -68,22 +68,25 @@ def data_rows(mesh, n: int, axis: str = "model") -> tuple[slice, bool]:
 
 
 def _sharded_norm(grads: dict, sharded, mesh) -> torch.Tensor:
-    """The global gradient norm over every rank's windows: squares of the
-    leaves split over the model axis summed over it, the replicated ones
+    """The global gradient norm over every rank's windows: the squares of
+    the leaves split over some axes summed over them, the replicated ones
     counted once."""
-    sq = {True: 0.0, False: 0.0}
+    sq: dict = {}
     for k, g in grads.items():
-        sq[k in sharded] = sq[k in sharded] + g.to(torch.float32).square().sum()
-    sq_sh = torch.as_tensor(sq[True], dtype=torch.float32,
-                            device=next(iter(grads.values())).device)
-    collectives.all_reduce(sq_sh, mesh, "model")
-    return torch.sqrt(sq[False] + sq_sh + 1e-12)
+        axes = sharded.get(k, ())
+        sq[axes] = sq.get(axes, 0.0) + g.to(torch.float32).square().sum()
+    dev = next(iter(grads.values())).device
+    total = torch.zeros((), dtype=torch.float32, device=dev)
+    for axes in sorted(sq, key=len):  # the same order on every rank
+        part = torch.as_tensor(sq[axes], dtype=torch.float32, device=dev)
+        total = total + collectives.all_reduce(part.clone(), mesh, axes)
+    return torch.sqrt(total + 1e-12)
 
 
 def train_step(trainable: dict, frozen: dict, opt, batch: dict, *, cfg,
                lr: float, backend: str | None = None,
                max_gnorm: float | None = None, mesh=None,
-               sharded=frozenset()):
+               sharded: dict | None = None):
     """One optimizer step; returns (trainable, opt, metrics).
 
     ``trainable`` / ``frozen`` are the path dicts of
@@ -101,13 +104,15 @@ def train_step(trainable: dict, frozen: dict, opt, batch: dict, *, cfg,
     rank): ``trainable`` / ``frozen`` are this rank's windows
     (:func:`repro_torch.distributed.sharding.shard_tree`), ``batch`` the
     global batch on every rank, of which this data replica takes its rows
-    (:func:`data_rows`); ``sharded`` holds the paths of the trainable
-    leaves split over the model axis.  The gradients are the global mean's:
-    the quantized linears' Functions sum dx and dA over the model axis,
-    and every leaf's gradient is summed over the data axes here; the norm
-    of the guard spans every rank's windows, so every rank takes the same
-    decision.
+    (:func:`data_rows`); ``sharded`` maps the path of each trainable leaf
+    split over mesh axes to those axes.  The gradients are the global mean's: the quantized
+    linears' Functions sum dx and dA over the model axis, and every leaf's
+    gradient is summed over the data axes here, except a leaf split over a
+    data axis (an expert stack of the ``shard_map`` dispatch, whose
+    gradient the all-to-all made whole); the norm of the guard spans every
+    rank's windows, so every rank takes the same decision.
     """
+    sharded = sharded or {}
     scope = contextlib.nullcontext()
     if mesh is not None and mesh.size > 1:
         rows, split = data_rows(mesh, batch["labels"].shape[0])
@@ -146,9 +151,13 @@ def train_step(trainable: dict, frozen: dict, opt, batch: dict, *, cfg,
         if sh.data_axes:
             # each replica's gradients are its tokens' share of the global
             # mean's: every leaf's summed over the data axes once, in f32
-            # (the sums GSPMD inserts in the JAX package)
-            grads = [collectives.all_reduce(g.to(torch.float32), sh.mesh,
-                                            sh.data_axes) for g in grads]
+            # (the sums GSPMD inserts in the JAX package); a leaf split
+            # over a data axis is no replica there
+            grads = [g.to(torch.float32)
+                     if set(sharded.get(k, ())) & set(sh.data_axes) else
+                     collectives.all_reduce(g.to(torch.float32), sh.mesh,
+                                            sh.data_axes)
+                     for k, g in zip(keys, grads)]
         gnorm = _sharded_norm(dict(zip(keys, grads)), sharded, sh.mesh)
     thr = math.inf if max_gnorm is None else max_gnorm
     trainable, opt, gnorm, ok = guarded_update(

@@ -33,9 +33,10 @@ from repro_torch.distributed.fault_tolerance import (
     StragglerMonitor,
 )
 from repro_torch.distributed.sharding import (
-    execution_pspecs,
     gather_tree,
+    model_pspecs,
     shard_tree,
+    spec_axes,
 )
 from repro_torch.kernels import dispatch
 from repro_torch.launch.mesh import make_host_mesh
@@ -94,8 +95,9 @@ def run_training(cfg, shape_cfg, *, steps: int, lr: float = 1e-4,
 
     ``mesh`` (a :class:`repro_torch.launch.mesh.Mesh`, on each of its
     ranks): the whole ``params`` are cut to this rank's windows
-    (:func:`repro_torch.distributed.sharding.execution_pspecs`: the
-    quantized linears' rows over the model axis), every step splits the
+    (:func:`repro_torch.distributed.sharding.model_pspecs`: the quantized
+    linears' rows over the model axis, the expert stacks over their
+    dispatch's axes), every step splits the
     global batch over the data axis and runs sharded
     (:func:`repro_torch.launch.steps.train_step`), and checkpoints are
     saved a shard a file and restored onto this mesh's layout.  The mesh
@@ -116,8 +118,9 @@ def run_training(cfg, shape_cfg, *, steps: int, lr: float = 1e-4,
     ``dist.device_loss`` (on a mesh of more than one rank, while
     ``mesh_rebuilds < max_mesh_rebuilds``: the elastic rebuild.  The mesh
     shrinks, :func:`repro_torch.launch.mesh.shrink_shape`; every rank of
-    the old mesh hands its state over, all-gathered over the old model
-    groups; the survivors cut it to the new layout and restore the latest
+    the old mesh hands its state over, all-gathered over the old groups of
+    the axes it is split along; the survivors cut it to the new layout
+    (the expert-parallel axes recomputed) and restore the latest
     checkpoint onto it with the data position (``resharded_restores``),
     or with no checkpoint go on from the live state; a rank outside the
     new mesh returns at once with ``status="lost"``.  On one device
@@ -166,12 +169,12 @@ def run_training(cfg, shape_cfg, *, steps: int, lr: float = 1e-4,
         checkpointer's keywords and the data replicas."""
         if mesh.size == 1:
             trainable, frozen = peft.partition(whole, cfg.quant)
-            return trainable, frozen, None, None, frozenset(), {}, 1
-        specs = execution_pspecs(whole, cfg.quant, mesh)
+            return trainable, frozen, None, None, {}, {}, 1
+        specs = model_pspecs(whole, cfg, mesh)
         trainable, frozen = peft.partition(shard_tree(whole, specs, mesh), cfg.quant)
         state_specs = _state_specs(trainable, specs)
-        sharded = frozenset(k for k, sp in state_specs["trainable"].items()
-                            if any(e is not None for e in sp))
+        sharded = {k: axes for k, sp in state_specs["trainable"].items()
+                   if (axes := tuple(a for e in sp for a in spec_axes(e)))}
         n_data = mesh.axis_size(tuple(a for a in mesh.axis_names if a != "model"))
         return (trainable, frozen, specs, state_specs, sharded,
                 dict(mesh=mesh, specs=state_specs), n_data)
@@ -231,7 +234,7 @@ def run_training(cfg, shape_cfg, *, steps: int, lr: float = 1e-4,
         nonlocal ckpt_kw, n_data, mesh_rebuilds, lost_devices, resharded_restores
         old = mesh
         # the hand-over: every rank of the old mesh, the lost ones included,
-        # gathers the state whole over its old model group (same bytes)
+        # gathers the state whole over its old groups (same bytes)
         whole = gather_tree(peft.combine(trainable, frozen), specs, old)
         moments = {name: gather_tree(getattr(opt, name), state_specs["trainable"], old)
                    for name in ("mu", "nu")}
@@ -323,9 +326,11 @@ def run_training(cfg, shape_cfg, *, steps: int, lr: float = 1e-4,
                 ckpt.save(step + 1, {"trainable": trainable, "opt": opt,
                                      "data_step": step + 1}, **ckpt_kw)
             if desync_every > 0 and done % desync_every == 0:
-                digests = replica_digests((trainable, opt),
-                                          mesh if mesh.size > 1 else None,
-                                          faults=faults, step=step)
+                digests = replica_digests(
+                    (trainable, opt), mesh if mesh.size > 1 else None,
+                    faults=faults, step=step,
+                    specs=(None if state_specs is None else
+                           (state_specs["trainable"], state_specs["opt"])))
                 if desync_spread(digests) > 0.0:
                     desyncs_detected += 1
                     if restore_latest("replica desync detected"):

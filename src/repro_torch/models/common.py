@@ -154,26 +154,21 @@ def local_kv_heads(cfg) -> int:
 
 
 def check_sharded_family(cfg) -> None:
-    """Raise for a model this slice does not run on a mesh: MLA, the
-    recurrent mixers and MoE under a model axis of more than one rank
-    (ROADMAP queue 1: ``models/moe_shardmap.py`` and the mixers' sharding
-    come in later slices), and MoE under any mesh (its capacity and router
-    aux loss are functions of the whole batch, so a data split changes
-    them)."""
+    """Raise for a model this slice does not run on a mesh: MLA and the
+    recurrent mixers under a model axis of more than one rank (ROADMAP
+    queue 1: their sharding, the JAX rules ``mamba_in``, ``mlstm_in`` and
+    ``slstm_in`` on 'model', comes in slice 19).  A mesh with model = 1
+    runs them data-parallel; mixture-of-experts layers run on every mesh
+    (:mod:`repro_torch.models.moe`, :mod:`repro_torch.models.moe_shardmap`)."""
     sh = shard_info()
     if sh is None:
         return
     kinds = set(cfg.layer_kinds())
-    moe = any(mlp == "moe" for _, mlp in kinds)
-    if moe:
-        raise NotImplementedError(
-            f"{cfg.name}: mixture-of-experts layers do not run on a mesh yet "
-            "(ROADMAP queue 1, item 1: models/moe_shardmap.py)")
     if sh.model > 1 and (cfg.attn_kind == "mla"
                          or any(m != "attn" for m, _ in kinds)):
         raise NotImplementedError(
             f"{cfg.name}: MLA and the recurrent mixers do not run with a model "
-            "axis of more than one rank yet (ROADMAP queue 1, item 1); a mesh "
+            "axis of more than one rank yet (ROADMAP queue 1, slice 19); a mesh "
             "with model = 1 runs them data-parallel")
 
 

@@ -31,9 +31,11 @@ them; here a Python loop walks the list.
 Inside a shard scope (:func:`repro_torch.kernels.dispatch.shard_scope`)
 every rank runs these on its own windows of the params and its rows of the
 batch: GQA and the dense MLP tensor-parallel over the model axis (see
-:mod:`repro_torch.models.attention`), the loss a mean over every data
-replica's tokens; the embedding, norms and head are replicated.  Models
-this slice does not shard raise (:func:`repro_torch.models.common.
+:mod:`repro_torch.models.attention`), the experts of a MoE layer split
+over the model axis or the expert-parallel axes (see
+:mod:`repro_torch.models.moe`), the loss a mean over every data replica's
+tokens; the embedding, norms and head are replicated.  Models this slice
+does not shard raise (:func:`repro_torch.models.common.
 check_sharded_family`).
 
 Caches and page pools are updated in place (see
@@ -231,7 +233,11 @@ def forward_train(params, cfg, batch, *, backend: str | None = None):
     {"embeds": (b, s, d)}, and "labels" (b, s) (label -1 = masked).
 
     Returns (mean loss, {"loss", "aux_loss", "tokens"}); a MoE model's loss
-    adds 0.01 · the layers' summed router aux loss.  Layers run in a Python
+    adds 0.01 · the layers' summed router aux loss (inside a shard scope
+    whose data axes split the batch, the returned loss is this replica's
+    share, whose gradients the train step sums over those axes: the aux
+    term's weight is divided by their ranks; ``metrics["loss"]`` is the
+    global loss).  Layers run in a Python
     loop; under ``cfg.remat`` each layer and each vocabulary chunk is a
     ``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint`` with
     nothing saved), so the backward keeps one layer's activations at a time
@@ -281,9 +287,13 @@ def forward_train(params, cfg, batch, *, backend: str | None = None):
                                         shard.data_axes)
     denom = torch.clamp(cnt, min=1.0)
     loss = tot / denom
+    metric = metric / denom
     if cfg.moe is not None:
-        loss = loss + 0.01 * aux
-    metric = metric / denom if cfg.moe is None else loss.detach()
+        # every data replica holds the whole batch's aux loss: it counts
+        # once in the replicas' summed gradients
+        n_split = 1 if shard is None else shard.mesh.axis_size(shard.data_axes)
+        loss = loss + (0.01 / n_split) * aux
+        metric = metric + 0.01 * aux.detach()
     return loss, {"loss": metric, "aux_loss": aux, "tokens": cnt}
 
 

@@ -18,14 +18,34 @@ one-hot product):
 
 Expert-stacked leaves carry a leading E axis: q (E, N, K·bits/8), b (E, N,
 r), a (E, r, K).  The router's load-balance (aux) loss is returned to the
-caller.  Only the ``pjit`` dispatch is ported.
+caller.  ``MoECfg.dispatch`` selects the dispatch, as in the JAX package:
+``pjit`` here, ``shard_map`` in :mod:`repro_torch.models.moe_shardmap`.
+
+On a mesh (inside a shard scope) the ``pjit`` dispatch computes what JAX's
+GSPMD partitioning of it computes, the one-device result: capacity and the
+aux loss are functions of the whole global batch.  Each rank gathers the
+layer's tokens over the data axes where the batch is split there, routes
+all of them, builds the global (E_pad, C, d) buffer, runs its own E/p
+experts (the stacks split on E over 'model',
+:func:`repro_torch.distributed.sharding.execution_pspecs`), all-gathers
+the (E_pad, C, d) outputs over 'model', combines, and keeps its own rows.
+Its backward sums the token cotangents over the data axes before keeping
+its own (each replica's is the partial of its own rows' loss and of the
+global aux loss), and all-gathers the buffer's cotangent over 'model'.
+
+:func:`routing_record` collects each layer's routing (expert ids and the
+assignments dropped by capacity) while it is open.
 """
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.dispatch import qmatmul_stack
+from repro_torch.distributed import collectives
+from repro_torch.kernels.dispatch import qmatmul_stack, shard_info
 from repro_torch.models.common import (
     dense_init,
     gather_rows,
@@ -33,7 +53,31 @@ from repro_torch.models.common import (
     qlinear_init,
 )
 
-__all__ = ["dense_mlp_init", "dense_mlp_apply", "moe_init", "moe_apply"]
+__all__ = ["dense_mlp_init", "dense_mlp_apply", "moe_init", "moe_apply",
+           "routing_record", "capacity"]
+
+_TLS = threading.local()
+
+
+@contextlib.contextmanager
+def routing_record():
+    """Collect the routing of every MoE layer call inside the scope: yields
+    a list that gets one dict a call, ``{"idx": (t, k) expert ids of this
+    rank's dispatched tokens, "dropped": assignments dropped by capacity,
+    "capacity": slots an expert}`` (CPU tensors and ints)."""
+    prev = getattr(_TLS, "record", None)
+    _TLS.record = []
+    try:
+        yield _TLS.record
+    finally:
+        _TLS.record = prev
+
+
+def _record(idx, keep, cap) -> None:
+    rec = getattr(_TLS, "record", None)
+    if rec is not None:
+        rec.append({"idx": idx.detach().cpu(), "capacity": cap,
+                    "dropped": int((~keep).sum())})
 
 
 # ---------------------------------------------------------------------------
@@ -137,17 +181,18 @@ def capacity(mo, t):
     return max(8, -(-cap // 8) * 8)
 
 
-def _assign(idx, mo, t):
+def _assign(idx, mo, t, cap=None):
     """Slot assignment of the (t, k) expert ids ``idx``: (each assignment's
     rank within its expert, keep = rank < capacity, its row of the (E_pad·C
     + 1, d) dispatch buffer — a dropped assignment's is the pad row E_pad·C
-    — and the capacity C)."""
+    — and the capacity C, :func:`capacity` of t unless given)."""
     flat_e = idx.reshape(-1)  # (t*k,)
     ranks = _ranks_within_expert(flat_e, mo.num_experts, flat_e.numel())
-    cap = capacity(mo, t)
+    cap = capacity(mo, t) if cap is None else cap
     keep = ranks < cap
     dest = torch.where(keep, flat_e * cap + ranks,
                        torch.full_like(flat_e, _n_experts_padded(mo) * cap))
+    _record(idx, keep, cap)
     return ranks, keep, dest, cap
 
 
@@ -161,40 +206,72 @@ def _expert_ffn(xd, params, mo, d, quant):
     return _qlinear_stack_apply(params["w_down"], h, quant, d, mo.d_ff, e_here)
 
 
+def _dispatch(xf, dest, e_pad, cap, k):
+    """The (E_pad, C, d) buffer of the token rows ``xf`` (t, d), each
+    repeated k times into its assignment's row ``dest`` (dropped ones into
+    the discarded pad row)."""
+    d = xf.shape[-1]
+    src = xf.repeat_interleave(k, dim=0)  # (t*k, d) token rows per assignment
+    buf = torch.zeros((e_pad * cap + 1, d), dtype=xf.dtype, device=xf.device)
+    buf = buf.index_put((dest,), src)
+    return buf[: e_pad * cap].reshape(e_pad, cap, d)
+
+
+def _combine(yd, dest, gates, k):
+    """The gate-weighted sum (t, d) of each token's k expert rows of ``yd``
+    (E_pad, C, d); a dropped assignment reads an appended zero row."""
+    d = yd.shape[-1]
+    ybuf = torch.cat([yd.reshape(-1, d),
+                      torch.zeros((1, d), dtype=yd.dtype, device=yd.device)])
+    per_assign = ybuf[dest]  # (t*k, d); dropped slots hit the zero pad row
+    per_assign = per_assign * gates.reshape(-1)[:, None].to(per_assign.dtype)
+    return per_assign.reshape(-1, k, d).sum(1)
+
+
 def moe_apply(params, x, cfg, quant):
     """x (b,s,d) -> (y (b,s,d), aux_loss scalar)."""
     if cfg.moe.dispatch == "shard_map":
-        raise NotImplementedError(
-            "moe dispatch 'shard_map' (explicit all_to_all over expert-"
-            "parallel ranks) is not ported yet: it comes with distributed "
-            "execution (ROADMAP queue 1 item 6); use dispatch='pjit'")
+        from repro_torch.models.moe_shardmap import moe_apply_shard_map
+
+        return moe_apply_shard_map(params, x, cfg, quant)
     return _moe_apply_pjit(params, x, cfg, quant)
 
 
 def _moe_apply_pjit(params, x, cfg, quant):
     mo, d = cfg.moe, cfg.d_model
     k, e_pad = mo.top_k, _n_experts_padded(mo)
+    sh = shard_info()
+    mesh = None if sh is None else sh.mesh
     b, s, _ = x.shape
-    t = b * s
-    xf = x.reshape(t, d)
+    # the layer is a function of the global batch: where the data axes
+    # split it, every replica gathers it whole (and keeps its own rows)
+    data_axes = () if sh is None else sh.data_axes
+    x_all = collectives.gather(x, mesh, data_axes, dim=0, sum_grad=True)
+    t = x_all.shape[0] * s
+    xf = x_all.reshape(t, d)
 
     gates, idx, aux = _route(params, xf, mo)
 
     # ---- slot assignment: rank of each (token, j) within its expert ----
     _, _, dest, cap = _assign(idx, mo, t)
 
-    # ---- dispatch (scatter) ----
-    src = xf.repeat_interleave(k, dim=0)  # (t*k, d) token rows per assignment
-    buf = torch.zeros((e_pad * cap + 1, d), dtype=x.dtype, device=x.device)
-    buf = buf.index_put((dest,), src)
-    xd = buf[: e_pad * cap].reshape(e_pad, cap, d)
-
-    yd = _expert_ffn(xd, params, mo, d, quant)
+    # ---- dispatch (scatter), this rank's experts, the experts' outputs ----
+    xd = _dispatch(xf, dest, e_pad, cap, k)
+    e_here = next(iter(params["w_gate"].values())).shape[0]
+    if e_here == e_pad:  # the stacks are whole here
+        yd = _expert_ffn(xd, params, mo, d, quant)
+    else:  # split on E over 'model'
+        if sh is None or e_here * sh.model != e_pad:
+            raise ValueError(f"an expert stack of {e_pad} holds {e_here} on this "
+                             "rank; the model axis has "
+                             f"{1 if sh is None else sh.model} ranks")
+        xd = collectives.scatter(xd, mesh, sh.axis, dim=0)
+        yd = collectives.gather(_expert_ffn(xd, params, mo, d, quant), mesh,
+                                sh.axis, dim=0)
 
     # ---- combine (gather) ----
-    ybuf = torch.cat([yd.reshape(e_pad * cap, d),
-                      torch.zeros((1, d), dtype=yd.dtype, device=yd.device)])
-    per_assign = ybuf[dest]  # (t*k, d); dropped slots hit the zero pad row
-    per_assign = per_assign * gates.reshape(-1)[:, None].to(per_assign.dtype)
-    y = per_assign.reshape(t, k, d).sum(1)
-    return y.reshape(b, s, d).to(x.dtype), aux
+    y = _combine(yd, dest, gates, k).reshape(-1, s, d)
+    if y.shape[0] != b:  # this replica's rows
+        i = mesh.axis_index(data_axes)
+        y = y[i * b:(i + 1) * b]
+    return y.to(x.dtype), aux

@@ -19,7 +19,11 @@ rtol 1e-4 / atol 1e-5, trainables 5e-3; the port's 1×1 run matches the JAX
 package's to 2e-3, tests/test_torch_train.py); tokens are exact.
 """
 import math
+import os
+import subprocess
+import sys
 import time
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -28,6 +32,7 @@ import pytest
 import torch
 from jax.sharding import AxisType
 
+import jax_moe_mesh_ref
 import torch_dist_ranks
 from repro.configs import ShapeCfg as JaxShapeCfg
 from repro.configs import get_config as jax_get_config
@@ -41,6 +46,7 @@ from repro.kernels import dispatch as jax_dispatch
 from repro.launch.serve import serve_batch as jax_serve_batch
 from repro.launch.train import run_training as jax_run_training
 from repro.models import model_init as jax_model_init
+from repro.models import moe as jax_moe
 from repro.models import split_tree
 from repro.optim import compress as jax_compress
 from repro.robustness import FaultPlan as JaxFaultPlan
@@ -49,11 +55,12 @@ from repro_torch.convert import _tensor, from_jax_params
 from repro_torch.core import QuantSpec
 from repro_torch.distributed import desync, sharding
 from repro_torch.kernels import dispatch
+from repro_torch.launch.engine import Request
 from repro_torch.launch.mesh import Mesh, make_abstract_mesh, make_host_mesh
 from repro_torch.launch.ranks import run_ranks
 from repro_torch.launch.serve import serve_batch
 from repro_torch.launch.train import run_training
-from repro_torch.models import forward_prefill, model_init
+from repro_torch.models import forward_prefill, model_init, moe
 from repro_torch.optim import compress
 from repro_torch.robustness import FaultPlan
 
@@ -262,10 +269,57 @@ def test_shard_scope_nests_and_turns_off():
     assert dispatch.shard_info() is None
 
 
-@pytest.mark.parametrize("arch", ["minicpm3-4b", "phi3.5-moe-42b-a6.6b",
+@pytest.mark.parametrize("e_pad", [4, 6, 16, 384])
+@pytest.mark.parametrize("shape", [{"data": 1, "model": 2}, {"data": 2, "model": 2},
+                                   {"data": 2, "model": 1}, {"data": 4, "model": 3},
+                                   _PROD["16x16"], _PROD["2x16x16"]])
+def test_ep_axes_are_the_jax_ep_axes(shape, e_pad):
+    """The shard_map dispatch's expert-parallel axes: the widest of the JAX
+    package's candidates whose product divides the padded expert count."""
+    from repro.models.moe_shardmap import _ep_axes as jax_ep_axes
+
+    mesh = _ShapeMesh(shape)
+    assert sharding.ep_axes(mesh, e_pad) == jax_ep_axes(mesh, e_pad)
+
+
+@pytest.mark.parametrize("dispatch,shape,coords,entry,first", [
+    ("pjit", (1, 2), (0, 1), "model", 2),
+    ("pjit", (2, 2), (1, 0), "model", 0),
+    ("pjit", (1, 3), (0, 2), None, 0),               # 4 experts over 3: replicated
+    ("shard_map", (2, 2), (1, 0), ("data", "model"), 2),
+    ("shard_map", (2, 1), (1, 0), "data", 2),
+    ("shard_map", (1, 2), (0, 1), "model", 2)])
+def test_expert_stacks_split_on_their_dispatch_axes(dispatch, shape, coords, entry, first):
+    """The smoke phi3.5-moe's layout: every leaf of an expert stack on its
+    leading E axis over 'model' (pjit) or the expert-parallel axes
+    (shard_map), the router replicated; a rank's window is its row-major
+    index over those axes; the attention linears keep their row split
+    where the model axis divides their rows."""
+    cfg = _moe_cfg(dispatch)
+    params = model_init(cfg, 0, device="cpu")
+    d, m = shape
+    mesh = Mesh({"data": d, "model": m}, {"data": coords[0], "model": coords[1]})
+    specs = sharding.model_pspecs(params, cfg, mesh)
+    mlp = specs["layers"][0]["mlp"]
+    assert mlp["router"] == (None, None)
+    for name in ("w_gate", "w_up", "w_down"):
+        for key, spec in mlp[name].items():
+            assert spec == (entry,) + (None,) * (params["layers"][0]["mlp"][name][key].dim()
+                                                 - 1), (name, key)
+    rows = params["layers"][0]["mixer"]["wq"]["q"].shape[0]
+    wq = specs["layers"][0]["mixer"]["wq"]["q"]
+    assert wq == (("model", None) if m > 1 and rows % m == 0 else (None, None))
+    local = sharding.shard_tree(params, specs, mesh)
+    q = params["layers"][0]["mlp"]["w_up"]["q"]
+    n = 4 // (mesh.axis_size(sharding.spec_axes(entry)) if entry else 1)
+    assert torch.equal(local["layers"][0]["mlp"]["w_up"]["q"], q[first:first + n])
+
+
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "jamba-1.5-large-398b",
                                   "xlstm-1.3b"])
 def test_unsharded_families_raise_under_a_model_axis(arch):
-    """MLA, MoE and the recurrent mixers do not run silently unsharded."""
+    """MLA and the recurrent mixers do not run silently unsharded (jamba
+    for its Mamba layers: its MoE layers run on a mesh)."""
     cfg = smoke_variant(get_config(arch))
     mesh = Mesh({"data": 1, "model": 2}, {"data": 0, "model": 0})
     with dispatch.shard_scope(mesh), pytest.raises(NotImplementedError,
@@ -496,19 +550,184 @@ def refs(tmp_path_factory):
                           "gen": GEN_LEN, "seed": GEN_SEED}
     out["margins"] = {kv: _top2_margin(gp.with_(kv_cache_dtype=kv), gparams,
                                        out["tokens"][kv]) for kv in ("bf16", "int8")}
+    inputs["moe"], out["moe"] = _moe_refs(tmp_path_factory.mktemp("moe_ref"))
     out["inputs"] = inputs
     out["params"] = params
     out["tmp"] = tmp_path_factory
     return out
 
 
-def _top2_margin(cfg, params, tokens):
+# ---------------------------------------------------------------------------
+# the mixture-of-experts references
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "phi3.5-moe-42b-a6.6b"
+MOE_SHAPES = ((1, 2), (2, 2))
+C_AUX = 0.1  # the aux loss's weight in the layer's test loss Σ y·r + c·aux
+MOE_GEOM = dict(slots=2, total_pages=12, page_size=8, max_pages=4, chunk=16, burst=4)
+# serve seeds, picked by scanning 0-11: pjit's is tests/test_torch_moe.py's,
+# every top-2 gap of the one-rank run at least 5e-3 (GEN_SEED's least gap on
+# this model is 4.7e-3); shard_map's is the one whose window the local
+# capacity serves other tokens than one device does at 1×2 and 2×2 while
+# every top-2 gap of the mesh runs is at least 5e-3 (7.4e-3)
+MOE_GEN_SEED = {"pjit": 1, "shard_map": 5}
+
+
+def _moe_cfg(dispatch: str):
+    """The smoke MoE model under ``dispatch``."""
+    cfg = smoke_variant(get_config(MOE_ARCH)).with_(remat=False)
+    return cfg.with_(moe=cfg.moe.__class__(**{**cfg.moe.__dict__, "dispatch": dispatch}))
+
+
+def _moe_layer_cfg(dispatch: str):
+    """:func:`jax_moe_mesh_ref.layer_cfg`'s port counterpart: the f32 PEFT
+    path."""
+    cfg = _moe_cfg(dispatch)
+    return cfg.with_(quant=cfg.quant.with_(compute_dtype=torch.float32, mode="peft"))
+
+
+def _rank_tokens(x, d, m, data, model, dispatch):
+    """The token rows (t, dim) rank (data, model) of a d × m mesh routes:
+    the whole batch under pjit; under shard_map its data replica's rows
+    when 'data' splits the batch, then its slice over the replicated EP
+    axes (the JAX ``moe_apply_shard_map``'s ``rep_axes`` slice)."""
+    b, s, dim = x.shape
+    if dispatch == "pjit":
+        return x.reshape(-1, dim)
+    split = d > 1 and b % d == 0
+    rows = x[data * b // d:(data + 1) * b // d] if split else x
+    xf = rows.reshape(-1, dim)
+    n_rep = m if split else d * m       # EP over (data, model): 4 experts divide
+    idx = model if split else data * m + model
+    if xf.shape[0] % n_rep:
+        return xf
+    tl = xf.shape[0] // n_rep
+    return xf[idx * tl:(idx + 1) * tl]
+
+
+def _jax_routing(jparams, xf, mo):
+    """The JAX package's expert ids of ``xf``'s tokens and the assignments
+    its capacity drops."""
+    e, k = mo.num_experts, mo.top_k
+    _, idx, _ = jax_moe._route(jparams, jnp.asarray(xf), mo)
+    t = xf.shape[0]
+    ranks = jax_moe._ranks_within_expert(idx.reshape(-1), e, t * k)
+    cap = max(8, -(-int(mo.capacity_factor * t * k / e + 0.5) // 8) * 8)
+    return np.asarray(idx), int(np.sum(np.asarray(ranks) >= cap))
+
+
+def _moe_refs(tmp):
+    """The MoE rank bodies' inputs and their references.
+
+    The layer (the smoke phi3.5-moe's, 4 experts; the JAX package's init):
+    x (4, 64, 64) ~ N(0, 1) plus a ramp along the sequence towards router
+    row 0, so expert 0 takes more than its capacity (the global capacity
+    and each rank's local one drop assignments); the JAX single-device
+    ``moe_apply`` (pjit) and, in a fresh process with 4 forced host
+    devices, the JAX ``moe_apply`` under a 1×2 and a 2×2 mesh (shard_map),
+    each with the gradients of Σ y·r + 0.1·aux, all jitted once.  The model
+    (the port's init, seed 0): the port's one-rank serve_batch tokens and
+    their top-2 margins, the engine's records, 2 PEFT steps and one step's
+    first moments."""
+    jcfg = jax_moe_mesh_ref.layer_cfg(MOE_ARCH, "pjit")
+    jparams, _ = split_tree(jax.jit(lambda k: jax_moe.moe_init(k, jcfg, jcfg.quant))(
+        jax.random.PRNGKey(0)))
+    rng = np.random.default_rng(0)
+    u = np.asarray(jparams["router"])[0]
+    x = rng.standard_normal((4, 64, 64)).astype(np.float32)
+    x = (x + (u / np.linalg.norm(u))[None, None, :]
+         * np.linspace(0, 2, 64)[None, :, None]).astype(np.float32)
+    r = rng.standard_normal((4, 64, 64)).astype(np.float32)
+    flat = dict(jax_moe_mesh_ref._flatten(jparams))
+    floats = {k: v for k, v in flat.items() if jnp.issubdtype(v.dtype, jnp.floating)}
+
+    def loss(fl, xx):
+        p = jax_moe_mesh_ref._unflatten({**flat, **fl})
+        y, aux = jax_moe.moe_apply(p, xx, jcfg, jcfg.quant)
+        return jnp.sum(y.astype(jnp.float32) * r) + C_AUX * aux, (y, aux)
+
+    (_, (y, aux)), (gp, gx) = jax.jit(jax.value_and_grad(
+        loss, argnums=(0, 1), has_aux=True))(floats, jnp.asarray(x))
+    want = {"pjit": {"y": np.asarray(y), "aux": float(aux), "g/x": np.asarray(gx),
+                     **{f"g/{k}": np.asarray(v) for k, v in gp.items()}}}
+    src, dst = tmp / "in.npz", tmp / "out.npz"
+    np.savez(src, x=x, r=r, c_aux=np.float32(C_AUX), arch=MOE_ARCH,
+             shapes=np.array(MOE_SHAPES), serve_prompt=GEN_PROMPT, serve_gen=GEN_LEN,
+             serve_seed=MOE_GEN_SEED["shard_map"], **{f"p/{k}": np.asarray(v) for k, v in flat.items()})
+    repo = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(repo / "src"), JAX_PLATFORMS="cpu")
+    env.pop("XLA_FLAGS", None)
+    run = subprocess.run([sys.executable, str(repo / "tests" / "jax_moe_mesh_ref.py"),
+                          str(src), str(dst)], env=env, capture_output=True, text=True,
+                         timeout=600)
+    assert run.returncode == 0, run.stderr[-4000:]
+    got = np.load(dst)
+    jmodel, digest = jax_moe_mesh_ref.model_params(MOE_ARCH)
+    assert float(got["params_digest"]) == digest  # the same model in both processes
+    for d, m in MOE_SHAPES:
+        tag = f"{d}x{m}"
+        want[tag] = {k[len(tag) + 1:]: got[k] for k in got.files if k.startswith(tag + "/")}
+        want[tag]["aux"] = float(want[tag]["aux"])
+    # each rank's routing: the expert ids of its tokens and the drops
+    routing = {}
+    for d, m in MOE_SHAPES:
+        for disp in ("pjit", "shard_map"):
+            routing[(d, m, disp)] = [
+                _jax_routing(jparams, _rank_tokens(x, d, m, i // m, i % m, disp), jcfg.moe)
+                for i in range(d * m)]
+    layer = {"params": {k: v for k, v in _jax_layer_params(jparams).items()},
+             "x": x, "r": r, "c_aux": C_AUX}
+
+    # the model (the JAX package's init): the port's one-rank runs
+    cfg = _moe_cfg("pjit")
+    params = from_jax_params(jax.tree.map(np.asarray, jmodel), cfg, device="cpu")
+    with moe.routing_record() as rec:
+        tokens = serve_batch(cfg, batch=2, prompt_len=GEN_PROMPT, gen=GEN_LEN,
+                             seed=MOE_GEN_SEED["pjit"], params=_clone(params),
+                             device="cpu",
+                             kv_cache="bf16")["tokens"]
+    reqs = [Request(rid=i, tokens=np.random.default_rng(7 + i).integers(
+        0, cfg.vocab_size, (p,)).astype(np.int32), max_new=5)
+        for i, p in enumerate((10, 6, 13))]
+    engine = torch_dist_ranks.moe_engine(make_host_mesh(), cfg, params, reqs, MOE_GEOM)
+    shape = ShapeCfg("smoke", 32, 4, "train")
+    two = run_training(cfg, shape, steps=2, lr=1e-3, backend="ref", device="cpu",
+                       params=_clone(params), log_every=1000)
+    one = run_training(cfg, shape, steps=1, lr=1e-3, backend="ref", device="cpu",
+                       params=_clone(params), log_every=1000)
+    refs = {"layer": want, "routing": routing, "tokens": tokens,
+            "dropped": sum(rc["dropped"] for rc in rec),
+            "margin": _top2_margin(cfg.with_(kv_cache_dtype="bf16"), params, tokens,
+                                   MOE_GEN_SEED["pjit"]),
+            "tokens_sm_seed": serve_batch(
+                cfg, batch=2, prompt_len=GEN_PROMPT, gen=GEN_LEN,
+                seed=MOE_GEN_SEED["shard_map"], params=_clone(params), device="cpu",
+                kv_cache="bf16")["tokens"],
+            "engine": engine, "train": two["losses"], "grad_norms": two["grad_norms"],
+            "grads": {"norm": one["grad_norms"][0], "mu": {
+                k: v.detach().float().numpy() for k, v in one["opt"].mu.items()}}}
+    inputs = {"cfgs": {d: _moe_cfg(d) for d in ("pjit", "shard_map")},
+              "layer_cfgs": {d: _moe_layer_cfg(d) for d in ("pjit", "shard_map")},
+              "params": params, "layer": layer, "reqs": reqs, "geom": MOE_GEOM,
+              "generate": {"prompt_len": GEN_PROMPT, "gen": GEN_LEN, "seed": MOE_GEN_SEED}}
+    return inputs, refs
+
+
+def _jax_layer_params(jparams) -> dict:
+    """One MoE layer's JAX params as the port's (numpy leaves to tensors;
+    the expert stacks keep their leading axis)."""
+    return {k: ({kk: _tensor(np.asarray(vv), "cpu") for kk, vv in v.items()}
+                if isinstance(v, dict) else _tensor(np.asarray(v), "cpu"))
+            for k, v in jparams.items()}
+
+
+def _top2_margin(cfg, params, tokens, seed=GEN_SEED):
     """The least top-2 logit gap of the 1×1 run replayed teacher-forced on
-    its own greedy tokens (serve_batch's window for GEN_SEED)."""
+    its own greedy tokens (serve_batch's window for ``seed``)."""
     from repro_torch.models import cache_init, forward_decode
 
     capacity = GEN_PROMPT + GEN_LEN
-    prompts = np.random.default_rng(GEN_SEED).integers(0, cfg.vocab_size, (2, capacity))
+    prompts = np.random.default_rng(seed).integers(0, cfg.vocab_size, (2, capacity))
     col = torch.arange(capacity, dtype=torch.int32)[None]
     positions = torch.where(col < GEN_PROMPT, col, -1).expand(2, capacity)
     cache = cache_init(cfg, 2, capacity, device="cpu")
@@ -723,3 +942,168 @@ def test_sharded_checkpoint_round_trips_across_layouts(refs, ranks, tmp_path):
     assert got["data_step"] == 3
     for (path, want), (_, t) in zip(_leaves(params), _leaves(got["params"])):
         assert torch.equal(t, want), path
+
+
+# ---------------------------------------------------------------------------
+# all-to-all and mixture-of-experts on the mesh
+# ---------------------------------------------------------------------------
+
+
+def _a2a_want(members: list, me: int, shape: tuple, cot: bool) -> np.ndarray:
+    """numpy's tiled all-to-all (split 0, concat 1) over the ranks
+    ``members`` in order, as rank ``me`` receives it; with ``cot`` the
+    inverse exchange of the cotangents ``-a2a_input(rank, y.shape) / 7``
+    (split 1, concat 0): the gradient of the forward's input."""
+    n = len(members)
+    i = members.index(me)
+    if not cot:
+        pieces = [np.split(torch_dist_ranks.a2a_input(r, shape), n, axis=0)[i]
+                  for r in members]
+        return np.concatenate(pieces, axis=1)
+    yshape = (shape[0] // n, shape[1] * n) + shape[2:]
+    pieces = [np.split(-torch_dist_ranks.a2a_input(r, yshape) / 7, n, axis=1)[i]
+              for r in members]
+    return np.concatenate(pieces, axis=0)
+
+
+@pytest.mark.parametrize("axes", ["model", "mesh"])
+def test_all_to_all_is_numpys_tiled_split_and_concat(ranks, axes):
+    """``all_to_all`` over 'model' (each data row's ranks) and over the
+    whole mesh (ranks row-major over ('data', 'model')): piece j of every
+    rank's split dim to rank j, the pieces concatenated in rank order;
+    ``exchange``'s backward is the inverse all-to-all (the cotangents'
+    pieces back where they came from); one call each."""
+    shape = (8, 6, 4)
+    for r in ranks:
+        got = r["all_to_all"][axes]
+        rank = r["rank"]
+        if axes == "model":
+            members = [rank - rank % 2, rank - rank % 2 + 1]
+        else:
+            members = list(range(len(ranks)))
+        np.testing.assert_array_equal(got["y"], _a2a_want(members, rank, shape, False))
+        assert got["same"] and got["calls"] == 1
+        np.testing.assert_array_equal(got["grad"], _a2a_want(members, rank, shape, True))
+
+
+def _mesh_tag(ranks) -> tuple:
+    return (2, 2) if len(ranks) == 4 else (1, 2)
+
+
+@pytest.mark.parametrize("dispatch", ["pjit", "shard_map"])
+def test_moe_layer_on_the_mesh_matches_jax(refs, ranks, dispatch):
+    """The smoke phi3.5-moe's layer (4 experts, f32 PEFT path) on each rank's
+    rows and experts.  pjit: the JAX single-device ``moe_apply`` (the
+    global capacity, 49 assignments dropped); shard_map: the JAX
+    ``moe_apply`` under a JAX mesh of the same shape (local capacity: every
+    rank drops some).  y within 2e-5 and aux 1e-6; each rank's expert ids
+    and drops exactly the JAX routing of its tokens; the gradients of
+    Σ y·r + 0.1·aux (dx, the router, every expert stack's B and A) at the
+    backward tolerances (rtol 5e-4, atol 5e-5)."""
+    d, m = _mesh_tag(ranks)
+    want = refs["moe"]["layer"]["pjit" if dispatch == "pjit" else f"{d}x{m}"]
+    routing = refs["moe"]["routing"][(d, m, dispatch)]
+    assert all(drop > 0 for _, drop in routing)
+    for r in ranks:
+        got = r["moe"][dispatch]["layer"]
+        np.testing.assert_allclose(got["y"], want["y"], rtol=2e-5, atol=2e-5)
+        np.testing.assert_allclose(got["aux"], want["aux"], rtol=1e-6, atol=1e-6)
+        idx, drop = routing[r["rank"]]
+        assert len(got["idx"]) == 1
+        np.testing.assert_array_equal(got["idx"][0], idx)
+        assert got["dropped"] == [drop]
+        assert got["e_local"] == (2 if dispatch == "pjit" else 4 // (d * m))
+        np.testing.assert_allclose(got["dx"], want["g/x"], rtol=5e-4, atol=5e-5)
+        for k in ("router", "w_gate/b", "w_gate/a", "w_up/b", "w_up/a", "w_down/b",
+                  "w_down/a"):
+            np.testing.assert_allclose(got[k], want[f"g/{k}"], rtol=5e-4, atol=5e-5,
+                                       err_msg=k)
+
+
+@pytest.mark.parametrize("dispatch", ["pjit", "shard_map"])
+def test_moe_serve_tokens_match_single_rank(refs, ranks, dispatch):
+    """serve_batch of the smoke MoE model (the JAX package's init) on the
+    mesh.  pjit (experts split over 'model', the batch's tokens gathered
+    over 'data'): the greedy tokens and the dropped assignments (the
+    global capacity drops 14 in the prefill) are the port's one-rank
+    run's.  shard_map (the all-to-all over the expert-parallel axes, local
+    capacity): the tokens are the JAX ``serve_batch``'s under a JAX mesh of
+    the same shape, which differ from the one-device tokens
+    (MOE_GEN_SEED).  Every top-2 gap of the one-rank run and of the mesh
+    runs, replayed teacher-forced, is at least 5e-3."""
+    ref = refs["moe"]
+    assert ref["margin"] >= 5e-3, ref["margin"]
+    want = (ref["tokens"] if dispatch == "pjit"
+            else ref["layer"]["%dx%d" % _mesh_tag(ranks)]["tokens"])
+    if dispatch == "shard_map":
+        assert not np.array_equal(want, ref["tokens_sm_seed"])
+    for r in ranks:
+        got = r["moe"][dispatch]
+        assert got["margin"] >= 5e-3, got["margin"]
+        np.testing.assert_array_equal(got["tokens"], want)
+        if dispatch == "pjit":
+            assert got["dropped"] == ref["dropped"] > 0
+
+
+@pytest.mark.parametrize("dispatch", ["pjit", "shard_map"])
+def test_moe_engine_on_the_mesh_gives_one_ranks_records(refs, ranks, dispatch):
+    """The paged engine of the MoE model on the mesh (slot rows replicated
+    over 'data'): every record (rid, status, tokens) is the one-rank
+    engine's."""
+    want = refs["moe"]["engine"]
+    assert want["all_completed"]
+    for r in ranks:
+        assert r["moe"][dispatch]["engine"] == want
+
+
+@pytest.mark.parametrize("dispatch", ["pjit", "shard_map"])
+def test_moe_peft_steps_on_the_mesh(refs, ranks, dispatch):
+    """2 PEFT steps of the MoE model.  pjit: the losses are the one-rank
+    run's (rtol 1e-4, atol 1e-5) and one step's gradients too
+    (_gradients_match's bounds: a leaf summed twice, or an aux term counted
+    once a replica, shows as a relative error near 1).  shard_map: its
+    capacity and aux loss are local, so only finite losses and norms."""
+    ref = refs["moe"]
+    for r in ranks:
+        got = r["moe"][dispatch]
+        assert got["train"]["skipped_steps"] == 0
+        assert np.isfinite(got["train"]["losses"]).all()
+        assert np.isfinite(got["train"]["grad_norms"]).all()
+        if dispatch == "shard_map":
+            continue
+        np.testing.assert_allclose(got["train"]["losses"], ref["train"], rtol=1e-4,
+                                   atol=1e-5)
+        np.testing.assert_allclose(got["grads"]["grad_norms"], [ref["grads"]["norm"]],
+                                   rtol=1e-3)
+        np.testing.assert_allclose(got["train"]["grad_norms"], ref["grad_norms"],
+                                   rtol=1e-2)
+        for path, v in ref["grads"]["mu"].items():
+            err = (np.linalg.norm(got["grads"]["mu"][path] - v)
+                   / max(np.linalg.norm(v), 1e-30))
+            assert err <= 1e-2, (r["rank"], path, err)
+
+
+def test_moe_desync_digest_with_experts_split_over_data(ranks):
+    """shard_map at data × 1 splits the experts over 'data': the replicas'
+    expert leaves differ and their digest is summed over the axis, so no
+    desync is reported; the injected one is detected and rolled back."""
+    for r in ranks:
+        clean, d = r["moe"]["desync_clean"], r["moe"]["desync"]
+        assert clean["status"] == "complete" and clean["desyncs_detected"] == 0
+        assert d["status"] == "complete" and len(d["losses"]) == 3
+        assert d["desyncs_detected"] == 1 and d["desync_rollbacks"] == 1
+        assert d["final_mesh"] == {"data": len(ranks), "model": 1}
+
+
+def test_moe_checkpoint_round_trips_across_dispatch_layouts(ranks):
+    """The MoE model saved a shard a file at one dispatch's layout (pjit
+    1×2, experts on 'model'; shard_map 2×2, experts on ('data', 'model'))
+    and restored at the other's (shard_map 2×1; pjit 1×2) and on one rank:
+    every window byte for byte; spec.json records the expert split."""
+    res = ranks[0]["moe"]["ckpt"]
+    assert all(v for k, v in res.items() if k != "pspecs"), res
+    want = ("PartitionSpec('model', None, None)" if len(ranks) == 2
+            else "PartitionSpec(('data', 'model'), None, None)")
+    assert want in res["pspecs"]
+    if len(ranks) == 4:
+        assert ranks[2]["moe"]["ckpt"]["pjit 1x2"] is None

@@ -40,6 +40,7 @@ from repro_torch.launch.engine import Request
 from repro_torch.launch.mesh import shrink_shape
 from repro_torch.launch.ranks import run_ranks
 from repro_torch.launch.train import run_training
+from repro_torch.models import model_init as port_model_init
 
 STEPS = 6
 GEOM = dict(slots=2, total_pages=12, page_size=8, max_pages=4, chunk=16, burst=4)
@@ -134,7 +135,17 @@ def port_inputs(jax_side, tmp_path_factory):
             "straggler_plan": STRAGGLERS, "mesh_geom": MESH_GEOM, "mesh_drills": drills,
             "train_cfg": tcfg, "train_shape": ShapeCfg("t", 32, 4, "train"),
             "train_params": from_jax_params(jax_side["train_params"], tcfg, device="cpu"),
-            "steps": STEPS, "dir": str(tmp_path_factory.mktemp("elastic"))}
+            "steps": STEPS, "dir": str(tmp_path_factory.mktemp("elastic")),
+            "moe": _moe_inputs()}
+
+
+def _moe_inputs() -> dict:
+    """The shard_map MoE engine's drill: the smoke phi3.5-moe (4 experts,
+    the port's init) with an int8 pool, the elastic trace and geometry."""
+    cfg = smoke_variant(get_config("phi3.5-moe-42b-a6.6b")).with_(kv_cache_dtype="int8")
+    cfg = cfg.with_(moe=cfg.moe.__class__(**{**cfg.moe.__dict__, "dispatch": "shard_map"}))
+    return {"cfg": cfg, "params": port_model_init(cfg, 0, device="cpu"), "geom": GEOM,
+            "reqs": _ereqs(Request, cfg, [10, 6, 13], [5, 5, 5])}
 
 
 @pytest.fixture(scope="module")
@@ -237,6 +248,29 @@ def test_engine_device_loss_rebuilds_with_the_oracle_tokens(ranks, jax_side, dri
         assert g["lost"] and g["lost_devices"] == lost and not g["all_completed"]
         assert g["mesh_rebuilds"] == 0
     assert all(r[drill] is None for r in ranks[old:])
+
+
+def test_moe_engine_device_loss_rebuilds_on_the_shrunk_mesh(ranks):
+    """The shard_map MoE engine at 2×2 (its 4 experts one a rank over
+    ('data', 'model')) loses a device at tick 3: the lost ranks hand their
+    expert shards over, the survivors re-cut them for 1×2 (the
+    expert-parallel axes recomputed: 2 experts a rank) and recompute every
+    in-flight request; every record's tokens equal the same trace's on a
+    fresh 1×2 mesh."""
+    clean = _members(ranks, "moe_clean_1x2", 2)
+    _same_schedule(clean)
+    assert clean[0]["all_completed"] and clean[0]["e_local"] == 2
+    got = [r["moe_loss_2x2"] for r in ranks]
+    survivors, gone = got[:2], got[2:]
+    _same_schedule([{k: v for k, v in st.items() if k != "e_local"} for st in survivors])
+    st = survivors[0]
+    assert st["all_completed"], st["statuses"]
+    assert (st["mesh_rebuilds"], st["lost_devices"], st["resharded_restores"]) == (1, 2, 1)
+    assert st["final_mesh"] == {"data": 1, "model": 2} and st["page_audit"]["ok"]
+    assert all(s["e_local"] == 2 for s in survivors)
+    assert _tokens(st) == _tokens(clean[0])
+    for g in gone:
+        assert g["lost"] and g["e_local"] is None and not g["all_completed"]
 
 
 def test_engine_rebuilds_at_most_max_mesh_rebuilds(ranks, jax_side):

@@ -143,7 +143,8 @@ def test_unported_families_and_dispatch_raise():
     """Every registered family builds (the ssm and hybrid ones since their
     slice); an unknown family or mixer kind raises at config construction;
     the paged pool refuses recurrent mixers as the JAX one does; the
-    shard_map dispatch raises."""
+    shard_map dispatch without a mesh is the pjit one bit for bit (the JAX
+    ``moe_apply_shard_map``'s no-mesh path)."""
     from repro_torch.configs import MambaCfg
     from repro_torch.models import model_init, paged_cache_init
 
@@ -160,8 +161,13 @@ def test_unported_families_and_dispatch_raise():
         paged_cache_init(hybrid, 4, 8, device="cpu")
     sm = cfg.with_(moe=cfg.moe.__class__(**{**cfg.moe.__dict__,
                                             "dispatch": "shard_map"}))
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        moe.moe_apply({}, torch.zeros((1, 2, cfg.d_model)), sm, sm.quant)
+    _, _, pcfg, params = _models("phi3.5-moe-42b-a6.6b")
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (2, 16, cfg.d_model)).astype(np.float32)).to(torch.bfloat16)
+    mlp = params["layers"][0]["mlp"]
+    y_sm, aux_sm = moe.moe_apply(mlp, x, sm, sm.quant)
+    y, aux = moe.moe_apply(mlp, x, pcfg, pcfg.quant)
+    assert torch.equal(y_sm, y) and torch.equal(aux_sm, aux)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

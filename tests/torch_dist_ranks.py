@@ -18,7 +18,12 @@ from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import ShapeCfg
 from repro_torch.core.lords import QuantSpec
 from repro_torch.distributed import collectives
-from repro_torch.distributed.sharding import execution_pspecs, shard_tree
+from repro_torch.distributed.sharding import (
+    execution_pspecs,
+    model_pspecs,
+    shard_tree,
+    spec_axes,
+)
 from repro_torch.kernels import dispatch
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.serve import serve_batch
@@ -106,6 +111,94 @@ def linear_backward(mesh, case) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# all-to-all over one axis and over the mesh
+# ---------------------------------------------------------------------------
+
+
+def a2a_input(rank: int, shape=(8, 6, 4)) -> np.ndarray:
+    """Rank ``rank``'s input of the all-to-all checks, of ``shape``."""
+    return (1000.0 * rank + np.arange(np.prod(shape))).reshape(shape).astype(np.float32)
+
+
+def all_to_all_checks(mesh) -> dict:
+    """``all_to_all`` (split 0, concat 1) over 'model' and over every axis
+    of the mesh, and the backward of ``exchange`` under the cotangent
+    ``-a2a_input(rank, y.shape) / 7``."""
+    x = torch.from_numpy(a2a_input(mesh.rank))
+    out = {}
+    for name, axes in (("model", "model"), ("mesh", mesh.axis_names)):
+        before = collectives.all_to_all.calls
+        y = collectives.all_to_all(x, mesh, axes, 0, 1)
+        calls = collectives.all_to_all.calls - before
+        leaf = x.clone().requires_grad_()
+        yy = collectives.exchange(leaf, mesh, axes, 0, 1)
+        cot = torch.from_numpy(-a2a_input(mesh.rank, tuple(yy.shape)) / 7)
+        (gx,) = torch.autograd.grad(yy, leaf, cot)
+        out[name] = {"y": y.numpy(), "same": torch.equal(yy.detach(), y),
+                     "grad": gx.numpy(), "calls": calls}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# one mixture-of-experts layer: both dispatches, forward and backward
+# ---------------------------------------------------------------------------
+
+
+def _gather_leaf(t: torch.Tensor, mesh, spec) -> torch.Tensor:
+    """A leaf's window gathered whole over the axes its spec splits it
+    along."""
+    for dim, entry in enumerate(spec):
+        axes = tuple(a for a in spec_axes(entry) if mesh.shape.get(a, 1) > 1)
+        if axes:
+            t = collectives.all_gather(t.contiguous(), mesh, axes, dim=dim)
+    return t
+
+
+def moe_layer(mesh, case) -> dict:
+    """``moe_apply`` on this rank's rows and experts under ``case["cfg"]``'s
+    dispatch: y and aux, the routing record, and the gradients of
+    Σ y·r + c_aux·aux (each rank's share: its rows' term and c_aux / the
+    data replicas of aux; the parameter gradients summed over the data
+    axes, as the train step sums them, except a leaf split over one),
+    everything gathered whole."""
+    from repro_torch.models import moe
+
+    cfg = case["cfg"]
+    whole = _clone(case["params"])
+    specs = model_pspecs(whole, cfg, mesh)
+    local = shard_tree(whole, specs, mesh)
+    x = torch.from_numpy(np.array(case["x"]))
+    r = torch.from_numpy(np.array(case["r"]))
+    rows, split = data_rows(mesh, x.shape[0])
+    x, r = x[rows].contiguous().requires_grad_(), r[rows]
+    paths = [(name, key) for name in ("w_gate", "w_up", "w_down")
+             for key in local[name] if local[name][key].is_floating_point()]
+    leaves = [local["router"].requires_grad_()] + [
+        local[n][k].requires_grad_() for n, k in paths]
+    with dispatch.shard_scope(mesh, tokens_split=split) as sh, \
+            moe.routing_record() as rec:
+        y, aux = moe.moe_apply(local, x, cfg, cfg.quant)
+        n_split = mesh.axis_size(sh.data_axes)
+        loss = (y.to(torch.float32) * r).sum() + case["c_aux"] / n_split * aux
+        grads = torch.autograd.grad(loss, [x] + leaves)
+    out = {"y": _np(_whole(y.detach(), mesh, split, False)), "aux": float(aux.detach()),
+           "dx": _np(_whole(grads[0], mesh, split, False)),
+           "idx": [rc["idx"].numpy() for rc in rec],
+           "dropped": [rc["dropped"] for rc in rec],
+           "capacity": [rc["capacity"] for rc in rec],
+           "e_local": local["w_gate"]["q"].shape[0]}
+    specs_g = [specs["router"]] + [specs[n][k] for n, k in paths]
+    named = [("router",)] + [(n, k) for n, k in paths]
+    for key, g, spec in zip(named, grads[1:], specs_g):
+        axes = {a for e in spec for a in spec_axes(e)}
+        g = g.to(torch.float32)
+        if split and not axes & set(sh.data_axes):
+            g = collectives.all_reduce(g, mesh, sh.data_axes)
+        out["/".join(key)] = _np(_gather_leaf(g, mesh, spec))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # a model: training steps, generation, desync, checkpoints
 # ---------------------------------------------------------------------------
 
@@ -116,16 +209,14 @@ def _gather_trainable(trainable: dict, mesh, specs) -> dict:
         node = specs
         for key in path:
             node = node[key]
-        if any(e is not None for e in node):
-            t = collectives.all_gather(t.contiguous(), mesh, "model", dim=0)
-        out[path] = _np(t)
+        out[path] = _np(_gather_leaf(t, mesh, node))
     return out
 
 
 def train(mesh, cfg, params, steps, lr, **kw) -> dict:
     shape = ShapeCfg("smoke", 32, 4, "train")
     whole = _clone(params)
-    specs = execution_pspecs(whole, cfg.quant, mesh)
+    specs = model_pspecs(whole, cfg, mesh)
     out = run_training(cfg, shape, steps=steps, lr=lr, backend="ref",
                        device="cpu", params=whole, log_every=1000, mesh=mesh, **kw)
     res = {k: out[k] for k in ("losses", "grad_norms", "status", "desyncs_detected",
@@ -140,6 +231,36 @@ def generate(mesh, cfg, params, kv, prompt_len, gen, seed) -> np.ndarray:
                       params=_clone(params), device="cpu", kv_cache=kv,
                       mesh=mesh)
     return out["tokens"]
+
+
+def mesh_margin(mesh, cfg, params, tokens, prompt_len, gen, seed) -> float:
+    """The least top-2 logit gap of serve_batch's run on ``mesh`` replayed
+    teacher-forced on its greedy ``tokens`` (the window of ``seed``; bf16
+    cache), over every row."""
+    from repro_torch.models import cache_init, forward_decode, forward_prefill
+
+    capacity = prompt_len + gen
+    b = tokens.shape[0]
+    prompts = np.random.default_rng(seed).integers(0, cfg.vocab_size, (b, capacity))
+    rows, split = data_rows(mesh, b)
+    n = rows.stop - rows.start
+    local = shard_tree(_clone(params), model_pspecs(params, cfg, mesh), mesh)
+    col = torch.arange(capacity, dtype=torch.int32)[None]
+    positions = torch.where(col < prompt_len, col, -1).expand(n, capacity)
+    gaps = []
+    with torch.inference_mode(), dispatch.shard_scope(mesh, tokens_split=split):
+        cache = cache_init(cfg, n, capacity, device="cpu")
+        lg, _ = forward_prefill(local, cfg, {"tokens": torch.from_numpy(prompts[rows])},
+                                cache, positions)
+        for step in range(gen):
+            top = torch.topk(lg[:, -1, : cfg.vocab_size].float(), 2).values
+            gaps.append(float((top[:, 0] - top[:, 1]).min()))
+            if step + 1 < gen:
+                tok = torch.from_numpy(tokens[rows, step].astype(np.int64))
+                pos = torch.full((n,), prompt_len + step, dtype=torch.int32)
+                lg, _ = forward_decode(local, cfg, {"tokens": tok}, cache, pos)
+    worst = torch.tensor([min(gaps)])
+    return float(collectives.all_gather(worst, mesh, mesh.axis_names, dim=0).min())
 
 
 def paged(mesh, cfg, params, kv) -> dict:
@@ -188,19 +309,25 @@ def _flat(tree, prefix=()):
         yield prefix, tree
 
 
-def checkpoints(save_mesh, restore_meshes, cfg, params, directory) -> dict:
+def checkpoints(save_mesh, restore_meshes, cfg, params, directory,
+                restore_cfgs=None) -> dict:
     """Save the model's params at ``save_mesh``'s layout (a shard a file),
-    then restore onto each of ``restore_meshes``' layouts and the saving
-    one; whether every window equals the whole params' bytes."""
+    then restore onto each of ``restore_meshes``' layouts (under
+    ``restore_cfgs[name]``, default ``cfg``: a MoE model's dispatch sets
+    its experts' layout) and the saving one; whether every window equals
+    the whole params' bytes (None for a mesh this rank is outside)."""
     whole = params
     ck = Checkpointer(directory)
-    specs = execution_pspecs(whole, cfg.quant, save_mesh)
+    specs = model_pspecs(whole, cfg, save_mesh)
     local = shard_tree(whole, specs, save_mesh)
     ck.save(3, {"params": local, "data_step": 3}, mesh=save_mesh,
             specs={"params": specs, "data_step": None})
     out = {"pspecs": ck.saved_pspecs()}
     for name, mesh in [("save", save_mesh)] + list(restore_meshes.items()):
-        sp = execution_pspecs(whole, cfg.quant, mesh)
+        if not mesh.member:
+            out[name] = None
+            continue
+        sp = model_pspecs(whole, (restore_cfgs or {}).get(name, cfg), mesh)
         want = shard_tree(whole, sp, mesh)
         got = ck.restore({"params": want, "data_step": 0}, mesh=mesh,
                          specs={"params": sp, "data_step": None})
@@ -209,6 +336,76 @@ def checkpoints(save_mesh, restore_meshes, cfg, params, directory) -> dict:
         flag = torch.tensor([int(ok)])
         collectives.all_reduce(flag, mesh, mesh.axis_names)
         out[name] = int(flag) == mesh.size
+    return out
+
+
+# ---------------------------------------------------------------------------
+# a mixture-of-experts model on the mesh, under both dispatches
+# ---------------------------------------------------------------------------
+
+
+def moe_engine(mesh, cfg, params, reqs, geom):
+    """The paged engine of ``cfg`` on ``mesh``: every record's (rid,
+    status, tokens) and whether all completed (None outside the mesh)."""
+    from repro_torch.launch.engine import Engine
+
+    if not mesh.member:
+        return None
+    eng = Engine(cfg, mesh=mesh, params=_clone(params), device="cpu", backend="ref",
+                 **geom)
+    st = eng.run(reqs, timeout_s=600)
+    return {"records": [(r["rid"], r["status"], [int(t) for t in r["tokens"]])
+                        for r in st["records"]],
+            "all_completed": st["all_completed"]}
+
+
+def moe_model(mesh, m: dict) -> dict:
+    """Both dispatches of the smoke MoE model on ``mesh``: the layer
+    against the JAX references (:func:`moe_layer`), serve_batch tokens
+    with the assignments dropped, the engine's records, PEFT steps, the
+    desync drill of the shard_map layout at data × 1 (its experts split
+    over the data axis) with and without an injected desync, and a
+    checkpoint saved at one dispatch's layout and restored at the
+    other's and at one rank."""
+    from repro_torch.models import moe
+
+    out = {}
+    world = mesh.size
+    for disp, cfg in m["cfgs"].items():
+        res = {"layer": moe_layer(mesh, dict(m["layer"], cfg=m["layer_cfgs"][disp]))}
+        with moe.routing_record() as rec:
+            g = m["generate"]
+            res["tokens"] = generate(mesh, cfg, m["params"], "bf16", g["prompt_len"],
+                                     g["gen"], g["seed"][disp])
+        res["dropped"] = sum(r["dropped"] for r in rec)
+        res["margin"] = mesh_margin(mesh, cfg.with_(kv_cache_dtype="bf16"), m["params"],
+                                    res["tokens"], g["prompt_len"], g["gen"],
+                                    g["seed"][disp])
+        res["engine"] = moe_engine(mesh, cfg, m["params"], m["reqs"], m["geom"])
+        res["train"] = train(mesh, cfg, m["params"], steps=2, lr=1e-3)
+        res["grads"] = train(mesh, cfg, m["params"], steps=1, lr=1e-3)
+        out[disp] = res
+    sm = m["cfgs"]["shard_map"]
+    mesh_d1 = make_host_mesh(world, 1)  # experts over the data axis
+    plan = {"dist.replica_desync": {"prob": 1.0, "max_fires": 1, "only_index": 1}}
+    out["desync_clean"] = train(mesh_d1, sm, m["params"], steps=2, lr=1e-3,
+                                desync_every=1)
+    out["desync"] = train(mesh_d1, sm, m["params"], steps=3, lr=1e-3, desync_every=1,
+                          ckpt_dir=os.path.join(m["dir"], "moe_desync"), ckpt_every=1,
+                          faults=FaultPlan(0, plan))
+    # 1x2: saved at pjit 1x2, restored at shard_map 2x1 and one rank;
+    # 2x2: saved at shard_map 2x2, restored at pjit 1x2 and one rank
+    pj = m["cfgs"]["pjit"]
+    if world == 2:
+        save = (mesh, pj)
+        others = {"shard_map 2x1": (mesh_d1, sm)}
+    else:
+        save = (mesh, sm)
+        others = {"pjit 1x2": (make_host_mesh(1, 2), pj)}
+    others["one rank"] = (make_host_mesh(1, 1), pj)
+    out["ckpt"] = checkpoints(save[0], {k: v[0] for k, v in others.items()}, save[1],
+                              m["params"], os.path.join(m["dir"], "moe_ckpt"),
+                              restore_cfgs={k: v[1] for k, v in others.items()})
     return out
 
 
@@ -260,6 +457,8 @@ def run_all(shape: dict, inputs: dict) -> dict:
               for d, m in inputs["restore_shapes"]}
     out["ckpt"] = checkpoints(mesh, others, cfg, params,
                               os.path.join(base, "ckpt"))
+    out["all_to_all"] = all_to_all_checks(mesh)
+    out["moe"] = moe_model(mesh, dict(inputs["moe"], dir=base))
     return out
 
 

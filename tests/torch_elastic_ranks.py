@@ -96,6 +96,22 @@ def engine_drill(shape, inputs, plan=None, **kw):
     return _stats(eng.run(inputs["reqs"], timeout_s=600))
 
 
+def moe_engine_drill(shape, inputs, plan=None):
+    """The shard_map MoE engine (experts over the expert-parallel axes)
+    on a fresh ``shape`` mesh under ``plan``: its stats and each expert
+    stack's experts on this rank at the end; None outside the mesh."""
+    mesh = make_host_mesh(*shape)
+    if not mesh.member:
+        return None
+    m = inputs["moe"]
+    eng = Engine(m["cfg"], mesh=mesh, params=_clone(m["params"]), device="cpu",
+                 backend="ref", faults=FaultPlan(0, plan) if plan else None, **m["geom"])
+    out = _stats(eng.run(m["reqs"], timeout_s=600))
+    out["e_local"] = (None if eng.params is None else
+                      eng.params["layers"][0]["mlp"]["w_gate"]["q"].shape[0])
+    return out
+
+
 def mesh_engine_drills(inputs):
     """The JAX package's mesh-engine drills at 1×2 (its ``hardened``
     geometry): a deadline cancel and a preemption drain under eviction,
@@ -182,4 +198,6 @@ def run_drills(inputs) -> dict:
                                        ckpt_every=2)
         out["train_1x2"] = train_drill((1, 2), inputs)
         out["ckpt_1x2"] = checkpoint_drill(inputs, os.path.join(base, "ckpt"))
+        out["moe_clean_1x2"] = moe_engine_drill((1, 2), inputs)
+        out["moe_loss_2x2"] = moe_engine_drill((2, 2), inputs, loss)
     return out
