@@ -29,6 +29,20 @@ windows (:func:`shard_tree`).  Expert stacks split on their leading E axis
 instead: over 'model' for the ``pjit`` dispatch (the weight rule
 ``expert``), over the expert-parallel axes of :func:`ep_axes` for the
 ``shard_map`` one (:func:`model_pspecs` picks them from the config).
+
+MLA's and the recurrent mixers' projections take the same row split: MLA's
+q_up, k_up and v_up rows are head-major, so a rank's rows are its heads;
+Mamba's in_proj rows straddle z and u and are gathered at use.  Their dense
+leaves (the norms, ``conv_w`` / ``conv_b``, ``dt_proj``, ``dt_bias``,
+``a_log``, ``d_skip``, the gates ``w_i`` / ``w_f`` / ``b_i`` / ``b_f``, ``r``
+and the sLSTM biases) stay replicated here, though the JAX weight rules put
+``mamba_in``, ``mlstm_in`` and ``slstm_in`` on 'model': a rank takes its
+window of them at use (:func:`repro_torch.models.common.window`, whose
+backward all-gathers), so every rank holds each leaf whole with its whole
+gradient, and QAT's update, the desync digest, the checkpointer and the
+elastic rebuild treat them as any replicated leaf.  What that costs is
+memory: jamba's replicated f32 leaves are 35 MB a Mamba layer (``dt_proj``,
+16384 × 512, most of it) beside 206 MB of its projections' nf4 codes.
 """
 from __future__ import annotations
 
@@ -41,7 +55,8 @@ from repro_torch.distributed import collectives
 
 __all__ = ["PartitionSpec", "ShardingPolicy", "make_rules", "resolve_spec",
            "tree_pspecs", "estimate_quantized_gb", "row_shard", "param_axes",
-           "execution_pspecs", "model_pspecs", "ep_axes", "shard_tree", "gather_tree", "local_window", "spec_axes"]
+           "execution_pspecs", "model_pspecs", "ep_axes", "shard_tree", "gather_tree", "local_window", "spec_axes",
+           "Placed"]
 
 
 class PartitionSpec(tuple):
@@ -478,18 +493,45 @@ def local_window(shape, spec, mesh) -> list[tuple[int, int]]:
     return out
 
 
-def shard_tree(params, specs, mesh):
-    """``params`` with each tensor cut to this rank's window under its spec
-    in ``specs`` (a matching tree of :class:`PartitionSpec`), as its own
-    contiguous copy; replicated leaves are kept as they are."""
+class Placed(dict):
+    """A param tree :func:`shard_tree` cut to this rank's windows of
+    ``mesh``.  Cutting it again for the same mesh returns it as it is, as
+    ``jax.device_put`` returns arrays already in the layout: a caller may
+    hand ``serve_batch`` a model it placed itself, so a rank never holds a
+    whole copy of a model larger than its share.  The ``Engine`` and
+    ``run_training`` take whole params: their elastic rebuild reads the
+    layout's specs off the whole shapes."""
+
+    def __init__(self, tree: dict, mesh):
+        super().__init__(tree)
+        self.mesh = mesh
+
+    def __reduce__(self):  # pickled and copied as the plain dict (no mesh)
+        return dict, (dict(self),)
+
+
+def _cut(params, specs, mesh):
     if isinstance(params, dict):
-        return {k: shard_tree(v, specs[k], mesh) for k, v in params.items()}
+        return {k: _cut(v, specs[k], mesh) for k, v in params.items()}
     if isinstance(params, list):
-        return [shard_tree(v, s, mesh) for v, s in zip(params, specs)]
+        return [_cut(v, s, mesh) for v, s in zip(params, specs)]
     window = local_window(params.shape, specs, mesh)
     if all(a == 0 and b == d for (a, b), d in zip(window, params.shape)):
         return params
     return params[tuple(slice(a, b) for a, b in window)].clone()
+
+
+def shard_tree(params, specs, mesh):
+    """``params`` with each tensor cut to this rank's window under its spec
+    in ``specs`` (a matching tree of :class:`PartitionSpec`), as its own
+    contiguous copy; replicated leaves are kept as they are.  A whole dict
+    comes back :class:`Placed`; one already placed for ``mesh`` comes back
+    as it is."""
+    if isinstance(params, Placed) and params.mesh is mesh:
+        return params
+    if isinstance(params, dict):
+        return Placed(_cut(params, specs, mesh), mesh)
+    return _cut(params, specs, mesh)
 
 
 def gather_tree(params, specs, mesh):

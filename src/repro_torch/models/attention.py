@@ -34,6 +34,21 @@ values and run the flash prefill (hd = nope + rope, hd_v = v_head_dim);
 decode absorbs ``k_up`` into the query and ``v_up`` into the output, so it
 attends the latent cache directly (``qattention("mla_decode")`` on
 ``fused``; on ``ref`` the einsum body of the JAX package's portable path).
+
+MLA inside a shard scope runs head-sharded when the model axis divides
+``num_heads``.  q_down's and kv_down's split rows are gathered, so the q
+latent, ``q_norm``, the KV latent c, ``kv_norm`` and k_rope are whole on
+every rank.  q_up, k_up and v_up keep their split rows: the rows are
+head-major, so they are this rank's heads.  The shared k_rope feeds those
+heads only, and its cotangent is summed over the model axis.  Attention
+runs on this rank's heads: the flash prefill, and the absorbed decode with
+k_up and v_up dequantized from this rank's rows only.  The heads are
+gathered before wo, and wo's split rows after it, as for GQA.  The latent
+cache and pools hold no heads.  They are replicated over the model axis:
+every model rank writes the same latents, so an int8 latent's codes and
+scales are equal on every rank.  Where the model axis does not divide the
+heads, q_up, k_up and v_up are gathered to all heads and every rank
+attends them all.
 """
 from __future__ import annotations
 
@@ -51,10 +66,13 @@ from repro_torch.kernels.ref import gather_pool
 from repro_torch.core.lords import dequantize_weight
 from repro_torch.models.common import (
     apply_rope,
+    fan_out,
     gather_rows,
     kv_dequantize,
     kv_quantize,
     local_kv_heads,
+    local_rows,
+    model_split,
     qlinear_init,
     rmsnorm,
     rmsnorm_init,
@@ -399,22 +417,29 @@ def _mla_scale(cfg):
 
 
 def _mla_q(params, x, cfg, quant, positions):
-    """(q_nope (b,s,nh,nope), q_rope (b,s,nh,rope) rotated at positions)."""
+    """(q_nope (b,s,nh,nope), q_rope (b,s,nh,rope) rotated at positions):
+    this rank's heads when attention runs head-sharded.  q_down's rows are
+    gathered, so the q latent and ``q_norm`` are whole on every rank."""
     m, d, nh = cfg.mla, cfg.d_model, cfg.num_heads
     b, s, _ = x.shape
     qk = m.qk_nope_dim + m.qk_rope_dim
-    ql = qmatmul(params["q_down"], x, quant, m.q_lora_rank, d)
+    ql = gather_rows(qmatmul(params["q_down"], x, quant, m.q_lora_rank, d),
+                     m.q_lora_rank)
     ql = rmsnorm(params["q_norm"], ql, cfg.norm_eps)
-    q = qmatmul(params["q_up"], ql, quant, nh * qk, m.q_lora_rank)
-    q = q.reshape(b, s, nh, qk)
+    q = local_rows(qmatmul(params["q_up"], ql, quant, nh * qk, m.q_lora_rank),
+                   nh * qk, model_split(nh))
+    q = q.reshape(b, s, -1, qk)
     q_nope, q_rope = q[..., : m.qk_nope_dim], q[..., m.qk_nope_dim:]
     return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
 
 
 def _mla_latents(params, x, cfg, quant, positions):
-    """(c (b,s,kv_lora) normalized, k_rope (b,s,rope) rotated)."""
+    """(c (b,s,kv_lora) normalized, k_rope (b,s,rope) rotated), whole on
+    every rank: kv_down's rows are gathered first (the latents hold no
+    heads)."""
     m, d = cfg.mla, cfg.d_model
-    ckv = qmatmul(params["kv_down"], x, quant, m.kv_lora_rank + m.qk_rope_dim, d)
+    n = m.kv_lora_rank + m.qk_rope_dim
+    ckv = gather_rows(qmatmul(params["kv_down"], x, quant, n, d), n)
     c, k_rope = ckv[..., : m.kv_lora_rank], ckv[..., m.kv_lora_rank:]
     c = rmsnorm(params["kv_norm"], c, cfg.norm_eps)
     k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
@@ -423,24 +448,37 @@ def _mla_latents(params, x, cfg, quant, positions):
 
 def _mla_up(params, c, k_rope, cfg, quant):
     """Per-head keys (b,W,nh,nope+rope) and values (b,W,nh,v) of the
-    latents c (b,W,kv_lora) and the shared RoPE keys k_rope (b,W,rope)."""
+    latents c (b,W,kv_lora) and the shared RoPE keys k_rope (b,W,rope):
+    this rank's heads when attention runs head-sharded (k_up's and v_up's
+    rows are head-major; the shared k_rope then feeds this rank's heads
+    only, and its cotangent is summed over the model axis)."""
     m, nh = cfg.mla, cfg.num_heads
     b, w, _ = c.shape
-    k_nope = qmatmul(params["k_up"], c, quant, nh * m.qk_nope_dim,
-                     m.kv_lora_rank).reshape(b, w, nh, m.qk_nope_dim)
-    v = qmatmul(params["v_up"], c, quant, nh * m.v_head_dim,
-                m.kv_lora_rank).reshape(b, w, nh, m.v_head_dim)
-    k = torch.cat([k_nope, k_rope[:, :, None].expand(b, w, nh, m.qk_rope_dim)],
+    sh = model_split(nh)
+    k_nope = local_rows(qmatmul(params["k_up"], c, quant, nh * m.qk_nope_dim,
+                                m.kv_lora_rank), nh * m.qk_nope_dim, sh)
+    v = local_rows(qmatmul(params["v_up"], c, quant, nh * m.v_head_dim,
+                           m.kv_lora_rank), nh * m.v_head_dim, sh)
+    k_nope = k_nope.reshape(b, w, -1, m.qk_nope_dim)
+    v = v.reshape(b, w, -1, m.v_head_dim)
+    heads = k_nope.shape[2]
+    # the heads' cotangents of k_rope are summed in f32 (over the model axis
+    # too), then rounded once to its dtype, as one rank rounds their sum
+    k_rope = fan_out(k_rope.to(torch.float32), sh)[:, :, None]
+    k = torch.cat([k_nope, k_rope.expand(b, w, heads, m.qk_rope_dim).to(k_nope.dtype)],
                   dim=-1)
     return k, v
 
 
 def _mla_out(params, out, cfg, quant):
-    """The output projection of per-head values out (b, s, nh, v)."""
+    """The output projection of per-head values out (b, s, heads, v): the
+    heads are gathered first when they are this rank's, and wo's output
+    after it when the model axis splits its rows (as :func:`_gqa_out`)."""
     m, d, nh = cfg.mla, cfg.d_model, cfg.num_heads
     b, s = out.shape[:2]
-    return qmatmul(params["wo"], out.reshape(b, s, nh * m.v_head_dim), quant,
-                   d, nh * m.v_head_dim)
+    nv = nh * m.v_head_dim
+    out = gather_rows(out.reshape(b, s, -1), nv)
+    return gather_rows(qmatmul(params["wo"], out, quant, d, nv), d)
 
 
 def _mla_forward(params, x, cfg, quant, positions):
@@ -494,21 +532,30 @@ def mla_prefill(params, x, cfg, quant, positions, cache):
     return y, cache
 
 
+def _mla_up_weight(params, name, cfg, quant, n, dh):
+    """The dequantized weight of k_up or v_up as (heads, dh, kv_lora): this
+    rank's heads when attention runs head-sharded, all of them otherwise
+    (rows the model axis splits are then gathered)."""
+    w = dequantize_weight(params[name], quant)            # (rows, kv_lora)
+    w = local_rows(w.t(), n, model_split(cfg.num_heads)).t()
+    return w.reshape(-1, dh, cfg.mla.kv_lora_rank)
+
+
 def _mla_absorb_q(params, q_nope, cfg, quant):
-    """q_lat (b,1,nh,kv_lora) f32 = q_nope · W_kup, W_kup dequantized (as the
-    JAX package does at every step) and cast to q_nope's dtype."""
+    """q_lat (b,1,heads,kv_lora) f32 = q_nope · W_kup, W_kup dequantized (as
+    the JAX package does at every step) and cast to q_nope's dtype."""
     m, nh = cfg.mla, cfg.num_heads
-    w_kup = dequantize_weight(params["k_up"], quant)
-    w_kup = w_kup.reshape(nh, m.qk_nope_dim, m.kv_lora_rank)
+    w_kup = _mla_up_weight(params, "k_up", cfg, quant, nh * m.qk_nope_dim,
+                           m.qk_nope_dim)
     return _f32_dot("bthn,hnl->bthl", q_nope, w_kup.to(q_nope.dtype))
 
 
 def _mla_absorb_out(params, lat, x, cfg, quant):
-    """y (b,1,d) from the weighted latent lat (b,1,nh,kv_lora): · W_vupᵀ
+    """y (b,1,d) from the weighted latent lat (b,1,heads,kv_lora): · W_vupᵀ
     per head, then the output projection."""
     m, nh = cfg.mla, cfg.num_heads
-    w_vup = dequantize_weight(params["v_up"], quant)
-    w_vup = w_vup.reshape(nh, m.v_head_dim, m.kv_lora_rank)
+    w_vup = _mla_up_weight(params, "v_up", cfg, quant, nh * m.v_head_dim,
+                           m.v_head_dim)
     out = _f32_dot("bthl,hvl->bthv", lat.to(w_vup.dtype), w_vup)
     return _mla_out(params, out.to(x.dtype), cfg, quant)
 

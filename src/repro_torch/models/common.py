@@ -28,7 +28,10 @@ __all__ = [
     "kv_dequantize",
     "gather_rows",
     "local_kv_heads",
-    "check_sharded_family",
+    "model_split",
+    "window",
+    "fan_out",
+    "local_rows",
 ]
 
 
@@ -153,23 +156,43 @@ def local_kv_heads(cfg) -> int:
     return nkv
 
 
-def check_sharded_family(cfg) -> None:
-    """Raise for a model this slice does not run on a mesh: MLA and the
-    recurrent mixers under a model axis of more than one rank (ROADMAP
-    queue 1: their sharding, the JAX rules ``mamba_in``, ``mlstm_in`` and
-    ``slstm_in`` on 'model', comes in slice 19).  A mesh with model = 1
-    runs them data-parallel; mixture-of-experts layers run on every mesh
-    (:mod:`repro_torch.models.moe`, :mod:`repro_torch.models.moe_shardmap`)."""
+def model_split(n: int):
+    """The active :class:`repro_torch.kernels.dispatch.Shard` when its model
+    axis has more than one rank and divides ``n`` (a head count, or a
+    recurrence's channels): each rank then computes its own n / p of them.
+    None otherwise: the layer runs whole on every rank (the divisibility
+    fallback of :func:`repro_torch.kernels.dispatch.attn_shard`)."""
     sh = shard_info()
+    if sh is None or sh.model == 1 or n % sh.model:
+        return None
+    return sh
+
+
+def window(t: torch.Tensor, sh, dim: int = -1) -> torch.Tensor:
+    """This rank's piece along ``dim`` of a replicated ``t`` (a dense mixer
+    leaf, or an activation every rank holds whole), through
+    ``collectives.scatter``: its backward all-gathers, so a replicated
+    leaf's gradient is whole and equal on every model rank.  ``t`` itself
+    when ``sh`` is None."""
+    return t if sh is None else collectives.scatter(t, sh.mesh, sh.axis, dim)
+
+
+def fan_out(t: torch.Tensor, sh) -> torch.Tensor:
+    """A replicated ``t`` that feeds a rank-local computation other than a
+    window of it (rank-local gates, a scan over this rank's channels):
+    identity forward, its cotangent summed over the model axis, so what
+    is upstream of ``t`` again receives the whole cotangent."""
+    return t if sh is None else collectives.reduce_grad(t, sh.mesh, sh.axis)
+
+
+def local_rows(y: torch.Tensor, n: int, sh) -> torch.Tensor:
+    """A linear's output (..., n) as the layer computes on it: this rank's
+    (..., n / p) when ``sh`` splits the heads or channels (the rows the
+    dispatch returned, or the window of whole rows), whole otherwise.
+    :func:`gather_rows` is its inverse."""
     if sh is None:
-        return
-    kinds = set(cfg.layer_kinds())
-    if sh.model > 1 and (cfg.attn_kind == "mla"
-                         or any(m != "attn" for m, _ in kinds)):
-        raise NotImplementedError(
-            f"{cfg.name}: MLA and the recurrent mixers do not run with a model "
-            "axis of more than one rank yet (ROADMAP queue 1, slice 19); a mesh "
-            "with model = 1 runs them data-parallel")
+        return gather_rows(y, n)
+    return window(y, sh) if y.shape[-1] == n else y
 
 
 def rmsnorm_init(d, device=None):

@@ -30,13 +30,16 @@ them; here a Python loop walks the list.
 
 Inside a shard scope (:func:`repro_torch.kernels.dispatch.shard_scope`)
 every rank runs these on its own windows of the params and its rows of the
-batch: GQA and the dense MLP tensor-parallel over the model axis (see
-:mod:`repro_torch.models.attention`), the experts of a MoE layer split
-over the model axis or the expert-parallel axes (see
-:mod:`repro_torch.models.moe`), the loss a mean over every data replica's
-tokens; the embedding, norms and head are replicated.  Models this slice
-does not shard raise (:func:`repro_torch.models.common.
-check_sharded_family`).
+batch, for every family: GQA and MLA head-sharded over the model axis and
+the dense MLP tensor-parallel (see :mod:`repro_torch.models.attention`),
+Mamba channel-sharded and the mLSTM and sLSTM head-sharded (see
+:mod:`repro_torch.models.ssm`), the experts of a MoE layer split over the
+model axis or the expert-parallel axes (see :mod:`repro_torch.models.moe`),
+the loss a mean over every data replica's tokens; the embedding, norms,
+head and the dense mixer leaves are replicated.  Where the model axis does
+not divide a layer's heads or channels, that layer gathers its
+projections and runs whole on every rank.  Each mixer's output is whole
+on every model rank, so the residual stream is replicated.
 
 Caches and page pools are updated in place (see
 :mod:`repro_torch.models.attention` and :mod:`repro_torch.models.ssm`).  As
@@ -55,7 +58,6 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
 from repro_torch.models.common import (
-    check_sharded_family,
     dense_init,
     f32_matmul,
     f32_matmul_train,
@@ -248,7 +250,6 @@ def forward_train(params, cfg, batch, *, backend: str | None = None):
     labels = batch["labels"]
     b, s = labels.shape
     backend = dispatch.resolve_backend(backend, labels)
-    check_sharded_family(cfg)
     shard = dispatch.shard_info()
     positions = torch.arange(s, dtype=torch.int32,
                              device=labels.device)[None].expand(b, s)
@@ -307,7 +308,6 @@ def forward_prefill(params, cfg, batch, cache, positions=None):
     arange.  A recurrent layer runs its training path over the whole window
     and leaves its state as it was (the JAX package's ``_block_prefill``).
     """
-    check_sharded_family(cfg)
     x = _embed_in(params, cfg, batch)
     b, s = x.shape[:2]
     if positions is None:
@@ -337,7 +337,6 @@ def _step_in(params, cfg, batch):
 def forward_decode(params, cfg, batch, cache, pos):
     """One decode step.  batch: {"tokens": (b,)} or {"embeds": (b, 1, d)};
     pos (b,) int32."""
-    check_sharded_family(cfg)
     x = _step_in(params, cfg, batch)
     attn_decode = attn.mla_decode if _mla(cfg) else attn.gqa_decode
     for blk, (mixer, mlp), layer_cache in zip(params["layers"],
@@ -354,7 +353,6 @@ def forward_decode_paged(params, cfg, batch, pools, pt, pos):
     """One decode step against the page pools.  batch: {"tokens": (b,)} or
     {"embeds": (b, 1, d)}; pt (b, np) page table; pos (b,) int32 current
     positions."""
-    check_sharded_family(cfg)
     x = _step_in(params, cfg, batch)
     decode = attn.mla_decode_paged if _mla(cfg) else attn.gqa_decode_paged
     for blk, (_, mlp), pool in zip(params["layers"], _layer_kinds(cfg), pools):
@@ -371,7 +369,6 @@ def forward_prefill_chunk(params, cfg, batch, pools, pt, qpos, pos0):
     row); pos0 (b,) page-aligned chunk start.  Returns (logits (b, 1, Vp)
     f32 of each row's ``argmax(qpos)`` column, pools): meaningful for rows
     whose prompt ends in this chunk."""
-    check_sharded_family(cfg)
     x = _embed_in(params, cfg, batch)                      # (b, cs, d)
     chunk = attn.mla_prefill_chunk if _mla(cfg) else attn.gqa_prefill_chunk
     for blk, (_, mlp), pool in zip(params["layers"], _layer_kinds(cfg), pools):

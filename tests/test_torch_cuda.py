@@ -361,6 +361,44 @@ def test_mla_paged_decode_matches_plain(dev, kv, ps):
         rtol=0, atol=1e-4)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_mla_decode_kernels_at_a_shard_of_20_heads(dev, kv):
+    """Both MLA decode entries at 20 heads, minicpm3-4b's heads a rank under
+    a model axis of 2 (a partial 8-head group: the kernels take any nh),
+    through qattention as the head-sharded model calls them: the contiguous
+    entry at serve_batch's 544-slot window with ragged pos, the paged one
+    on scattered 64-slot pages with dummy entries past each row's last
+    page.  One launch each; 1e-4 absolute against the plain versions."""
+    rng = np.random.default_rng(20)
+    nh, b, scale = MLA_NH // 2, 4, 96**-0.5
+    ql = torch.from_numpy(rng.standard_normal((b, nh, MLA_L)).astype(np.float32)).to(dev)
+    qr = _bf16(rng, dev, b, nh, MLA_R)
+    cap = 544
+    c, cs = _mla_cache(rng, dev, (b, cap), kv)
+    kr = _bf16(rng, dev, b, cap, MLA_R)
+    pos = torch.tensor([0, 31, 300, cap - 1], dtype=torch.int32, device=dev)
+    scales = () if cs is None else (cs,)
+    before = attn_decode_mla.launches
+    y = dispatch.qattention("mla_decode", ql, qr, c, kr, pos, *scales, logit_scale=scale)
+    assert attn_decode_mla.launches == before + 1 and y.shape == (b, nh, MLA_L)
+    torch.testing.assert_close(y, ref.attn_mla_decode_ref(ql, qr, c, kr, pos, cs, scale),
+                               rtol=0, atol=1e-4)
+    ps, npages, total = 64, 9, 40
+    pc, pcs = _mla_cache(rng, dev, (total, ps), kv)
+    pkr = _bf16(rng, dev, total, ps, MLA_R)
+    pt, ppos = _mla_pages(rng, dev, np.array([0, ps - 1, 5 * ps + 7, npages * ps - 1],
+                                             np.int32), ps, npages, total)
+    pscales = () if pcs is None else (pcs,)
+    before = attn_decode_mla_paged.launches
+    y = dispatch.qattention("paged_mla_decode", ql, qr, pc, pkr, pt, ppos, *pscales,
+                            logit_scale=scale)
+    assert attn_decode_mla_paged.launches == before + 1 and y.shape == (b, nh, MLA_L)
+    torch.testing.assert_close(
+        y, ref.attn_mla_decode_paged_ref(pt, ql, qr, pc, pkr, ppos, pcs, scale),
+        rtol=0, atol=1e-4)
+
+
 def _mla_exact(ql, qr, c, kr, cs, pos, scale):
     """The plain version's function in float64 (c dequantized by cs)."""
     cf = c.double() if cs is None else c.double() * cs.double()[..., None]

@@ -315,19 +315,6 @@ def test_expert_stacks_split_on_their_dispatch_axes(dispatch, shape, coords, ent
     assert torch.equal(local["layers"][0]["mlp"]["w_up"]["q"], q[first:first + n])
 
 
-@pytest.mark.parametrize("arch", ["minicpm3-4b", "jamba-1.5-large-398b",
-                                  "xlstm-1.3b"])
-def test_unsharded_families_raise_under_a_model_axis(arch):
-    """MLA and the recurrent mixers do not run silently unsharded (jamba
-    for its Mamba layers: its MoE layers run on a mesh)."""
-    cfg = smoke_variant(get_config(arch))
-    mesh = Mesh({"data": 1, "model": 2}, {"data": 0, "model": 0})
-    with dispatch.shard_scope(mesh), pytest.raises(NotImplementedError,
-                                                  match="ROADMAP queue 1"):
-        forward_prefill({}, cfg, {"tokens": torch.zeros((1, 8), dtype=torch.long)},
-                        [], None)
-
-
 def test_compress_matches_jax_bitwise():
     rng = np.random.default_rng(0)
     grads = {"b": rng.standard_normal((24, 3)).astype(np.float32) * 1e-3,

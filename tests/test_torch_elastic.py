@@ -136,7 +136,7 @@ def port_inputs(jax_side, tmp_path_factory):
             "train_cfg": tcfg, "train_shape": ShapeCfg("t", 32, 4, "train"),
             "train_params": from_jax_params(jax_side["train_params"], tcfg, device="cpu"),
             "steps": STEPS, "dir": str(tmp_path_factory.mktemp("elastic")),
-            "moe": _moe_inputs()}
+            "moe": _moe_inputs(), "mla": _mla_inputs()}
 
 
 def _moe_inputs() -> dict:
@@ -144,6 +144,14 @@ def _moe_inputs() -> dict:
     the port's init) with an int8 pool, the elastic trace and geometry."""
     cfg = smoke_variant(get_config("phi3.5-moe-42b-a6.6b")).with_(kv_cache_dtype="int8")
     cfg = cfg.with_(moe=cfg.moe.__class__(**{**cfg.moe.__dict__, "dispatch": "shard_map"}))
+    return {"cfg": cfg, "params": port_model_init(cfg, 0, device="cpu"), "geom": GEOM,
+            "reqs": _ereqs(Request, cfg, [10, 6, 13], [5, 5, 5])}
+
+
+def _mla_inputs() -> dict:
+    """The MLA engine's drill: the smoke minicpm3-4b (the port's init) with
+    an int8 latent pool, the elastic trace and geometry."""
+    cfg = smoke_variant(get_config("minicpm3-4b")).with_(kv_cache_dtype="int8")
     return {"cfg": cfg, "params": port_model_init(cfg, 0, device="cpu"), "geom": GEOM,
             "reqs": _ereqs(Request, cfg, [10, 6, 13], [5, 5, 5])}
 
@@ -271,6 +279,27 @@ def test_moe_engine_device_loss_rebuilds_on_the_shrunk_mesh(ranks):
     assert _tokens(st) == _tokens(clean[0])
     for g in gone:
         assert g["lost"] and g["e_local"] is None and not g["all_completed"]
+
+
+def test_mla_engine_device_loss_shrinks_to_one_rank(ranks, port_inputs):
+    """The MLA engine at 1×2 (head-sharded attention, latent pools whole on
+    both ranks) loses a device at tick 3: rank 1 hands its shards over and
+    returns ``lost``, rank 0 rebuilds at 1×1 and recomputes every in-flight
+    request; every record's tokens equal one rank's engine's on the same
+    trace."""
+    from repro_torch.launch.engine import Engine
+
+    m = port_inputs["mla"]
+    one = Engine(m["cfg"], params=m["params"], device="cpu", backend="ref",
+                 **m["geom"]).run(m["reqs"], timeout_s=600)
+    assert one["all_completed"]
+    st, gone = ranks[0]["mla_loss_1x2"], ranks[1]["mla_loss_1x2"]
+    assert st["all_completed"] and st["page_audit"]["ok"] and not st["lost"]
+    assert (st["mesh_rebuilds"], st["lost_devices"], st["resharded_restores"]) == (1, 1, 1)
+    assert st["final_mesh"] == {"data": 1, "model": 1}
+    assert _tokens(st) == _tokens(one)
+    assert gone["lost"] and gone["lost_devices"] == 1 and not gone["all_completed"]
+    assert all(r["mla_loss_1x2"] is None for r in ranks[2:])
 
 
 def test_engine_rebuilds_at_most_max_mesh_rebuilds(ranks, jax_side):

@@ -112,6 +112,18 @@ def moe_engine_drill(shape, inputs, plan=None):
     return out
 
 
+def mla_engine_drill(shape, inputs, plan=None):
+    """The MLA engine (its int8 latent pools whole on every model rank) on
+    a fresh ``shape`` mesh under ``plan``; None outside the mesh."""
+    mesh = make_host_mesh(*shape)
+    if not mesh.member:
+        return None
+    m = inputs["mla"]
+    eng = Engine(m["cfg"], mesh=mesh, params=_clone(m["params"]), device="cpu",
+                 backend="ref", faults=FaultPlan(0, plan) if plan else None, **m["geom"])
+    return _stats(eng.run(m["reqs"], timeout_s=600))
+
+
 def mesh_engine_drills(inputs):
     """The JAX package's mesh-engine drills at 1×2 (its ``hardened``
     geometry): a deadline cancel and a preemption drain under eviction,
@@ -200,4 +212,5 @@ def run_drills(inputs) -> dict:
         out["ckpt_1x2"] = checkpoint_drill(inputs, os.path.join(base, "ckpt"))
         out["moe_clean_1x2"] = moe_engine_drill((1, 2), inputs)
         out["moe_loss_2x2"] = moe_engine_drill((2, 2), inputs, loss)
+        out["mla_loss_1x2"] = mla_engine_drill((1, 2), inputs, loss)
     return out
