@@ -34,8 +34,14 @@ status per request, completed requests token for token the clean run's,
 only the poisoned request quarantined, no organic failure, clean audits,
 the CPU-simulated schedule.  Phase 5 trains the
 same model in PEFT mode through ``repro_torch.launch.train.run_training``
-(a warm-up step and 3 steps of 4096 tokens); phase 6 trains llama3-8b at
-full width and 4 layers in QAT mode.  Phase 7 serves block-wise NF4 and
+(a warm-up step and 3 steps of 4096 tokens); phase 20, on the same model
+after phase 5, holds its prefill (b 4, 512 tokens), one decode step and
+one PEFT step against their roofline from ``repro_torch.launch.dryrun``
+(run at 1×1 on shape-only tensors by a CPU process started after the
+model is built): calls against launches, the params' bytes, the device-
+busy and wall shares of the bound, each kernel's profiler time beside its
+summed bound.  Phase 6 trains llama3-8b at full width and 4 layers in QAT
+mode.  Phase 7 serves block-wise NF4 and
 QLoRA at phase 3's settings (block 128: the bytes of phase 3's LoRDS
 model), the first 16 of the 32 layers it builds; phase 8 trains QLoRA's
 adapters at phase 5's settings on those 16 layers; phase 9
@@ -116,6 +122,7 @@ before it come the card's name and power limit and the
 """
 from __future__ import annotations
 
+import bisect
 import contextlib
 import json
 import math
@@ -127,10 +134,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 T_START = time.perf_counter()  # the script's start: the ranks' deadline counts from it
-HBM_BYTES_S = 3.35e12    # H100 SXM HBM3
-BF16_FLOP_S = 989e12     # dense bf16 tensor cores
-FP32_FLOP_S = 67e12      # FP32 outside the tensor cores
-TF32_FLOP_S = 495e12     # dense TF32 tensor cores: LoRDS's S = B·A, three passes (3xTF32)
 BATCH, PROMPT, GEN = 4, 512, 32
 # the engine of phase 4: its geometry, pool and trace
 ENGINE = dict(slots=8, page_size=64, chunk=512, max_pages=20, burst=8,
@@ -308,6 +311,11 @@ NO_LIBRARY = ("no single PyTorch call reads an int8 or a paged cache; SDPA over 
               "yardstick")
 
 
+# the main runs' results a later phase reads: serve_checks' serve_batch
+# output and train_peft's run_training output, by their tag
+MEASURED: dict = {}
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -339,12 +347,15 @@ def timed(fn, reps: int, flush=None) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, ops: dict) -> tuple[float, str]:
-    """Least time in ms: the larger of bytes over HBM rate and, per type,
-    operations over that type's peak."""
-    t_bytes = nbytes / HBM_BYTES_S
-    t_ops = max((n / rate for n, rate in ops.values()), default=0.0)
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+def work_bound(work) -> tuple[float, str]:
+    """One kernel call's least time in ms and what bounds it ("bytes" or
+    "operations"): ``repro_torch.launch.roofline.kernel_bound`` of a
+    ``repro_torch.kernels.cost`` function's work (H100 SXM data-sheet rates),
+    the count the dry run reads."""
+    from repro_torch.launch.roofline import kernel_bound
+
+    seconds, by = kernel_bound(work)
+    return seconds * 1e3, by
 
 
 class KernelCheck:
@@ -413,7 +424,7 @@ def check_kernels(cfg, torch, F):
     from repro_torch.configs import get_config
     from repro_torch.core import init_quantized_linear
     from repro_torch.core.lords import dequantize_weight
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import cost, ref
     from repro_torch.kernels.lords_decode import lords_decode
     from repro_torch.kernels.lords_matmul import lords_matmul
 
@@ -452,7 +463,8 @@ def check_kernels(cfg, torch, F):
             # ulp of S can flip: relative 2e-3 of the output's scale
             err = (y - y_ref).abs().max().item()
             tol = 2e-3 * y_ref.abs().max().item()
-            b_ms, b_by = lords_bound(m, n, k, r, p["q"].numel())
+            b_ms, b_by = work_bound(getattr(cost, name)(x.shape, p["q"].shape,
+                                                        p["b"].shape, p["a"].shape))
             reps = 10 if name == "lords_matmul" else 30
             results[name].add(
                 f"{label} M={m} N={n} K={k} r={r}", err, tol,
@@ -481,15 +493,6 @@ def check_kernels(cfg, torch, F):
     return results
 
 
-def lords_bound(m, n, k, r, q_bytes):
-    """The LoRDS forward's bound: x, the codes, B, A and y once; the bf16
-    product, and S = B·A at three TF32 passes (the 3xTF32 the kernels run on
-    the tensor cores)."""
-    nbytes = m * k * 2 + q_bytes + (n * r + r * k) * 4 + m * n * 4
-    return bound(nbytes, {"bf16": (2 * m * n * k, BF16_FLOP_S),
-                          "tf32": (3 * 2 * r * n * k, TF32_FLOP_S)})
-
-
 def check_decode_gemvs(cfg, torch, results, gen, flush):
     """Phase 2, the two decode GEMVs beyond their primary checks (not
     primary): llama3-8b's seven linears at M = 8 (the engines' slots) and
@@ -501,7 +504,7 @@ def check_decode_gemvs(cfg, torch, results, gen, flush):
     from repro_torch.core import init_quantized_linear
     from repro_torch.core.lords import dequantize_weight
     from repro_torch.core.quantize import dequantize_blockwise, quantize_blockwise
-    from repro_torch.kernels import dispatch, ref
+    from repro_torch.kernels import cost, dispatch, ref
 
     dev = torch.device("cuda")
     for arch_cfg, ms in ((cfg, (8,)), (get_config(MLA_ARCH), (BATCH, 8))):
@@ -524,7 +527,8 @@ def check_decode_gemvs(cfg, torch, results, gen, flush):
 
                 y, y_ref = lords(), ref.lords_matmul_ref(*args)
                 torch.cuda.synchronize()
-                b_ms, b_by = lords_bound(m, n, k, r, p["q"].numel())
+                b_ms, b_by = work_bound(cost.lords_decode(x.shape, p["q"].shape,
+                                                          p["b"].shape, p["a"].shape))
                 results["lords_decode"].add(
                     f"{label} M={m} N={n} K={k} r={r}", (y - y_ref).abs().max().item(),
                     2e-3 * y_ref.abs().max().item(), timed(lords, 30, flush),
@@ -537,8 +541,7 @@ def check_decode_gemvs(cfg, torch, results, gen, flush):
 
                 y, y_ref = block(), ref.block_matmul_ref(x, q, s_blk, BASE_BLOCK, cb)
                 torch.cuda.synchronize()
-                b_ms, b_by = bound(m * k * 2 + q.numel() + s_blk.numel() * 4 + m * n * 4,
-                                   {"bf16": (2 * m * n * k, BF16_FLOP_S)})
+                b_ms, b_by = work_bound(cost.block_matmul(x.shape, q.shape, s_blk.shape))
                 results["block_matmul"].add(
                     f"decode {label} M={m} N={n} K={k} bs={BASE_BLOCK}",
                     (y - y_ref).abs().max().item(), 1e-4 * y_ref.abs().max().item(),
@@ -562,7 +565,7 @@ def check_expert_gemvs(torch, results, gen, flush):
     from repro_torch.core import init_quantized_linear
     from repro_torch.core.lords import dequantize_weight
     from repro_torch.core.quantize import dequantize_blockwise, quantize_blockwise
-    from repro_torch.kernels import dispatch, ref
+    from repro_torch.kernels import cost, dispatch, ref
     from repro_torch.models.moe import capacity
 
     dev = torch.device("cuda")
@@ -591,9 +594,7 @@ def check_expert_gemvs(torch, results, gen, flush):
 
         y, y_ref = stack(), torch.stack(plain())
         torch.cuda.synchronize()
-        nbytes = x.numel() * 2 + q.numel() + (b.numel() + a.numel()) * 4 + e * c * n * 4
-        b_ms, b_by = bound(nbytes, {"bf16": (2 * e * c * n * k, BF16_FLOP_S),
-                                    "tf32": (3 * 2 * r * n * k * e, TF32_FLOP_S)})
+        b_ms, b_by = work_bound(cost.lords_decode(x.shape, q.shape, b.shape, a.shape))
         ms, ms_singles = timed(stack, 30, flush), timed(singles, 10, flush)
         results["lords_decode"].add(
             f"experts {shape} r={r}", (y - y_ref).abs().max().item(),
@@ -628,8 +629,7 @@ def check_expert_gemvs(torch, results, gen, flush):
 
         y, y_ref = bstack(), torch.stack(bplain())
         torch.cuda.synchronize()
-        b_ms, b_by = bound(x.numel() * 2 + qb.numel() + sb.numel() * 4 + e * c * n * 4,
-                           {"bf16": (2 * e * c * n * k, BF16_FLOP_S)})
+        b_ms, b_by = work_bound(cost.block_matmul(x.shape, qb.shape, sb.shape))
         ms, ms_singles = timed(bstack, 30, flush), timed(bsingles, 10, flush)
         results["block_matmul"].add(
             f"decode experts {shape} bs={BASE_BLOCK}", (y - y_ref).abs().max().item(),
@@ -677,7 +677,7 @@ def check_train_kernels(cfg, torch, results, gen, flush):
     from repro_torch.core import lut as lut_mod
     from repro_torch.core.lords import dequantize_weight
     from repro_torch.core.scaling import clamp_scale
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import cost, ref
     from repro_torch.kernels.lords_grad import lords_grad
     from repro_torch.kernels.lords_matmul_t import lords_matmul_t
     from repro_torch.kernels.lut_quantize import flipped_codes, lut_quantize
@@ -695,7 +695,6 @@ def check_train_kernels(cfg, torch, results, gen, flush):
         g = torch.randn(m, n, generator=gen, device=dev).to(torch.bfloat16)
         x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
         shape = f"{label} M={m} N={n} K={k} r={r}"
-        s_ops = 2 * r * n * k
 
         # A: dx = g·Ŵ.  Ŵ is rounded to bf16 for the tensor cores where the
         # plain version keeps f32: 2^-9 relative per weight, random in sign
@@ -704,9 +703,7 @@ def check_train_kernels(cfg, torch, results, gen, flush):
         dx_ref = ref.lords_matmul_t_ref(g, q, b, a, spec.codebook)
         torch.cuda.synchronize()
         err = (dx - dx_ref).abs().max().item()
-        nbytes = m * n * 2 + q.numel() + (n * r + r * k) * 4 + m * k * 4
-        b_ms, b_by = bound(nbytes, {"bf16": (2 * m * n * k, BF16_FLOP_S),
-                                    "f32": (s_ops, FP32_FLOP_S)})
+        b_ms, b_by = work_bound(cost.lords_matmul_t(g.shape, q.shape, b.shape, a.shape))
         results["lords_matmul_t"].add(
             shape, err, 5e-3 * dx_ref.abs().max().item(),
             timed(lambda: lords_matmul_t(g, q, b, a, spec.codebook), 5, flush),
@@ -726,10 +723,8 @@ def check_train_kernels(cfg, torch, results, gen, flush):
             err = max((u - v).abs().max().item() / v.abs().max().item()
                       for u, v in zip(got, want))
             del out, got, want
-            nbytes = (m * (n + k) * 2 + q.numel() + 2 * (n * r + r * k) * 4
-                      + (8 * n * k if wq is not None else 0))
-            b_ms, b_by = bound(nbytes, {"bf16": (2 * m * n * k, BF16_FLOP_S),
-                                        "f32": (3 * s_ops, FP32_FLOP_S)})
+            b_ms, b_by = work_bound(cost.lords_grad(x.shape, g.shape, q.shape, b.shape,
+                                                    a.shape, qat=wq is not None))
             results["lords_grad"].add(
                 f"{variant} {shape} (err relative to each gradient's max)", err, 1e-4,
                 timed(lambda: lords_grad(x, g, q, b, a, spec.codebook, w=wq), 5, flush),
@@ -749,8 +744,7 @@ def check_train_kernels(cfg, torch, results, gen, flush):
         if ulps > 4:
             raise AssertionError(f"lut_quantize {shape}: a code flipped {ulps} ulps "
                                  "from a midpoint")
-        nbytes = n * k * 4 + (n * r + r * k) * 4 + codes.numel()
-        b_ms, b_by = bound(nbytes, {"f32": (s_ops, FP32_FLOP_S)})
+        b_ms, b_by = work_bound(cost.lut_quantize(w.shape, b.shape, spec.codebook))
         results["lut_quantize"].add(
             f"{shape} flips={flips}", float(flips > 0), 1.0,
             timed(lambda: lut_quantize(w, b, a, spec.codebook), 10, flush),
@@ -773,7 +767,7 @@ def check_block_kernels(cfg, torch, results, gen, flush):
     is padded: decode's M = 4 <= 8 goes unpadded to the decode entry point,
     whose N and K multiples are 32 and 256)."""
     from repro_torch.core.quantize import dequantize_blockwise, quantize_blockwise
-    from repro_torch.kernels import dispatch, ref
+    from repro_torch.kernels import cost, dispatch, ref
 
     dev = torch.device("cuda")
     cb, bs = "nf4", BASE_BLOCK
@@ -784,7 +778,6 @@ def check_block_kernels(cfg, torch, results, gen, flush):
         q, s_blk = quantize_blockwise(w, bs, cb)
         del w
         w_hat = dequantize_blockwise(q, s_blk, bs, cb, dtype=torch.bfloat16)
-        w_bytes = q.numel() + s_blk.numel() * 4
         shape = f"{label} N={n} K={k} bs={bs}"
 
         # forward: exact bf16 products on both sides (Ŵ rounded to bf16 the
@@ -799,8 +792,7 @@ def check_block_kernels(cfg, torch, results, gen, flush):
             y, y_ref = fused(), ref.block_matmul_ref(x, q, s_blk, bs, cb)
             torch.cuda.synchronize()
             err = (y - y_ref).abs().max().item()
-            nbytes = m * k * 2 + w_bytes + m * n * 4
-            b_ms, b_by = bound(nbytes, {"bf16": (2 * m * n * k, BF16_FLOP_S)})
+            b_ms, b_by = work_bound(cost.block_matmul(x.shape, q.shape, s_blk.shape))
             reps = 10 if primary else 30
             results["block_matmul"].add(
                 f"{'prefill' if primary else 'decode'} M={m} {shape}", err,
@@ -830,8 +822,7 @@ def check_block_kernels(cfg, torch, results, gen, flush):
         err = (dx - dx_ref).abs().max().item()
         tol = 5e-3 * dx_ref.abs().max().item()
         del dx, dx_ref
-        nbytes = m_train * n * 2 + w_bytes + m_train * k * 4
-        b_ms, b_by = bound(nbytes, {"bf16": (2 * m_train * n * k, BF16_FLOP_S)})
+        b_ms, b_by = work_bound(cost.block_matmul_t(g.shape, q.shape, s_blk.shape, cb))
         results["block_matmul_t"].add(
             shape, err, tol,
             timed(fused_dx, 5, flush),
@@ -846,8 +837,7 @@ def check_block_kernels(cfg, torch, results, gen, flush):
         torch.cuda.synchronize()
         err = (ds - ds_ref).abs().max().item() / ds_ref.abs().max().item()
         del ds, ds_ref
-        nbytes = m_train * (n + k) * 2 + q.numel() + s_blk.numel() * 4
-        b_ms, b_by = bound(nbytes, {"bf16": (2 * m_train * n * k, BF16_FLOP_S)})
+        b_ms, b_by = work_bound(cost.block_grad(x.shape, g.shape, q.shape, bs))
         results["block_grad"].add(
             f"{shape} (err relative to the gradient's max)", err, 1e-4,
             timed(fused_ds, 5, flush),
@@ -897,7 +887,7 @@ def check_prefill(torch, F, results, gen, flush, rng, *, nh, nkv, hd, hdv, tag,
     time."""
     import numpy as np
 
-    from repro_torch.kernels import dispatch, ref
+    from repro_torch.kernels import cost, dispatch, ref
     from repro_torch.kernels.attn_prefill import BQ, attn_prefill
 
     dev = torch.device("cuda")
@@ -918,9 +908,7 @@ def check_prefill(torch, F, results, gen, flush, rng, *, nh, nkv, hd, hdv, tag,
     err = (out - ref.attn_prefill_pos(q, k, v, positions, positions, scale)).abs().max().item()
     pairs = ((positions[:, None, :] <= positions[:, :, None])
              & (positions[:, None, :] >= 0)).sum().item()
-    nbytes = ((q.numel() + k.numel() + v.numel()) * 2 + out.numel() * 4
-              + 2 * positions.numel() * 4)
-    b_ms, b_by = bound(nbytes, {"bf16": (2 * (hd + hdv) * nh * pairs, BF16_FLOP_S)})
+    b_ms, b_by = work_bound(cost.attn_prefill(q.shape, k.shape, v.shape, pairs))
     qt, kt, vt = (t[:, :PROMPT].transpose(1, 2).contiguous() for t in (q, k, v))
     ops = 2 * (hd + hdv) * nh * pairs
     for peak in (1.0, 30.0):
@@ -980,9 +968,8 @@ def check_prefill(torch, F, results, gen, flush, rng, *, nh, nkv, hd, hdv, tag,
     mask = ((kpos_t[:, None, :] <= qpos_t[:, :, None]) & (kpos_t[:, None, :] >= 0))[:, None]
     pairs = (mask[:, 0] & qlive[:, :, None]).sum().item()
     live_keys = int((kpos >= 0).sum())
-    nbytes = (q.numel() * 2 + live_keys * nkv * (hd + hdv) * 2 + out.numel() * 4
-              + (qpos.size + kpos.size) * 4)
-    b_ms, b_by = bound(nbytes, {"bf16": (2 * (hd + hdv) * nh * pairs, BF16_FLOP_S)})
+    b_ms, b_by = work_bound(cost.attn_prefill(q.shape, k.shape, v.shape, pairs,
+                                              live_keys))
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     results["attn_prefill"].add(
         f"{tag}engine chunk slots={slots} chunk={cs} keys={window}+{cs} {heads} "
@@ -1003,7 +990,7 @@ def check_attention(torch, F, results, gen, flush, *, nh, nkv, hd, tag=""):
     paged-against-contiguous yardstick is skipped."""
     import numpy as np
 
-    from repro_torch.kernels import dispatch, ref
+    from repro_torch.kernels import cost, dispatch, ref
     from repro_torch.kernels.attn_decode import attn_decode
     from repro_torch.kernels.attn_decode_paged import attn_decode_paged
     from repro_torch.models.common import kv_quantize
@@ -1043,9 +1030,8 @@ def check_attention(torch, F, results, gen, flush, *, nh, nkv, hd, tag=""):
         out = attn_decode(*args, logit_scale=scale)
         err = (out - ref.attn_decode_kmask(qd, operands[0], operands[1], kmask, scale,
                                            *operands[2:])).abs().max().item()
-        nbytes = (qd.numel() * 2 + 2 * BATCH * n_live * nkv * (hd * elt + (4 if elt == 1 else 0))
-                  + kmask.numel() * 4 + out.numel() * 4)
-        b_ms, b_by = bound(nbytes, {"bf16": (4 * hd * nh * n_live * BATCH, BF16_FLOP_S)})
+        b_ms, b_by = work_bound(cost.attn_decode(qd.shape, operands[0].shape, elt,
+                                                 BATCH * n_live))
         results["attn_decode"].add(
             f"{tag}{kv} cache b={BATCH} S={cap} nkv={nkv} g={g} hd={hd} live={n_live}", err,
             1e-4, timed(lambda: attn_decode(*args, logit_scale=scale), 50, flush),
@@ -1082,9 +1068,8 @@ def check_attention(torch, F, results, gen, flush, *, nh, nkv, hd, tag=""):
 
         out = attn_decode_paged(*args, logit_scale=scale)
         err = (out.reshape(slots, nh, hd) - plain()).abs().max().item()
-        nbytes = (qp.numel() * 2 + 2 * live_slots * nkv * (hd * elt + (4 if elt == 1 else 0))
-                  + pt.numel() * 4 + ppos.numel() * 4 + out.numel() * 4)
-        b_ms, b_by = bound(nbytes, {"bf16": (4 * hd * nh * live_slots, BF16_FLOP_S)})
+        b_ms, b_by = work_bound(cost.attn_decode_paged(qp.shape, operands[0].shape,
+                                                       pt.shape, elt, live_slots))
         results["attn_decode_paged"].add(
             f"{tag}{kv} pool slots={slots} ps={ps} np={npages} pages={total} nkv={nkv} "
             f"g={g} hd={hd} live_slots={live_slots}", err, 1e-4,
@@ -1128,9 +1113,10 @@ def check_mla_attention(torch, F, results, gen, flush):
     import numpy as np
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import cost, ref
     from repro_torch.kernels.attn_decode_mla import attn_decode_mla
     from repro_torch.kernels.attn_decode_mla_paged import attn_decode_mla_paged
+    from repro_torch.launch.roofline import PEAK_BY_PRECISION
     from repro_torch.models.common import kv_quantize
 
     dev = torch.device("cuda")
@@ -1143,19 +1129,8 @@ def check_mla_attention(torch, F, results, gen, flush):
     cap = PROMPT + GEN
     rng = np.random.default_rng(12)
 
-    def mla_bytes(b, live, elt):
-        # q_lat f32 and q_rope bf16 in, the live cache once (codes, a scale
-        # per slot for int8, the RoPE keys), pos in, the latent out
-        return (b * nh * (lat * 4 + rope * 2) + live * (lat * elt + rope * 2
-                + (4 if elt == 1 else 0)) + b * 4 + b * nh * lat * 4)
-
-    def mla_ops(live):
-        # one pass of the products on the tensor cores (the kernel's three
-        # passes of q_lat and two of P are its own cost, not the function's)
-        return {"bf16": (2 * nh * live * (2 * lat + rope), BF16_FLOP_S)}
-
     def fp32_count(what, live):
-        ms = 2 * nh * live * (2 * lat + rope) / FP32_FLOP_S * 1e3
+        ms = 2 * nh * live * (2 * lat + rope) / PEAK_BY_PRECISION["f32"] * 1e3
         log(f"[bound] {what}: the products on the FP32 cores would take {ms:.4f} ms "
             f"(the first design's count)")
 
@@ -1183,7 +1158,8 @@ def check_mla_attention(torch, F, results, gen, flush):
         args = (ql, qr, *operands)
         out = attn_decode_mla(*args, logit_scale=scale)
         err = (out - ref.attn_mla_decode_ref(*args, logit_scale=scale)).abs().max().item()
-        b_ms, b_by = bound(mla_bytes(BATCH, live, elt), mla_ops(live))
+        b_ms, b_by = work_bound(cost.attn_decode_mla(ql.shape, qr.shape, c.shape, elt,
+                                                     live))
         fp32_count(f"attn_decode_mla serve_batch {kv}", live)
         results["attn_decode_mla"].add(
             f"serve_batch {kv} cache b={BATCH} S={cap} nh={nh} L={lat} R={rope} "
@@ -1235,7 +1211,9 @@ def check_mla_attention(torch, F, results, gen, flush):
 
         out = attn_decode_mla_paged(*args, logit_scale=scale)
         err = (out - plain()).abs().max().item()
-        b_ms, b_by = bound(mla_bytes(slots, plive, elt) + pt.numel() * 4, mla_ops(plive))
+        b_ms, b_by = work_bound(cost.attn_decode_mla_paged(qlp.shape, qrp.shape,
+                                                           cpool.shape, pt.shape, elt,
+                                                           plive))
         fp32_count(f"attn_decode_mla_paged engine {kv}", plive)
         results["attn_decode_mla_paged"].add(
             f"engine {kv} pool slots={slots} ps={ps} np={npages} pages={total} "
@@ -1419,6 +1397,7 @@ def serve_checks(cfg, params, torch, kv, what=None, used=LORDS_SERVE, unused=BLO
     serve_batch(cfg, **{**kw, "gen": 2})  # warm-up: first launches, cuBLAS
     torch.cuda.reset_peak_memory_stats()
     out, launches = counted(lambda: serve_batch(cfg, **kw))
+    MEASURED[what] = out
     toks = out["tokens"]
     log(f"[{what}] fused: prefill {out['prefill_ms']:.1f} ms "
         f"({out['prefill_tok_s']:.1f} tok/s), decode {out['decode_tok_s']:.1f} "
@@ -2062,6 +2041,7 @@ def train_peft(cfg, params, torch, what="train peft", keys=("b", "a"),
 
     out, launches = _train_run(cfg, params, torch, what, steps=4, lr=PEFT_LR)
     _report_steps(what, out, first_timed=1)
+    MEASURED[what] = out
     log(f"[{what}] peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
         f"launches {launches}")
     _require(what, launches, used)
@@ -3686,6 +3666,249 @@ def _leaves(tree):
         yield tree
 
 
+# phase 20: the main path against its roofline.  The dry run
+# (repro_torch.launch.dryrun) counts llama3-8b's three main-path steps on
+# shape-only tensors at 1×1 in a CPU process of its own, started beside
+# phases 3-4; the phase then runs each step on the card.
+ROOFLINE_SHAPES = {  # step -> (seq_len, global batch, kind): phases 3 and 5's shapes
+    "prefill": (PROMPT, BATCH, "prefill"),        # the prompt's 512 columns, aligned
+    "decode": (PROMPT + GEN, BATCH, "decode"),    # one step at the last of 544 slots
+    "train": (TRAIN_SEQ, TRAIN_BATCH, "train"),   # one PEFT step of 4096 tokens
+}
+ROOFLINE_RUNS = "build/roofline_dry_runs.json"
+ROOFLINE_TIMEOUT_S = 300
+
+
+def roofline_dry_runs(path: str, layers: int) -> None:
+    """Phase 20's dry runs (a CPU process, no card): llama3-8b at full
+    width and ``layers`` layers, 1×1, each step of :data:`ROOFLINE_SHAPES`;
+    then a llama3-8b smoke prefill at 1×2 in a fake world of two ranks.
+    Writes the records to ``path``."""
+    import torch
+
+    from repro_torch.configs import ShapeCfg, smoke_variant
+    from repro_torch.launch import dryrun
+
+    torch.set_num_threads(1)
+    out = {}
+    for step, (seq, batch, kind) in ROOFLINE_SHAPES.items():
+        out[step] = dryrun.run_cell("llama3-8b", ShapeCfg(step, seq, batch, kind),
+                                    cfg_mutate=lambda c: c.with_(num_layers=layers),
+                                    mesh_shape=(1, 1), verbose=False)
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell("llama3-8b", ShapeCfg("smoke prefill", 64, 8, "prefill"),
+                          cfg_mutate=smoke_variant, mesh_shape=(1, 2), verbose=False)
+    out["fake world"] = {"status": rec["status"], "mesh": rec["mesh"],
+                         "seconds": time.perf_counter() - t0,
+                         "collective_counts": rec["collective_counts"]}
+    Path(path).write_text(json.dumps(out))
+
+
+@contextlib.contextmanager
+def roofline_dry_run_process(layers: int):
+    """:func:`roofline_dry_runs` in a child process for the scope (no card
+    visible to it), killed on the way out if still running."""
+    import os
+
+    path = ROOT / ROOFLINE_RUNS
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.unlink(missing_ok=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "CUDA_VISIBLE_DEVICES": ""}
+    proc = subprocess.Popen(
+        [sys.executable, "-c",
+         f"import chip_smoke; chip_smoke.roofline_dry_runs({str(path)!r}, {layers})"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        yield proc, path
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+
+
+@contextlib.contextmanager
+def annotated_wrappers(torch):
+    """Each kernel wrapper wrapped in a ``record_function`` range named
+    ``kernel:<name>`` for the scope, so the profiler attributes its
+    launches' device time to it (the dispatch calls the wrappers through
+    their modules).  A wrapper counts its launches on its module's name,
+    the stand-in's for the scope: the wrapped runs are not counted."""
+    patched = []
+    for name, fn in _wrappers().items():
+        mod = sys.modules[fn.__module__]
+
+        def wrap(*args, _fn=fn, _label=f"kernel:{name}", **kwargs):
+            with torch.profiler.record_function(_label):
+                return _fn(*args, **kwargs)
+
+        wrap.launches = 0
+        patched.append((mod, fn.__name__, fn))
+        setattr(mod, fn.__name__, wrap)
+    try:
+        yield
+    finally:
+        for mod, attr, fn in patched:
+            setattr(mod, attr, fn)
+
+
+def measure_step(torch, step):
+    """One step on the card: a warm-up, a counted run timed on the host
+    clock (synchronized), then a profiled run with the wrappers annotated.
+    Returns (wall ms, launches, device busy ms, device ms by kernel, the
+    card's peak allocated bytes during the counted run)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, launches = counted(step)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    with annotated_wrappers(torch), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    # the device timeline: the kernels, and each annotated range's span
+    # (first to last of its kernels).  One stream runs the step, so a kernel
+    # that starts inside a wrapper's span is that wrapper's.
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end, e.name.removeprefix("kernel:"))
+                   for e in device if e.name.startswith("kernel:"))
+    kernels = [e for e in device if not e.name.startswith("kernel:")]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    starts = [s for s, _, _ in spans]
+    by_kernel: dict = {}
+    for e in kernels:
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        if i >= 0 and e.time_range.start < spans[i][1]:
+            name = spans[i][2]
+            by_kernel[name] = by_kernel.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return wall, launches, busy, by_kernel, peak
+
+
+def roofline_phase(cfg, params, torch, dry):
+    """Phase 20: llama3-8b's LoRDS prefill (b 4, 512 tokens), one decode
+    step (b 4, the last of 544 slots) and one PEFT step (1 x 4096) on the
+    card, each against its dry-run roofline (H100 SXM constants): the
+    bound, its bottleneck and the model-FLOPs fraction, the device-busy
+    and wall ms and the share of the bound each reached, each kernel's
+    profiler device ms beside its summed per-call bound.  Fails when a
+    share exceeds 100%, when the dry run's calls of a kernel differ from
+    the launches counted on the card, or when its parameter bytes differ
+    from the card's."""
+    from repro_torch.core import peft
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.steps import train_step
+    from repro_torch.launch.train import batch_tensors
+    from repro_torch.models import cache_init, forward_decode, forward_prefill
+    from repro_torch.optim import adamw_init
+
+    proc, path = dry
+    t_wait = time.perf_counter()
+    try:
+        out, _ = proc.communicate(timeout=ROOFLINE_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"roofline dry runs: not done in {ROOFLINE_TIMEOUT_S} s")
+    if proc.returncode != 0:
+        raise AssertionError(f"roofline dry runs failed:\n{out[-4000:]}")
+    recs = json.loads(path.read_text())
+    log(f"[roofline] dry runs (a CPU process beside phases 3-5; waited "
+        f"{time.perf_counter() - t_wait:.1f} s for it): "
+        + ", ".join(f"{k} {recs[k]['compile_s']} s" for k in ROOFLINE_SHAPES))
+    fake = recs["fake world"]
+    log(f"[roofline] llama3-8b smoke prefill at {fake['mesh']} in a fake world on the "
+        f"card's host: {fake['status']}, {fake['seconds']:.1f} s, collectives "
+        f"{fake['collective_counts']}")
+    if fake["status"] != "ok":
+        raise AssertionError(f"roofline: the fake-world cell failed: {fake}")
+
+    dev = torch.device("cuda")
+    storages = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                for t in _leaves(params)}
+    card_bytes = sum(storages.values())
+    if recs["prefill"]["memory_parts"]["params"] != card_bytes:
+        raise AssertionError(f"roofline: the dry run's params are "
+                             f"{recs['prefill']['memory_parts']['params']} bytes, the "
+                             f"card's {card_bytes}")
+    log(f"[roofline] argument bytes of the params: dry run "
+        f"{recs['prefill']['memory_parts']['params']}, allocated on the card {card_bytes}")
+
+    gen = torch.Generator(device=dev).manual_seed(20)
+    tokens = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), device=dev, generator=gen)
+    pre_cache = cache_init(cfg, BATCH, PROMPT, device=dev)
+    dec_cache = cache_init(cfg, BATCH, PROMPT + GEN, device=dev)
+    dec_tok = tokens[:, -1].contiguous()
+    dec_pos = torch.full((BATCH,), PROMPT + GEN - 1, dtype=torch.int32, device=dev)
+
+    def prefill():
+        with torch.inference_mode():
+            forward_prefill(params, cfg, {"tokens": tokens}, pre_cache)
+
+    def decode():
+        with torch.inference_mode():
+            forward_decode(params, cfg, {"tokens": dec_tok}, dec_cache, dec_pos)
+
+    trainable, frozen = peft.partition(params, cfg.quant)
+    opt = adamw_init(trainable)
+    batch = batch_tensors(SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+                          .batch_at(0), "cuda")
+
+    def train():
+        train_step(trainable, frozen, opt, batch, cfg=cfg, lr=PEFT_LR, backend="fused")
+
+    reused = {
+        "prefill": f"phase 3's serve_batch prefill (544 columns, 512 live) "
+                   f"{MEASURED['serve bf16']['prefill_ms']:.1f} ms",
+        "decode": f"phase 3's decode {MEASURED['serve bf16']['decode_ms'] / (GEN - 1):.2f} "
+                  f"ms a step",
+        "train": f"phase 5's median step "
+                 f"{statistics.median(MEASURED['train peft']['step_ms'][1:]):.1f} ms"}
+    failures = []
+    for name, step in (("prefill", prefill), ("decode", decode), ("train", train)):
+        rec = recs[name]
+        rl = rec["roofline"]
+        bound_ms = max(rl["t_compute_s"], rl["t_memory_s"], rl["t_collective_s"]) * 1e3
+        before = torch.cuda.memory_allocated()
+        wall, launches, busy, by_kernel, peak = measure_step(torch, step)
+        calls = {n: rec["kernels"].get(n, {}).get("calls", 0) for n in launches}
+        if calls != launches:
+            failures.append(f"{name}: dry-run calls {calls} != launches {launches}")
+        shares = {"busy": bound_ms / busy, "wall": bound_ms / wall}
+        log(f"[roofline {name}] {cfg.name} {cfg.num_layers} layers {rec['shape']} "
+            f"(seq {ROOFLINE_SHAPES[name][0]}, batch {ROOFLINE_SHAPES[name][1]}): bound "
+            f"{bound_ms:.3f} ms ({rl['bottleneck']}; compute {rl['t_compute_s'] * 1e3:.3f}, "
+            f"memory {rl['t_memory_s'] * 1e3:.3f} ms), model FLOPs "
+            f"{rl['model_flops_per_dev'] / 1e12:.2f} T of {rl['flops_per_dev'] / 1e12:.2f} T, "
+            f"model fraction {rl['model_fraction_of_roofline']:.3f}; card: device busy "
+            f"{busy:.3f} ms ({shares['busy']:.1%} of bound), wall {wall:.3f} ms "
+            f"({shares['wall']:.1%}); {reused[name]}; calls = launches "
+            f"{'yes' if calls == launches else 'NO'}")
+        for n, v in sorted(rec["kernels"].items()):
+            ms = by_kernel.get(n)
+            share = None if not ms else v["bound_s"] * 1e3 / ms
+            if share is not None:
+                shares[n] = share
+            log(f"[roofline {name}] kernel {n}: {v['calls']} calls, bound "
+                f"{v['bound_s'] * 1e3:.3f} ms ({v['bytes'] / 1e9:.3f} GB), profiler device "
+                + ("not measured" if not ms else f"{ms:.3f} ms ({share:.1%} of bound)"))
+        if name == "train":
+            mem = rec["memory"]
+            log(f"[roofline train] memory: dry-run arguments "
+                f"{mem['argument_size_in_bytes'] / 2**30:.2f} GiB, temp estimate "
+                f"{mem['temp_size_in_bytes'] / 2**30:.2f} GiB; the card: allocated before "
+                f"the step {before / 2**30:.2f} GiB, peak during it {peak / 2**30:.2f} GiB "
+                f"(+{(peak - before) / 2**30:.2f})")
+        over = {k: v for k, v in shares.items() if v > 1.0}
+        if over:
+            failures.append(f"{name}: shares above 100% {over}")
+    del trainable, frozen, opt, pre_cache, dec_cache
+    if failures:
+        raise AssertionError("roofline: " + "; ".join(failures))
+
+
 def load_model(cfg, torch):
     """``cfg`` at full width with random weights from seed 0, at full depth
     unless its init would take over 300 s: one period is built first
@@ -3729,11 +3952,13 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    with sharded_ranks() as ranks:  # phase 19's ranks start now, beside phases 1-18
-        return run_phases(torch, F, ranks)
+    # phase 19's ranks start now, beside phases 1-18; the stack holds the
+    # processes a phase starts ahead of its turn
+    with sharded_ranks() as ranks, contextlib.ExitStack() as stack:
+        return run_phases(torch, F, ranks, stack)
 
 
-def run_phases(torch, F, ranks) -> int:
+def run_phases(torch, F, ranks, stack) -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
 
@@ -3764,6 +3989,7 @@ def run_phases(torch, F, ranks) -> int:
 
     # phases 3 and 4: the main paths, each driven with the counts at 0
     cfg, params = load_model(cfg, torch)
+    dry = stack.enter_context(roofline_dry_run_process(cfg.num_layers))  # phase 20's
     paths, depths = {}, {}  # each path's launch counts and the depth they were taken at
     for kv in ("bf16", "int8"):
         t0 = time.perf_counter()
@@ -3785,6 +4011,11 @@ def run_phases(torch, F, ranks) -> int:
     paths["train peft"], paths["train peft ref check"] = train_peft(cfg, params, torch)
     depths["train peft"], depths["train peft ref check"] = cfg.num_layers, CHECK_LAYERS
     log(f"[train peft] phase time {time.perf_counter() - t0:.1f} s")
+
+    # phase 20: the main path's three steps against their roofline
+    t0 = time.perf_counter()
+    roofline_phase(cfg, params, torch, dry)
+    log(f"[roofline] phase time {time.perf_counter() - t0:.1f} s")
     del params
     torch.cuda.empty_cache()
     t0 = time.perf_counter()

@@ -16,4 +16,5 @@ from repro_torch.configs.base import (  # noqa: F401
     ShapeCfg,
     XLSTMCfg,
     get_config,
+    list_configs,
 )

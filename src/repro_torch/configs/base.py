@@ -11,7 +11,8 @@ from repro_torch.core.lords import QuantSpec
 
 __all__ = ["MoECfg", "MLACfg", "MambaCfg", "XLSTMCfg", "ModelConfig",
            "ShapeCfg", "SHAPES", "KV_CACHE_DTYPES", "ATTN_KINDS", "FAMILIES",
-           "INPUT_KINDS", "MIXER_KINDS", "register", "get_config"]
+           "INPUT_KINDS", "MIXER_KINDS", "register", "get_config",
+           "list_configs"]
 
 KV_CACHE_DTYPES = ("bf16", "int8")
 ATTN_KINDS = ("gqa", "mla")
@@ -180,6 +181,9 @@ class ShapeCfg:
 
 SHAPES = {
     "train_4k": ShapeCfg("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCfg("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCfg("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCfg("long_500k", 524288, 1, "decode"),
 }
 
 
@@ -204,3 +208,9 @@ def get_config(name: str) -> ModelConfig:
         raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[key]()
 
+
+def list_configs() -> list[str]:
+    """Every registered architecture's name, sorted."""
+    import repro_torch.configs  # noqa: F401  (triggers registration)
+
+    return sorted(cfg().name for cfg in _REGISTRY.values())

@@ -30,9 +30,15 @@ all-reduce backward) and :func:`exchange` (:func:`all_to_all` forward, the
 inverse all-to-all backward) are the layout changes the sharded model
 writes out where JAX leaves them to GSPMD and ``shard_map``.
 
-Each collective counts its calls (``all_reduce.calls`` ...) and the bytes
-of this rank's input to them (``all_reduce.bytes`` ...): plain integers,
-read by ``chip_smoke.py`` to print the collectives of a layer.
+Each collective counts its calls (``all_reduce.calls`` ...), the bytes
+of this rank's input to them (``all_reduce.bytes`` ...; ``chip_smoke.py``
+prints the collectives of a layer from them) and of its output
+(``all_reduce.out_bytes`` ...: an all-gather's output is its input times
+the group's ranks; the JAX package's roofline counts output bytes, and
+:func:`repro_torch.launch.roofline.collective_bytes` reads these): plain
+integers.  On tensors that hold no values (the dry run's fake tensors)
+the backends run their shape-only kernels and move nothing; the counts
+are those of a real run.
 """
 from __future__ import annotations
 
@@ -40,7 +46,7 @@ import torch
 
 __all__ = ["all_reduce", "all_gather", "broadcast", "all_to_all", "gather",
            "scatter", "reduce_grad", "exchange", "barrier", "broadcast_mesh",
-           "reset_counts", "counts", "byte_counts"]
+           "reset_counts", "counts", "byte_counts", "out_byte_counts"]
 
 
 def _axes(axes) -> tuple:
@@ -99,6 +105,7 @@ def all_reduce(t: torch.Tensor, mesh, axes) -> torch.Tensor:
         dist.all_reduce(buf, group=group)
         all_reduce.calls += 1
         all_reduce.bytes += _nbytes(buf)
+        all_reduce.out_bytes += _nbytes(buf)
     if buf is not t:
         t.copy_(buf)
     return t
@@ -122,6 +129,7 @@ def all_gather(t: torch.Tensor, mesh, axes, dim: int = -1) -> torch.Tensor:
         dist.all_gather_into_tensor(out, src, group=groups[0])
         all_gather.calls += 1
         all_gather.bytes += _nbytes(src)
+        all_gather.out_bytes += _nbytes(out)
         t = out.movedim(0, dim)
     return t
 
@@ -138,6 +146,7 @@ def broadcast(t: torch.Tensor, mesh, axis: str, src: int = 0) -> torch.Tensor:
         dist.broadcast(buf, group_src=src, group=groups[0])
         broadcast.calls += 1
         broadcast.bytes += _nbytes(buf)
+        broadcast.out_bytes += _nbytes(buf)
         if buf is not t:
             t.copy_(buf)
     return t
@@ -166,6 +175,7 @@ def all_to_all(t: torch.Tensor, mesh, axes, split_dim: int,
     dist.all_to_all_single(recv, send, group=group)
     all_to_all.calls += 1
     all_to_all.bytes += _nbytes(send)
+    all_to_all.out_bytes += _nbytes(recv)
     piece = recv.shape[1:]
     out = recv.movedim(0, concat_dim)        # (…, n, piece[concat_dim], …)
     return out.reshape(*piece[:concat_dim], n * piece[concat_dim],
@@ -303,7 +313,7 @@ _COUNTED = (all_reduce, all_gather, broadcast, all_to_all)
 
 def reset_counts() -> None:
     for fn in _COUNTED:
-        fn.calls = fn.bytes = 0
+        fn.calls = fn.bytes = fn.out_bytes = 0
 
 
 def counts() -> dict:
@@ -315,6 +325,12 @@ def byte_counts() -> dict:
     """The bytes of this rank's inputs to each collective since
     :func:`reset_counts`."""
     return {fn.__name__: fn.bytes for fn in _COUNTED}
+
+
+def out_byte_counts() -> dict:
+    """The bytes of this rank's outputs of each collective since
+    :func:`reset_counts`."""
+    return {fn.__name__: fn.out_bytes for fn in _COUNTED}
 
 
 reset_counts()

@@ -23,7 +23,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 from repro_torch.kernels.attn_prefill import HEAD_DIMS
 from repro_torch.kernels.lords_matmul import _sms
 from repro_torch.kernels.ref import attn_decode_kmask
@@ -115,8 +115,12 @@ def attn_decode(q, k, v, kmask, k_scale=None, v_scale=None, *,
     quantized = check_kv(what, q, k, v, k_scale, v_scale, (b, cap, nkv))
     _build.require_dtype(what, kmask, torch.float32, "kmask")
     scales = dict(k_scale=k_scale, v_scale=v_scale) if quantized else {}
+    if cost.active():
+        cost.record(what, cost.attn_decode(q.shape, k.shape, k.element_size(),
+                                           cost.live_count(lambda m: m == 0, kmask)))
     if not _build.on_card(what, q=q, k=k, v=v, kmask=kmask, **scales):
-        return attn_decode_kmask(q, k, v, kmask, logit_scale, k_scale, v_scale)
+        return cost.plain(attn_decode_kmask, q, k, v, kmask, logit_scale, k_scale,
+                          v_scale)
     if hd not in HEAD_DIMS:
         raise ValueError(f"{what}: head dim {hd} not in {HEAD_DIMS}")
     dev = q.device

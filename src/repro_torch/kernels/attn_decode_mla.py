@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 from repro_torch.kernels.attn_decode import launch_buffers, split_plan
 from repro_torch.kernels.lords_matmul import _sms
 from repro_torch.kernels.ref import attn_mla_decode_ref
@@ -108,10 +108,13 @@ def attn_decode_mla(q_lat, q_rope, c, k_rope, pos, c_scale=None, *,
     _build.require_dtype(what, pos, torch.int32, "pos")
     quantized = check_mla(what, q_lat, q_rope, c, k_rope, c_scale, (b, cap))
     scales = dict(c_scale=c_scale) if quantized else {}
+    if cost.active():
+        cost.record(what, cost.attn_decode_mla(q_lat.shape, q_rope.shape, c.shape,
+                                               c.element_size(), cost.pos_live(pos)))
     if not _build.on_card(what, q_lat=q_lat, q_rope=q_rope, c=c, k_rope=k_rope,
                           pos=pos, **scales):
-        return attn_mla_decode_ref(q_lat, q_rope, c, k_rope, pos, c_scale,
-                                   logit_scale)
+        return cost.plain(attn_mla_decode_ref, q_lat, q_rope, c, k_rope, pos, c_scale,
+                          logit_scale)
     check_latent_dims(what, lat, rope)
     out = launch_mla(
         "attn_decode_mla_launch", "pppppppppfiiiiiiip", q_lat,

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 from repro_torch.kernels.attn_decode_mla import (check_latent_dims, check_mla,
                                                  launch_mla)
 from repro_torch.kernels.ref import attn_mla_decode_paged_ref
@@ -50,10 +50,14 @@ def attn_decode_mla_paged(q_lat, q_rope, c_pool, k_rope_pool, pt, pos,
     quantized = check_mla(what, q_lat, q_rope, c_pool, k_rope_pool, c_scale,
                           (n_pages, ps))
     scales = dict(c_scale=c_scale) if quantized else {}
+    if cost.active():
+        cost.record(what, cost.attn_decode_mla_paged(
+            q_lat.shape, q_rope.shape, c_pool.shape, pt.shape, c_pool.element_size(),
+            cost.pos_live(pos)))
     if not _build.on_card(what, q_lat=q_lat, q_rope=q_rope, c_pool=c_pool,
                           k_rope_pool=k_rope_pool, pt=pt, pos=pos, **scales):
-        return attn_mla_decode_paged_ref(pt, q_lat, q_rope, c_pool, k_rope_pool,
-                                         pos, c_scale, logit_scale)
+        return cost.plain(attn_mla_decode_paged_ref, pt, q_lat, q_rope, c_pool,
+                          k_rope_pool, pos, c_scale, logit_scale)
     check_latent_dims(what, lat, rope)
     npages = pt.shape[1]
     out = launch_mla(

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 from repro_torch.kernels.attn_decode import check_kv, launch_buffers, split_plan
 from repro_torch.kernels.attn_prefill import HEAD_DIMS
 from repro_torch.kernels.lords_matmul import _sms
@@ -49,11 +49,14 @@ def attn_decode_paged(q, k_pool, v_pool, pt, pos, k_scale=None, v_scale=None,
     _build.require_dtype(what, pt, torch.int32, "pt")
     _build.require_dtype(what, pos, torch.int32, "pos")
     scales = dict(k_scale=k_scale, v_scale=v_scale) if quantized else {}
+    if cost.active():
+        cost.record(what, cost.attn_decode_paged(q.shape, k_pool.shape, pt.shape,
+                                                 k_pool.element_size(), cost.pos_live(pos)))
     if not _build.on_card(what, q=q, k_pool=k_pool, v_pool=v_pool, pt=pt,
                           pos=pos, **scales):
         nh = nkv * g
-        y = attn_decode_paged_ref(pt, q.reshape(b, nh, hd), k_pool, v_pool,
-                                  pos, k_scale, v_scale, logit_scale)
+        y = cost.plain(attn_decode_paged_ref, pt, q.reshape(b, nh, hd), k_pool,
+                       v_pool, pos, k_scale, v_scale, logit_scale)
         return y.reshape(b, nkv, g, hd)
     if hd not in HEAD_DIMS:
         raise ValueError(f"{what}: head dim {hd} not in {HEAD_DIMS}")

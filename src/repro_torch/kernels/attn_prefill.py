@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 from repro_torch.kernels.ref import attn_prefill_pos
 
 __all__ = ["attn_prefill", "BQ", "BKV", "HEAD_DIMS", "HEAD_DIM_PAIRS"]
@@ -47,8 +47,11 @@ def attn_prefill(q, k, v, qpos, kpos, *, logit_scale: float) -> torch.Tensor:
     if s % BQ or cap % BKV:
         raise ValueError(f"{what}: lengths (s={s}, S={cap}) not divisible "
                          f"by the kernel tile ({BQ}, {BKV})")
+    if cost.active():
+        cost.record(what, cost.attn_prefill(q.shape, k.shape, v.shape,
+                                            *cost.prefill_live(qpos, kpos)))
     if not _build.on_card(what, q=q, k=k, v=v, qpos=qpos, kpos=kpos):
-        return attn_prefill_pos(q, k, v, qpos, kpos, logit_scale)
+        return cost.plain(attn_prefill_pos, q, k, v, qpos, kpos, logit_scale)
     if (hd, hd_v) not in HEAD_DIM_PAIRS:
         raise ValueError(f"{what}: (hd, hd_v) = {(hd, hd_v)} not in "
                          f"{HEAD_DIM_PAIRS}")

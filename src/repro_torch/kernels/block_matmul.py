@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.quantize import pack_spec
-from repro_torch.kernels import _build, gemv
+from repro_torch.kernels import _build, cost, gemv
 from repro_torch.kernels.lords_decode import stack_size
 from repro_torch.kernels.lords_matmul import _sms, device_lut, split_k
 from repro_torch.kernels.ref import block_matmul_ref
@@ -81,11 +81,13 @@ def block_matmul(x, q_packed, s_blk, codebook_name: str = "nf4") -> torch.Tensor
     if stacked and m > DECODE_M_MAX:
         raise ValueError(f"{what}: a stack is served at M <= {DECODE_M_MAX}, "
                          f"got M={m}")
+    if cost.active():
+        cost.record(what, cost.block_matmul(x.shape, q_packed.shape, s_blk.shape))
     if not _build.on_card(what, x=x, q=q_packed, s_blk=s_blk):
         if stacked:
-            return torch.stack([block_matmul_ref(*ops, bs, codebook_name)
-                                for ops in zip(x, q_packed, s_blk)])
-        return block_matmul_ref(x, q_packed, s_blk, bs, codebook_name)
+            return cost.plain(lambda: torch.stack([block_matmul_ref(*ops, bs, codebook_name)
+                                                   for ops in zip(x, q_packed, s_blk)]))
+        return cost.plain(block_matmul_ref, x, q_packed, s_blk, bs, codebook_name)
     lut = device_lut(codebook_name, str(x.device))
     y = torch.empty((*x.shape[:-2], m, n), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build, gemv
+from repro_torch.kernels import _build, cost, gemv
 from repro_torch.kernels.lords_matmul import _sms, check_lords_operands, device_lut
 from repro_torch.kernels.ref import lords_matmul_ref
 
@@ -53,11 +53,13 @@ def lords_decode(x, q_packed, b, a, codebook_name: str = "nf4") -> torch.Tensor:
     if n % BN or k % BK:
         raise ValueError(f"{what}: shape (N={n}, K={k}) not divisible by "
                          f"the kernel tile ({BN}, {BK})")
+    if cost.active():
+        cost.record(what, cost.lords_decode(x.shape, q_packed.shape, b.shape, a.shape))
     if not _build.on_card(what, x=x, q=q_packed, b=b, a=a):
         if stacked:
-            return torch.stack([lords_matmul_ref(*ops, codebook_name)
-                                for ops in zip(x, q_packed, b, a)])
-        return lords_matmul_ref(x, q_packed, b, a, codebook_name)
+            return cost.plain(lambda: torch.stack([lords_matmul_ref(*ops, codebook_name)
+                                                   for ops in zip(x, q_packed, b, a)]))
+        return cost.plain(lords_matmul_ref, x, q_packed, b, a, codebook_name)
     lut = device_lut(codebook_name, str(x.device))
     # every element of y is written once (split partials meet in ws)
     y = torch.empty((*x.shape[:-2], m, n), dtype=torch.float32, device=x.device)

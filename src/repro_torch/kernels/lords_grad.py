@@ -28,7 +28,7 @@ import ctypes
 import torch
 
 from repro_torch.core.quantize import pack_spec
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 from repro_torch.kernels.lords_matmul import check_lords_operands, device_lut
 from repro_torch.kernels.ref import block_grads_ref, lords_grads_ref
 
@@ -73,9 +73,12 @@ def lords_grad(x, g, q_packed, b, a, codebook_name: str = "nf4", *, w=None):
     operands = dict(x=x, g=g, q=q_packed, b=b, a=a)
     if w is not None:
         operands["w"] = w
+    if cost.active():
+        cost.record(what, cost.lords_grad(x.shape, g.shape, q_packed.shape, b.shape,
+                                          a.shape, qat=w is not None))
     if not _build.on_card(what, **operands):
-        out = lords_grads_ref(g, x, q_packed, b, a, codebook_name, w=w,
-                              want_dx=False)
+        out = cost.plain(lords_grads_ref, g, x, q_packed, b, a, codebook_name, w=w,
+                         want_dx=False)
         return (out[0][None], out[1][None], *out[2:])
     dev = x.device
     lut = device_lut(codebook_name, str(dev))
@@ -134,9 +137,11 @@ def block_grad(x, g, q_packed, block_size: int, codebook_name: str = "nf4"):
         raise ValueError(
             f"{what}: shape (M={m}, N={n}, K={k}) not divisible by the "
             f"kernel tile (N: {GRAD_BN}, K: {GRAD_BK}), or M < 1")
+    if cost.active():
+        cost.record(what, cost.block_grad(x.shape, g.shape, q_packed.shape, block_size))
     if not _build.on_card(what, x=x, g=g, q=q_packed):
-        ds, = block_grads_ref(g, x, q_packed, None, block_size, codebook_name,
-                              want_dx=False)
+        ds, = cost.plain(block_grads_ref, g, x, q_packed, None, block_size,
+                         codebook_name, want_dx=False)
         return ds[None]
     dev = x.device
     lut = device_lut(codebook_name, str(dev))

@@ -17,7 +17,7 @@ import torch
 
 from repro_torch.core import lut as lut_mod
 from repro_torch.core.quantize import pack_spec
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 from repro_torch.kernels.ref import lords_matmul_ref
 
 __all__ = ["lords_matmul", "split_k", "BM", "BN", "BK"]
@@ -98,8 +98,10 @@ def lords_matmul(x, q_packed, b, a, codebook_name: str = "nf4") -> torch.Tensor:
         raise ValueError(
             f"{what}: shape (M={m}, N={n}, K={k}) not divisible by the "
             f"kernel tile (N: {BN}, K: {BK}), or M < 1")
+    if cost.active():
+        cost.record(what, cost.lords_matmul(x.shape, q_packed.shape, b.shape, a.shape))
     if not _build.on_card(what, x=x, q=q_packed, b=b, a=a):
-        return lords_matmul_ref(x, q_packed, b, a, codebook_name)
+        return cost.plain(lords_matmul_ref, x, q_packed, b, a, codebook_name)
     lut = device_lut(codebook_name, str(x.device))
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     splits = split_k(m, n, k, _sms(x.device))

@@ -19,7 +19,7 @@ import ctypes
 import torch
 
 from repro_torch.core.quantize import pack_spec
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 from repro_torch.kernels.block_matmul import check_block_operands
 from repro_torch.kernels.lords_matmul import check_lords_operands, device_lut
 from repro_torch.kernels.ref import block_matmul_t_ref, lords_matmul_t_ref
@@ -61,8 +61,10 @@ def lords_matmul_t(g, q_packed, b, a, codebook_name: str = "nf4") -> torch.Tenso
         what, torch.empty((g.shape[0], a.shape[1]), dtype=g.dtype,
                           device="meta"), q_packed, b, a, codebook_name)
     _check_tiles(what, m, n, k)
+    if cost.active():
+        cost.record(what, cost.lords_matmul_t(g.shape, q_packed.shape, b.shape, a.shape))
     if not _build.on_card(what, g=g, q=q_packed, b=b, a=a):
-        return lords_matmul_t_ref(g, q_packed, b, a, codebook_name)
+        return cost.plain(lords_matmul_t_ref, g, q_packed, b, a, codebook_name)
     lut = device_lut(codebook_name, str(g.device))
     dx = torch.empty((m, k), dtype=torch.float32, device=g.device)
     ws = torch.empty(_workspace(n, k, r, ps.bits), dtype=torch.float32,
@@ -92,8 +94,11 @@ def block_matmul_t(g, q_packed, s_blk, codebook_name: str = "nf4") -> torch.Tens
     n, bs, ps = check_block_operands(what, m, k, q_packed, s_blk, codebook_name)
     _build.require_dtype(what, g, torch.bfloat16, "g")
     _check_tiles(what, m, n, k)
+    if cost.active():
+        cost.record(what, cost.block_matmul_t(g.shape, q_packed.shape, s_blk.shape,
+                                              codebook_name))
     if not _build.on_card(what, g=g, q=q_packed, s_blk=s_blk):
-        return block_matmul_t_ref(g, q_packed, s_blk, bs, codebook_name)
+        return cost.plain(block_matmul_t_ref, g, q_packed, s_blk, bs, codebook_name)
     lut = device_lut(codebook_name, str(g.device))
     dx = torch.empty((m, k), dtype=torch.float32, device=g.device)
     fn = _build.bind("block_matmul_t", "block_matmul_t_launch", "pppppiiiiiip")

@@ -25,7 +25,7 @@ import torch
 from repro_torch.core import lut as lut_mod
 from repro_torch.core.quantize import pack_spec, unpack_codes
 from repro_torch.core.scaling import clamp_scale
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 from repro_torch.kernels.ref import lut_quantize_ref
 
 __all__ = ["lut_quantize", "device_table", "flipped_codes", "MAX_RANK"]
@@ -57,8 +57,10 @@ def lut_quantize(w, b, a, codebook_name: str = "nf4") -> torch.Tensor:
         raise ValueError(f"{what}: K={k} is not a multiple of 8")
     for name, t in (("w", w), ("b", b), ("a", a)):
         _build.require_dtype(what, t, torch.float32, name)
+    if cost.active():
+        cost.record(what, cost.lut_quantize(w.shape, b.shape, codebook_name))
     if not _build.on_card(what, w=w, b=b, a=a):
-        return lut_quantize_ref(w, b, a, codebook_name)
+        return cost.plain(lut_quantize_ref, w, b, a, codebook_name)
     if r > MAX_RANK:
         raise ValueError(f"{what}: rank {r} > {MAX_RANK} on the card")
     ps = pack_spec(codebook_name)

@@ -166,15 +166,19 @@ def _one_mesh(shape: dict, rank: int) -> Mesh:
     return Mesh(shape, coords, groups, rank, everyone if member else None)
 
 
-def make_host_mesh(data: int = 1, model: int = 1) -> Mesh:
-    """A ('data', 'model') mesh of ``data`` × ``model`` ranks.  1×1 (the
-    default) is this process alone and needs no process group; a larger
-    mesh needs an initialized world of at least ``data · model`` ranks and
-    spans ranks 0 … data·model-1.  Every rank of the world calls this and
-    keeps the groups it belongs to; the meshes of the shrink chain
-    (:meth:`Mesh.shrink`) are made here too."""
+def make_host_mesh(data: int = 1, model: int = 1, pod: int = 1) -> Mesh:
+    """A ('data', 'model') mesh of ``data`` × ``model`` ranks, or with
+    ``pod`` > 1 a ('pod', 'data', 'model') one (the multi-pod layout, the
+    'pod' axis the slow one).  1×1 (the default) is this process alone and
+    needs no process group; a larger mesh needs an initialized world of at
+    least as many ranks and spans ranks 0 … size-1.  Every rank of the
+    world calls this and keeps the groups it belongs to; the meshes of the
+    shrink chain (:meth:`Mesh.shrink`) of a two-axis mesh are made here
+    too (a multi-pod mesh has none)."""
     shape = {"data": data, "model": model}
-    size = data * model
+    if pod > 1:
+        shape = {"pod": pod, **shape}
+    size = math.prod(shape.values())
     if size == 1:
         return Mesh(shape, {a: 0 for a in shape}, {}, 0)
     import torch.distributed as dist
@@ -189,7 +193,7 @@ def make_host_mesh(data: int = 1, model: int = 1) -> Mesh:
                          f"{dist.get_world_size()}")
     rank = dist.get_rank()
     mesh = last = _one_mesh(shape, rank)
-    while last.size > 1:
+    while last.size > 1 and pod == 1:
         last._next = _one_mesh(
             dict(zip(("data", "model"), shrink_shape(data, model))), rank)
         last = last._next

@@ -394,7 +394,8 @@ def _train_rank(args, data: int = 1, model: int = 1) -> dict:
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True)
-    ap.add_argument("--shape", default="train_4k", choices=sorted(SHAPES))
+    ap.add_argument("--shape", default="train_4k",
+                    choices=sorted(k for k, v in SHAPES.items() if v.kind == "train"))
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--lr", type=float, default=1e-4)
     ap.add_argument("--smoke", action="store_true",

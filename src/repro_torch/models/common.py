@@ -52,9 +52,12 @@ def f32_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     package's ``f32_einsum``).  On the card the product keeps its f32 output
     (``out_dtype``); a bf16 output would round the logits and create argmax
     ties.  On the CPU, which has no mixed-dtype product, the operands are
-    upcast — exact for bf16 values."""
+    upcast — exact for bf16 values.  Shape-only tensors (the dry run's)
+    take the card's form, so its count is the card's."""
+    from torch._subclasses.fake_tensor import is_fake
+
     x2d = x.reshape(-1, x.shape[-1]).to(w.dtype)
-    if x2d.is_cuda:
+    if x2d.is_cuda or is_fake(x2d):
         y = torch.mm(x2d, w.t(), out_dtype=torch.float32)
     else:
         y = x2d.to(torch.float32) @ w.to(torch.float32).t()

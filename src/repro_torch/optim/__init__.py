@@ -1,4 +1,5 @@
-"""repro_torch.optim — AdamW over the trainable leaves, with a spike guard."""
+"""repro_torch.optim — AdamW over the trainable leaves, with a spike guard,
+and the LR schedules."""
 from repro_torch.optim.adamw import (  # noqa: F401
     AdamWState,
     adamw_init,
@@ -6,3 +7,4 @@ from repro_torch.optim.adamw import (  # noqa: F401
     global_norm,
     guarded_update,
 )
+from repro_torch.optim.schedule import constant, cosine_warmup, linear_warmup  # noqa: F401

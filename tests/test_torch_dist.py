@@ -813,6 +813,20 @@ def test_collectives_over_one_axis(ranks):
         assert c["gathered"] == list(range(n))
 
 
+@pytest.mark.parametrize("kind", ["train", "prefill"])
+def test_dry_run_counts_rank0s_real_run(ranks, kind):
+    """The dry run (repro_torch.launch.dryrun) of the smoke llama's PEFT
+    step and aligned prefill on this world's mesh, shape-only, against
+    rank 0's real run of the same cells (torch_dist_ranks.dryrun_vs_real):
+    the same collective calls and output bytes by kind, the same kernel
+    calls, and argument bytes equal to the sum of rank 0's shards'
+    storage bytes (params, moments, batch rows, caches)."""
+    got = ranks[0]["dryrun"][kind]
+    assert got["dry"] == got["real"]
+    assert sum(got["real"]["collective_counts"].values()) > 0
+    assert got["real"]["kernels"]["lords_matmul"] > 0
+
+
 def test_sharded_peft_steps_match_single_rank(refs, ranks):
     """3 PEFT steps on the mesh: the losses equal the port's 1×1 run (rtol
     1e-4, atol 1e-5) and the JAX package's single-device run (2e-3, the

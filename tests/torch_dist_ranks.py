@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import ShapeCfg
+from repro_torch.core import peft
 from repro_torch.core.lords import QuantSpec
 from repro_torch.distributed import collectives
 from repro_torch.distributed.sharding import (
@@ -24,11 +25,15 @@ from repro_torch.distributed.sharding import (
     shard_tree,
     spec_axes,
 )
-from repro_torch.kernels import dispatch
+from repro_torch.kernels import cost, dispatch
+from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.roofline import collective_bytes
 from repro_torch.launch.serve import serve_batch
-from repro_torch.launch.steps import data_rows
+from repro_torch.launch.steps import data_rows, train_step
 from repro_torch.launch.train import run_training
+from repro_torch.models import cache_init, forward_prefill
+from repro_torch.optim import adamw_init
 from repro_torch.robustness import FaultPlan
 
 
@@ -459,6 +464,84 @@ def run_all(shape: dict, inputs: dict) -> dict:
                               os.path.join(base, "ckpt"))
     out["all_to_all"] = all_to_all_checks(mesh)
     out["moe"] = moe_model(mesh, dict(inputs["moe"], dir=base))
+    out["dryrun"] = dryrun_vs_real(mesh, cfg, params)
+    return out
+
+
+DRYRUN_SHAPES = (ShapeCfg("smoke peft", 32, 4, "train"),
+                 ShapeCfg("smoke prefill", 32, 4, "prefill"))
+
+
+def _storage_bytes(tree) -> int:
+    seen = {}
+    for _, t in _flat(tree):
+        seen[t.untyped_storage().data_ptr()] = t.untyped_storage().nbytes()
+    return sum(seen.values())
+
+
+def _real_step(mesh, cfg, params, shape) -> dict:
+    """One PEFT step (as run_training lays it out) or one aligned prefill
+    (as serve_batch lays it out) on this rank's windows: its collectives
+    (calls, output bytes), the kernel calls it records and the bytes of
+    the arguments this rank holds."""
+    whole = _clone(params)
+    specs = model_pspecs(whole, cfg, mesh)
+    local = dict(shard_tree(whole, specs, mesh))
+    b, s = shape.global_batch, shape.seq_len
+    rows, split = data_rows(mesh, b)
+    gen = torch.Generator().manual_seed(4)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen)
+    collectives.reset_counts()
+    with cost.counting() as kernels:
+        if shape.kind == "train":
+            trainable, frozen = peft.partition(local, cfg.quant)
+            sharded = {}
+            for k in trainable:
+                sp = specs
+                for key in k:
+                    sp = sp[key]
+                if axes := tuple(a for e in sp for a in spec_axes(e)):
+                    sharded[k] = axes
+            opt = adamw_init(trainable)
+            batch = {"tokens": tokens, "labels": tokens.clone()}
+            argument = (_storage_bytes(local) + _storage_bytes([opt.mu, opt.nu, opt.step])
+                        + 2 * tokens[rows].numel() * tokens.element_size())
+            collectives.reset_counts()
+            train_step(trainable, frozen, opt, batch, cfg=cfg, lr=1e-3, backend="fused",
+                       mesh=mesh, sharded=sharded)
+        else:
+            with dispatch.shard_scope(mesh):
+                cache = cache_init(cfg, rows.stop - rows.start, s, device="cpu")
+            window = {"tokens": tokens[rows]}
+            argument = (_storage_bytes(local) + _storage_bytes(cache)
+                        + window["tokens"].numel() * tokens.element_size())
+            collectives.reset_counts()
+            with (torch.no_grad(), dispatch.backend_scope("fused"),
+                  dispatch.shard_scope(mesh, tokens_split=split)):
+                forward_prefill(local, cfg, window, cache)
+    coll = collective_bytes()
+    return {"collectives": {k: v for k, v in coll.items() if k != "counts"},
+            "collective_counts": coll["counts"], "argument": argument,
+            "kernels": dict(kernels.calls)}
+
+
+def dryrun_vs_real(mesh, cfg, params) -> dict:
+    """Each rank's real PEFT step and prefill (:data:`DRYRUN_SHAPES`) and,
+    on rank 0, the dry run of the same cells on this world's mesh: shape-
+    only tensors, whose collectives move nothing, so rank 0 runs alone."""
+    out = {}
+    for shape in DRYRUN_SHAPES:
+        real = _real_step(mesh, cfg, params, shape)
+        collectives.barrier(mesh)
+        if mesh.rank == 0:
+            rec = dryrun.run_cell("llama3-8b", shape, cfg_mutate=lambda _: cfg, mesh=mesh,
+                                  verbose=False)
+            dry = {"collectives": rec["collectives"],
+                   "collective_counts": rec["collective_counts"],
+                   "argument": rec["memory"]["argument_size_in_bytes"],
+                   "kernels": {n: v["calls"] for n, v in rec["kernels"].items()}}
+            out[shape.kind] = {"real": real, "dry": dry}
+        collectives.barrier(mesh)
     return out
 
 
